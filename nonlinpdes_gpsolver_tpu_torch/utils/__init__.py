@@ -1,0 +1,11 @@
+from .sampling import sample_random, sample_grid, test_grid
+from .metrics import ErrorStats, PhaseTimers, error_stats
+
+__all__ = [
+    "sample_random",
+    "sample_grid",
+    "test_grid",
+    "ErrorStats",
+    "PhaseTimers",
+    "error_stats",
+]

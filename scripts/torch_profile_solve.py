@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where the device time of one port solve goes, by kernel.
+
+    python3 scripts/torch_profile_solve.py [--sizes 900:124 7800:600] [--top 12]
+
+For each size (the JAX package's canonical N=900 draw, and the port's
+sampler with seed 0 for other sizes) it runs the elliptic solve of
+``chip_smoke.py`` (f32, nugget 1e-5, 4 GN steps, extension to a 60x60 grid)
+once cold, then once more under ``torch.profiler`` and prints one JSON line:
+the synchronized wall seconds of the profiled solve, the device busy time
+(the union of all kernel intervals), the idle share ``1 - busy / wall``, the
+solver's phase seconds, and the ``--top`` kernels by total device time with
+their launch counts. Needs a CUDA card.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main():
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--sizes", nargs="+", default=["900:124", "7800:600"])
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    dev = torch.device("cuda")
+
+    def u_truth(x):
+        return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1]) + 2 * torch.sin(
+            4 * torch.pi * x[0]
+        ) * torch.sin(4 * torch.pi * x[1])
+
+    def rhs_f(x):
+        return -torch.trace(torch.func.hessian(u_truth)(x)) + u_truth(x) ** 3
+
+    Xt = tpt.utils.test_grid(60, 60, device=dev)
+    truth = torch.func.vmap(u_truth)(Xt)
+    for size in args.sizes:
+        n_dom, n_bdy = map(int, size.split(":"))
+
+        def solve():
+            if (n_dom, n_bdy) == (900, 124):
+                inp = tpt.interop.load_canonical_inputs()
+                prob = tpt.interop.problem_from_numpy(**inp, device=dev)
+            else:
+                gen = torch.Generator(device=dev).manual_seed(0)
+                Xd, Xb = tpt.utils.sample_random(gen, n_dom, n_bdy)
+                prob = tpt.models.nonlinear_elliptic(
+                    tpt.SquaredExponential.gaussian(0.2), Xd, Xb, rhs_f, u_truth, seed=1
+                )
+            res = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4)
+            err = tpt.GPSolver.errors(res.posterior.extend(Xt), truth)
+            return res, err
+
+        solve()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res, err = solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+        busy_us, cur_s, cur_e = 0.0, None, None
+        for s, e in spans:
+            if cur_e is None or s > cur_e:
+                busy_us += 0.0 if cur_e is None else cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        if cur_e is not None:
+            busy_us += cur_e - cur_s
+        by_name = defaultdict(lambda: [0, 0.0])
+        for e in kernels:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[: args.top]
+        print(json.dumps({
+            "n_domain": n_dom, "n_boundary": n_bdy, "wall_s": wall,
+            "device_busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / wall,
+            "kernel_launches": len(kernels), "phase_seconds": res.timers,
+            "test_l2": err.l2, "rungs": res.posterior.fp.rungs,
+            "top_kernels": [{"name": n[:120], "launches": c, "ms": ms} for n, (c, ms) in top],
+        }), flush=True)
+        del res
+        torch.cuda.empty_cache()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(json.dumps({"card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

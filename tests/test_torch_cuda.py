@@ -1,0 +1,142 @@
+"""The port on a CUDA card: the Gram tile kernel against its plain version,
+its wrapper's checks, and the canonical solve through the kernel.
+
+These tests need a card and skip without one (the kernel has no CPU mode).
+The file imports nothing of JAX, so on a machine with a card and no JAX it
+runs without the repo's conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nonlinpdes_gpsolver_tpu_torch as tpt
+from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
+from nonlinpdes_gpsolver_tpu_torch.ops.operators import d, d2, identity, laplacian
+
+GATE_L2 = 3.402e-3  # BASELINE.md row 1, the bench.py accuracy gate
+OPS = {"id": identity, "lap": laplacian, "d0": lambda: d(0), "d11": lambda: d2(1, 1)}
+KERNELS = {
+    "gaussian": tpt.SquaredExponential.gaussian(0.2),
+    "aniso_len": tpt.SquaredExponential.anisotropic([0.3, 0.05]),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Gram tile kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _points(n, m, dtype, device, seed=3):
+    rng = np.random.default_rng(seed)
+    return (
+        torch.as_tensor(rng.uniform(0, 1, (n, 2)), dtype=dtype, device=device),
+        torch.as_tensor(rng.uniform(0, 1, (m, 2)), dtype=dtype, device=device),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("kname", list(KERNELS))
+@pytest.mark.parametrize("ox,oy", [("id", "id"), ("lap", "id"), ("lap", "lap"), ("d0", "d0"), ("d11", "id")])
+def test_kernel_matches_plain(cuda, dtype, limit, kname, ox, oy):
+    """max|kernel - plain| / max|block|: 1e-5 in f32 (FMA contraction and
+    summation order differ from the plain version), 1e-12 in f64."""
+    X, Y = _points(300, 171, dtype, cuda)
+    k = KERNELS[kname]
+    fn = gram_tile.gram_tile_pair_fn(k, OPS[ox](), OPS[oy]())
+    before = gram_tile.LAUNCHES
+    got = fn(X, Y)
+    torch.cuda.synchronize()
+    assert gram_tile.LAUNCHES == before + 1
+    ref = k.pair_fn(OPS[ox](), OPS[oy]())(X, Y)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= limit
+
+
+@pytest.mark.cuda
+def test_kernel_writes_into_strided_slot(cuda):
+    """A ragged block lands in a slot of a larger matrix through its row
+    stride and leaves every other entry as it was."""
+    X, Y = _points(33, 17, torch.float64, cuda, seed=4)
+    k = KERNELS["aniso_len"]
+    fn = gram_tile.gram_tile_pair_fn(k, laplacian(), d(1))
+    big = torch.full((40, 30), 7.0, dtype=torch.float64, device=cuda)
+    fn(X, Y, out=big[5:38, 9:26])
+    ref = k.pair_fn(laplacian(), d(1))(X, Y)
+    assert float((big[5:38, 9:26] - ref).abs().max() / ref.abs().max()) <= 1e-12
+    big[5:38, 9:26] = 7.0
+    assert bool((big == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    fn = gram_tile.gram_tile_pair_fn(KERNELS["gaussian"], identity(), identity())
+    X = torch.rand((8, 2), device=cuda)
+    with pytest.raises(TypeError):
+        fn(X.to(torch.bfloat16), X.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(torch.rand((2, 8), device=cuda).T, X)
+    with pytest.raises(ValueError):
+        fn(torch.rand((8, 3), device=cuda), X)
+    with pytest.raises(ValueError, match="stride"):
+        fn(X, X, out=torch.empty((8, 16), device=cuda)[:, ::2])
+
+
+def _u_truth(x):
+    return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1]) + 2 * torch.sin(
+        4 * torch.pi * x[0]
+    ) * torch.sin(4 * torch.pi * x[1])
+
+
+@pytest.mark.cuda
+def test_canonical_factor_takes_no_rung(cuda):
+    """The f64 factorization of the f32 equilibrated Gram matrix accepts the
+    canonical problem at the starting nugget scale; the f32 one took a rung."""
+    prob = tpt.interop.problem_from_numpy(**tpt.interop.load_canonical_inputs(), device=cuda)
+    fp = tpt.GPSolver(prob, nugget=1e-5).fp
+    assert fp.rungs == {"u": 0}
+    assert fp.factors["u"].dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", [identity, laplacian])
+def test_posterior_variance_on_card(cuda, op):
+    """The variance stays on the card: its prior term is one K1 launch on
+    X_test's device. Far from every training point the variance equals the
+    prior (op (x) op) kappa(x, x); elsewhere it lies in [0, prior]."""
+    prob = tpt.interop.problem_from_numpy(**tpt.interop.load_canonical_inputs(), device=cuda)
+    post = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4).posterior
+    k = prob.blocks[0].kernel
+    prior = float(k.pair_fn(op(), op())(*(torch.zeros((1, 2), dtype=torch.float64),) * 2))
+    Xt = torch.cat([
+        tpt.utils.test_grid(30, 30, device=cuda),
+        torch.tensor([[2.5, 2.5], [-1.5, -1.5]], device=cuda),
+    ])
+    before = gram_tile.LAUNCHES
+    var = post.variance(Xt, op=op())
+    torch.cuda.synchronize()
+    assert gram_tile.LAUNCHES - before == 4  # 3 cross-Gram blocks + the prior
+    assert var.device.type == "cuda" and var.dtype == torch.float32 and var.shape == (902,)
+    assert bool(torch.isfinite(var).all())
+    assert float(var.max()) <= prior * (1 + 1e-6)
+    np.testing.assert_allclose(var[-2:].cpu().numpy(), prior, rtol=1e-6)
+    assert bool(torch.equal(post.std(Xt, op=op()), torch.sqrt(var)))
+
+
+@pytest.mark.cuda
+def test_canonical_solve_passes_gate_with_nine_launches(cuda):
+    u_truth = _u_truth
+    prob = tpt.interop.problem_from_numpy(**tpt.interop.load_canonical_inputs(), device=cuda)
+    assert prob.dtype == torch.float32
+    before = gram_tile.LAUNCHES
+    res = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4)
+    Xt = tpt.utils.test_grid(60, 60, device=cuda)
+    pred = res.posterior.extend(Xt)
+    torch.cuda.synchronize()
+    assert gram_tile.LAUNCHES - before == 9
+    err = tpt.GPSolver.errors(pred, torch.func.vmap(u_truth)(Xt))
+    assert err.l2 <= GATE_L2, err
