@@ -1,54 +1,127 @@
-// Gram tile kernel K1 for Hopper (sm_90a).
+// Gram assembly kernel K1 for Hopper (sm_90a).
 //
 // Replaces nonlinpdes_gpsolver_tpu/ops/pallas_gram.py::_tile_kernel, the
-// Pallas TPU kernel of the JAX package. It evaluates one derivative-kernel
-// Gram block
+// Pallas TPU kernel of the JAX package, which evaluates one derivative-kernel
+// Gram block per pallas_call:
 //
 //     out[i, j] = sum_beta c_beta * prod_k p_{beta_k}(u_k) * exp(-sum_k a_k u_k^2),
-//     u = x_i - y_j,
+//     u = x_i - y_j.
 //
-// from a packed term table (built by ops/gram_tile.py::_packed_table from
-// the same _combined_terms as the Pallas kernel): the inverse squared
-// lengthscales a_k, then per term its coefficient c_beta and, per
-// dimension, the ascending Horner coefficients of p_{beta_k} padded to
-// kMaxDeg + 1; a separate int table holds each degree beta_k (0: no factor).
+// Here one launch assembles a whole matrix from a launch plan built by
+// ops/gram_tile.py: every block of a Gram matrix (the upper blocks, their
+// mirrors, and only the upper tiles of each symmetric diagonal block), or
+// every block of a cross-Gram. Each block names its row and column point
+// sets, its offsets in the output and its operator pair's term table.
 //
-// Design. A 2-D grid of 64 x 64 output tiles; each block of 32 x 8 threads
-// stages its 64 X rows, its 64 Y columns and the whole table in shared
-// memory, then every thread evaluates 16 outputs (2 columns x 8 rows) in
-// registers. A warp covers 32 consecutive columns of one row, so the stores
-// are coalesced along the column index; the row stride `ldo` lets a block
-// land straight inside the preallocated Gram matrix. Ragged edges are
-// masked (the Pallas version padded its inputs instead).
+// What bounds it on the H100. The inputs are O(n + m) coordinates and the
+// output is n * m entries, so the floor is the output bytes at 3.35 TB/s;
+// the operations (a few Horner steps per derivative order, a Cody-Waite exp
+// of about 17 instructions) are below that floor only if few instructions
+// are spent per output, and in practice instruction issue is what the
+// kernel waits on. There is no contraction (dim <= 3), so wgmma and the
+// tensor cores have no role, and TMA loads gain nothing for inputs this
+// small. At the canonical sizes the launch itself is the floor.
+//
+// What the design does about it.
+// - One launch per matrix: persistent CTAs (as many as fit on the SMs)
+//   walk a flat list of 64 x 64 output tiles over all blocks; a CTA finds
+//   a tile's block from the tile prefix sums. One launch latency per
+//   matrix instead of one per block, and the SMs stay full when single
+//   blocks are small. The next tile's coordinates are copied into shared
+//   memory with cp.async while the current tile is computed.
+// - Every byte written once: a finished tile is staged in shared memory
+//   (padded to 65 columns against bank conflicts) and stored row by row,
+//   as 16-byte vectors for full tiles of aligned blocks; the tile's
+//   transpose is stored the same way into the mirror block. Symmetric
+//   diagonal blocks compute only the tiles with tile_col >= tile_row; a
+//   tile on the diagonal writes its lower half from the transposed stage.
+//   Theta is exactly symmetric.
+// - Coefficients out of the inner loop: each thread holds 16 outputs
+//   (8 rows x 2 columns) and loops term -> dimension -> Horner step -> its
+//   16 outputs, so each coefficient and degree is read once per term per
+//   thread, and the next term's are read ahead. Degrees are uniform within
+//   a CTA, so the loops do not diverge. p_b has the parity of b, so Horner
+//   runs in s = u^2 (times u for odd b): half the steps of Horner in u.
+// - The plan (descriptors, term tables, Horner coefficients, point
+//   pointers) is one kernel parameter (__grid_constant__, read by broadcast
+//   from the constant bank), packed once per plan and dtype: no
+//   host-to-device copy and no sync per launch. It fits the classic 4 KB
+//   parameter limit (static_assert below).
+//
+// Measurement switches, for scripts/torch_k1_split.py only (the library is
+// never built with them): K1_SPLIT_NO_EVAL replaces the evaluation by a
+// coordinate difference, K1_SPLIT_NO_STORE drops the global stores.
 //
 // Precision. In f32 the exponential is the same Cody-Waite routine as
 // ops/kernels.py::exp_neg_accurate (rintf, the LN2_HI/LN2_LO split, the
 // degree-7 Horner, 2^-k from the exponent bits): the TPU's fast exp pushed
 // Gram eigenvalues negative, so no fast-math exp is used and the library
-// is never built with -use_fast_math. In f64 it is exp().
-//
-// Bound on the H100 SXM. The kernel reads O(n + m) coordinates and writes
-// n * m outputs, so its floor is the larger of the output bytes at
-// 3.35 TB/s and its arithmetic (a few FMAs per Horner step and term, about
-// 20 operations for the exponential) at 67 TFLOP/s in f32 or 34 TFLOP/s in
-// f64 (data sheet rates). Every block of the elliptic solve is bound by its
-// output bytes, and below about 1000 x 1000 outputs by launch latency; the
-// kernel is simple and right first, and tuning it is later work.
+// is never built with -use_fast_math. In f64 it is exp(). Terms are summed
+// in the order of _combined_terms, as the plain version does; Horner in u^2,
+// q = sum_k a_k (u_k^2) and the fused multiply-adds round differently from
+// the plain version, within 1e-5 (f32) and 1e-12 (f64) of a block's scale.
 
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxDim = 3;
 constexpr int kMaxDeg = 8;
-constexpr int kStride = kMaxDeg + 1;  // Horner coefficients per (term, dim)
-constexpr int kMaxTerms = 64;
-constexpr int kTileM = 64;            // rows per block
-constexpr int kTileN = 64;            // columns per block
+constexpr int kMaxTerms = 64;       // merged terms of one operator pair
+constexpr int kMaxPlanTerms = 128;  // all tables of one plan together
+constexpr int kMaxSets = 8;         // point sets of one plan
+constexpr int kMaxBlocks = 36;      // 8 observables: 36 upper blocks
+constexpr int kMaxTables = 36;
+constexpr int kSteps = kMaxDeg / 2 + 1;  // Horner coefficients in u^2 per degree
+constexpr int kPolyLen = (kMaxDeg + 1) * kSteps;
+constexpr int kTile = 64;           // rows and columns of a CTA's tile
 constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
 constexpr int kThreads = kThreadsX * kThreadsY;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = kTile / kThreadsY;  // rows per thread (8)
+constexpr int kCols = kTile / kThreadsX;  // columns per thread (2)
+
+constexpr int kBlockInts = 9;  // ints per block descriptor from the host
+constexpr int kMirror = 1;     // also write the transposed tile
+constexpr int kSymmetric = 2;  // same operator, same points: upper tiles only
+constexpr int kAligned = 4;    // set by the launcher: 16-byte vector stores fit
+
+// 16-byte vectors for the stores of full tiles.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
+struct BlockDesc {
+  int row_off, col_off;  // the block's first row and column in out
+  int n, m;              // rows (x points) and columns (y points)
+  int tile_start;        // first flat tile index of the block
+  int tiles_n;           // tiles along the columns
+  float inv_tiles_n;     // 1 / tiles_n
+  unsigned char x_set, y_set, table, flags;
+};
+
+template <typename T>
+struct Params {
+  T* out;
+  long long ldo;
+  const T* pts[kMaxSets];
+  T inv_sq[kMaxDim];
+  // p_b for dimension k (it depends only on (k, b)) has the parity of b:
+  // poly[k][b][i] is its coefficient of u^(b - 2 i), zero past the end.
+  T poly[kMaxDim][kMaxDeg + 1][kSteps];
+  T coef[kMaxPlanTerms + 1];              // one spare entry: read ahead
+  unsigned short degs[kMaxPlanTerms + 1];  // 4 bits per dimension
+  unsigned char term_start[kMaxTables + 1];
+  int dim, n_sets, n_blocks;
+  int n_tiles;  // tiles of all blocks together
+  BlockDesc blk[kMaxBlocks];
+};
+
+static_assert(sizeof(Params<double>) <= 4096, "plan exceeds the 4 KB parameter limit");
 
 __device__ __forceinline__ float exp_neg(float q) {
   // f32 constants of ops/kernels.py, written as exact hex floats.
@@ -71,119 +144,470 @@ __device__ __forceinline__ float exp_neg(float q) {
 
 __device__ __forceinline__ double exp_neg(double q) { return exp(-q); }
 
+// Where one tile of the flat tile list lies.
+struct TileLoc {
+  int blk, table, r0, c0, rows, cols;
+  bool diag;    // a diagonal tile of a symmetric block
+  bool mirror;  // also store the transpose
+  bool vec;     // a full tile of an aligned block: 16-byte stores
+};
+
+template <typename T>
+__device__ __forceinline__ TileLoc locate(const Params<T>& p, int tile, int b = 0) {
+  // b: a block at or before the tile's (tiles are walked in order)
+  while (b + 1 < p.n_blocks && tile >= p.blk[b + 1].tile_start) ++b;
+  const BlockDesc& d = p.blk[b];
+  const int local = tile - d.tile_start;
+  const bool sym = d.flags & kSymmetric;
+  int tr, tc;
+  if (sym) {
+    // Upper triangle by columns: column tc holds tiles tr = 0..tc.
+    tc = static_cast<int>((sqrtf(8.0f * local + 1.0f) - 1.0f) * 0.5f);
+    while (tc * (tc + 1) / 2 > local) --tc;
+    while ((tc + 1) * (tc + 2) / 2 <= local) ++tc;
+    tr = local - tc * (tc + 1) / 2;
+  } else {
+    tr = static_cast<int>(local * d.inv_tiles_n);
+    while (tr * d.tiles_n > local) --tr;
+    while ((tr + 1) * d.tiles_n <= local) ++tr;
+    tc = local - tr * d.tiles_n;
+  }
+  TileLoc t;
+  t.blk = b;
+  t.table = d.table;
+  t.r0 = tr * kTile;
+  t.c0 = tc * kTile;
+  t.rows = min(kTile, d.n - t.r0);
+  t.cols = min(kTile, d.m - t.c0);
+  t.diag = sym && tr == tc;
+  t.mirror = (d.flags & kMirror) || (sym && tr != tc);
+  t.vec = (d.flags & kAligned) && t.rows == kTile && t.cols == kTile;
+  return t;
+}
+
+// Coordinates of a tile's 64 rows and 64 columns in shared memory:
+// coords[0][k][r] = x_{r0 + r, k}, coords[1][k][c] = y_{c0 + c, k}, zero past
+// the block's edge (those outputs are never stored).
 template <typename T, int DIM>
-__global__ void __launch_bounds__(kThreads)
-gram_tile_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-                 T* __restrict__ out, int64_t n, int64_t m, int64_t ldo,
-                 const T* __restrict__ table, const int* __restrict__ degs,
-                 int n_terms) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T xs[DIM][kTileM];
-  __shared__ T ys[DIM][kTileN];
-  const int term_len = 1 + DIM * kStride;
-  const int tab_len = DIM + n_terms * term_len;
-  T* tab = reinterpret_cast<T*>(smem_raw);
-  int* sdeg = reinterpret_cast<int*>(tab + tab_len);
+using Coords = T[2][DIM][kTile];
 
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kTileM;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kTileN;
-  for (int i = tid; i < tab_len; i += kThreads) tab[i] = table[i];
-  for (int i = tid; i < n_terms * DIM; i += kThreads) sdeg[i] = degs[i];
-  for (int i = tid; i < kTileM * DIM; i += kThreads) {
-    const int r = i / DIM, k = i % DIM;
-    xs[k][r] = row0 + r < n ? X[(row0 + r) * DIM + k] : T(0);
-  }
-  for (int i = tid; i < kTileN * DIM; i += kThreads) {
-    const int c = i / DIM, k = i % DIM;
-    ys[k][c] = col0 + c < m ? Y[(col0 + c) * DIM + k] : T(0);
-  }
-  __syncthreads();
-
-  const T* inv_sq = tab;
+// Start the asynchronous copy (cp.async, no registers held) of a tile's
+// coordinates; the caller waits with cp_async_wait() and a barrier.
+template <typename T, int DIM>
+__device__ __forceinline__ void fetch_coords(const Params<T>& p, const TileLoc& t,
+                                             Coords<T, DIM>& c, int tid) {
+  const BlockDesc& d = p.blk[t.blk];
 #pragma unroll
-  for (int j = 0; j < kTileN / kThreadsX; ++j) {
-    const int c = threadIdx.x + j * kThreadsX;
-    if (col0 + c >= m) continue;
-    for (int i = 0; i < kTileM / kThreadsY; ++i) {
-      const int r = threadIdx.y + i * kThreadsY;
-      if (row0 + r >= n) break;
-      T u[DIM];
-      T q = T(0);
+  for (int e = tid; e < 2 * DIM * kTile; e += kThreads) {
+    const int side = e / (DIM * kTile), rem = e % (DIM * kTile);
+    const int r = rem / DIM, k = rem % DIM;
+    const T* src = p.pts[side ? d.y_set : d.x_set];
+    const int row = (side ? t.c0 : t.r0) + r;
+    const bool valid = row < (side ? d.m : d.n);
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(&c[side][k][r]));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(valid ? src + static_cast<int64_t>(row) * DIM + k : src),
+                 "n"(sizeof(T)), "r"(valid ? static_cast<int>(sizeof(T)) : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The thread's 16 outputs of table `table`: term -> dimension -> Horner
+// step -> outputs, so each coefficient is read once per term. p_b has the
+// parity of b, so it is evaluated by Horner in s = u^2 (times u if b is
+// odd), and q = sum_k a_k s_k.
+template <typename T, int DIM>
+__device__ __forceinline__ void eval_tile(const Params<T>& p, int table, const Coords<T, DIM>& c,
+                                          T (&val)[kRows][kCols]) {
+  auto u = [&](int i, int j, int k) {
+    return c[0][k][threadIdx.y + i * kThreadsY] - c[1][k][threadIdx.x + j * kThreadsX];
+  };
+  T s[kRows][kCols][DIM];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
 #pragma unroll
       for (int k = 0; k < DIM; ++k) {
-        u[k] = xs[k][r] - ys[k][c];
-        q += inv_sq[k] * u[k] * u[k];
+        const T uk = u(i, j, k);
+        s[i][j][k] = uk * uk;
       }
-      T total = T(0);
-      const T* tp = tab + DIM;
-      const int* dp = sdeg;
-      for (int t = 0; t < n_terms; ++t, tp += term_len, dp += DIM) {
-        T term = tp[0];
+      val[i][j] = T(0);
+    }
+
+  // acc = p_deg(u) for dimension k, deg > 0: Horner in s over the
+  // coefficients of u^deg, u^(deg - 2), ..., all loaded at once.
+  auto horner = [&](int k, int deg, T (&acc)[kRows][kCols]) {
+    T cf[kSteps];
 #pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          const int deg = dp[k];
-          if (deg > 0) {
-            const T* cf = tp + 1 + k * kStride;
-            T acc = cf[deg];
-            for (int e = deg - 1; e >= 0; --e) acc = acc * u[k] + cf[e];
-            term *= acc;
-          }
-        }
-        total += term;
+    for (int e = 0; e < kSteps; ++e) cf[e] = p.poly[k][deg][e];
+    const int steps = deg / 2;
+    if (steps == 0) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[i][j] = cf[0];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[i][j] = cf[0] * s[i][j][k] + cf[1];
+#pragma unroll
+      for (int e = 2; e < kSteps; ++e) {
+        if (e > steps) break;
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) acc[i][j] = acc[i][j] * s[i][j][k] + cf[e];
       }
-      out[(row0 + r) * ldo + col0 + c] = total * exp_neg(q);
+    }
+    if (deg & 1) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[i][j] *= u(i, j, k);
+    }
+  };
+
+  // The next term's coefficient and degrees are read one term ahead.
+  int t = p.term_start[table];
+  const int t_end = p.term_start[table + 1];
+  T coef = p.coef[t];
+  unsigned dg = p.degs[t];
+  for (; t < t_end; ++t) {
+    const T coef_next = p.coef[t + 1];
+    const unsigned dg_next = p.degs[t + 1];
+    if (dg == 0) {  // no derivative factor
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) val[i][j] += coef;
+    } else {
+      T prod[kRows][kCols];
+      bool started = false;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+        const int deg = (dg >> (4 * k)) & 15;
+        if (deg == 0) continue;
+        if (!started) {
+          horner(k, deg, prod);
+          started = true;
+        } else {
+          T acc[kRows][kCols];
+          horner(k, deg, acc);
+#pragma unroll
+          for (int i = 0; i < kRows; ++i)
+#pragma unroll
+            for (int j = 0; j < kCols; ++j) prod[i][j] *= acc[i][j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) val[i][j] = coef * prod[i][j] + val[i][j];
+    }
+    coef = coef_next;
+    dg = dg_next;
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      T q = T(0);
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) q += p.inv_sq[k] * s[i][j][k];
+      val[i][j] *= exp_neg(q);
+    }
+}
+
+// Store a staged tile row by row (a warp store covers consecutive
+// entries of a row), its lower half from the transpose on a diagonal tile,
+// then its transpose into the mirror block the same way. Full tiles of
+// aligned blocks go out as 16-byte vectors; other tiles entry by entry.
+template <typename T>
+__device__ __forceinline__ void store_tile(const Params<T>& p, const TileLoc& t,
+                                           const T (&stage)[kTile][kTile + 1], int warp,
+                                           int lane) {
+  const BlockDesc& d = p.blk[t.blk];
+  const int64_t ldo = p.ldo;
+  T* base = p.out + static_cast<int64_t>(d.row_off + t.r0) * ldo + d.col_off + t.c0;
+  T* mbase = p.out + static_cast<int64_t>(d.col_off + t.c0) * ldo + d.row_off + t.r0;
+  if (t.vec) {
+    using V = typename Vec16<T>::type;
+    constexpr int kVec = sizeof(V) / sizeof(T);        // entries per vector
+    constexpr int kPerRow = kTile / kVec;              // vectors per row
+    constexpr int kRowsPerPass = kWarps * 32 / kPerRow;
+    const int q = (warp * 32 + lane) % kPerRow, r_in = (warp * 32 + lane) / kPerRow;
+#pragma unroll
+    for (int pass = 0; pass < kTile / kRowsPerPass; ++pass) {
+      const int rr = r_in + pass * kRowsPerPass;
+      V v;
+      T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+      for (int l = 0; l < kVec; ++l) {
+        const int cc = q * kVec + l;
+        e[l] = (t.diag && cc < rr) ? stage[cc][rr] : stage[rr][cc];
+      }
+      *reinterpret_cast<V*>(base + rr * ldo + q * kVec) = v;
+    }
+    if (!t.mirror) return;
+#pragma unroll
+    for (int pass = 0; pass < kTile / kRowsPerPass; ++pass) {
+      const int cc = r_in + pass * kRowsPerPass;
+      V v;
+      T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+      for (int l = 0; l < kVec; ++l) e[l] = stage[q * kVec + l][cc];
+      *reinterpret_cast<V*>(mbase + cc * ldo + q * kVec) = v;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kTile / kWarps; ++i) {
+    const int rr = warp + i * kWarps;
+    if (rr >= t.rows) break;
+    T* dst = base + rr * ldo;
+#pragma unroll
+    for (int j = 0; j < kTile / 32; ++j) {
+      const int cc = lane + 32 * j;
+      if (cc < t.cols) dst[cc] = (t.diag && cc < rr) ? stage[cc][rr] : stage[rr][cc];
+    }
+  }
+  if (!t.mirror) return;
+#pragma unroll
+  for (int i = 0; i < kTile / kWarps; ++i) {
+    const int cc = warp + i * kWarps;
+    if (cc >= t.cols) break;
+    T* dst = mbase + cc * ldo;
+#pragma unroll
+    for (int j = 0; j < kTile / 32; ++j) {
+      const int rr = lane + 32 * j;
+      if (rr < t.rows) dst[rr] = stage[rr][cc];
     }
   }
 }
 
+// A persistent CTA walks the tile list with stride gridDim.x; the next
+// tile's coordinates are copied into the other buffer while the current
+// tile is computed.
+// In f32 two CTAs fit on an SM (at most 128 registers a thread); in f64
+// the doubled registers would spill, so one.
 template <typename T, int DIM>
-cudaError_t launch(const void* X, const void* Y, void* out, int64_t n,
-                   int64_t m, int64_t ldo, const void* table, const int* degs,
-                   int n_terms, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
+gram_plan_kernel(const __grid_constant__ Params<T> p) {
+  __shared__ T stage[kTile][kTile + 1];
+  __shared__ Coords<T, DIM> coords[2];
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+
+  int tile = static_cast<int>(blockIdx.x), buf = 0;
+  TileLoc cur = locate(p, tile);
+  fetch_coords<T, DIM>(p, cur, coords[0], tid);
+  for (;;) {
+    // The barrier also orders the previous tile's stores (reads of the
+    // stage) before this tile's writes to it.
+    cp_async_wait();
+    __syncthreads();
+    const int next = tile + static_cast<int>(gridDim.x);
+    const bool more = next < p.n_tiles;
+    TileLoc nxt = cur;
+    if (more) {
+      nxt = locate(p, next, cur.blk);
+      fetch_coords<T, DIM>(p, nxt, coords[buf ^ 1], tid);
+    }
+    T val[kRows][kCols];
+#ifdef K1_SPLIT_NO_EVAL
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        val[i][j] = coords[buf][0][0][threadIdx.y + i * kThreadsY] -
+                    coords[buf][1][0][threadIdx.x + j * kThreadsX];
+#else
+    eval_tile<T, DIM>(p, cur.table, coords[buf], val);
+#endif
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        stage[threadIdx.y + i * kThreadsY][threadIdx.x + j * kThreadsX] = val[i][j];
+    __syncthreads();
+#ifdef K1_SPLIT_NO_STORE
+    if (p.ldo < 0)  // never: the stage writes stay, the stores go
+#endif
+      store_tile(p, cur, stage, warp, lane);
+    if (!more) break;
+    tile = next;
+    cur = nxt;
+    buf ^= 1;
+  }
+}
+
+// CTAs of gram_plan_kernel<T, DIM> resident on one SM, times the SMs of the
+// current device: the persistent grid (queried once per process).
+template <typename T, int DIM>
+int resident_ctas() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_plan_kernel<T, DIM>,
+                                                      kThreads, 0) != cudaSuccess)
+      return 0;
+    n = sms * per_sm;
+  }
+  return n;
+}
+
+template <typename T, int DIM>
+cudaError_t launch_dim(const Params<T>& p, cudaStream_t stream) {
+  const int ctas = resident_ctas<T, DIM>();
+  if (ctas <= 0) return cudaErrorInvalidConfiguration;
   const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid(static_cast<unsigned>((m + kTileN - 1) / kTileN),
-                  static_cast<unsigned>((n + kTileM - 1) / kTileM));
-  const size_t smem = (DIM + n_terms * (1 + DIM * kStride)) * sizeof(T) +
-                      n_terms * DIM * sizeof(int);
-  gram_tile_kernel<T, DIM><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(X), static_cast<const T*>(Y), static_cast<T*>(out),
-      n, m, ldo, static_cast<const T*>(table), degs, n_terms);
+  gram_plan_kernel<T, DIM><<<ctas < p.n_tiles ? ctas : p.n_tiles, block, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
+// Fill a plan's parameters from the host arrays (once per plan and dtype);
+// the launch adds the output, its row stride and the point pointers.
 template <typename T>
-cudaError_t launch_dim(int dim, const void* X, const void* Y, void* out,
-                       int64_t n, int64_t m, int64_t ldo, const void* table,
-                       const int* degs, int n_terms, cudaStream_t stream) {
-  switch (dim) {
-    case 1: return launch<T, 1>(X, Y, out, n, m, ldo, table, degs, n_terms, stream);
-    case 2: return launch<T, 2>(X, Y, out, n, m, ldo, table, degs, n_terms, stream);
-    case 3: return launch<T, 3>(X, Y, out, n, m, ldo, table, degs, n_terms, stream);
+int pack(int dim, int n_sets, const int* blocks, int n_blocks, const double* inv_sq,
+         const double* poly, const double* coef, const int* degs, const int* term_start,
+         int n_tables, Params<T>* out) {
+  Params<T> p = {};
+  p.dim = dim;
+  p.n_sets = n_sets;
+  for (int k = 0; k < dim; ++k) {
+    p.inv_sq[k] = static_cast<T>(inv_sq[k]);
+    for (int i = 0; i < kPolyLen; ++i)
+      (&p.poly[k][0][0])[i] = static_cast<T>(poly[k * kPolyLen + i]);
+  }
+  const int n_terms = term_start[n_tables];
+  for (int t = 0; t < n_terms; ++t) {
+    p.coef[t] = static_cast<T>(coef[t]);
+    unsigned packed = 0;
+    for (int k = 0; k < dim; ++k) {
+      const int deg = degs[t * dim + k];
+      if (deg < 0 || deg > kMaxDeg) return cudaErrorInvalidValue;
+      packed |= static_cast<unsigned>(deg) << (4 * k);
+    }
+    p.degs[t] = static_cast<unsigned short>(packed);
+  }
+  for (int i = 0; i <= n_tables; ++i) {
+    if (term_start[i] < 0 || term_start[i] > n_terms ||
+        (i && (term_start[i] < term_start[i - 1] || term_start[i] - term_start[i - 1] > kMaxTerms)))
+      return cudaErrorInvalidValue;
+    p.term_start[i] = static_cast<unsigned char>(term_start[i]);
+  }
+  // The tile prefix sums are recomputed here and must match the plan's.
+  long long tiles = 0;
+  for (int b = 0; b < n_blocks; ++b) {
+    // row_off, col_off, n, m, x_set, y_set, table, flags, tile_start
+    const int* e = blocks + kBlockInts * b;
+    const int n = e[2], m = e[3], flags = e[7];
+    if (e[0] < 0 || e[1] < 0 || n < 1 || m < 1 || e[4] < 0 || e[4] >= n_sets ||
+        e[5] < 0 || e[5] >= n_sets || e[6] < 0 || e[6] >= n_tables ||
+        (flags & ~(kMirror | kSymmetric)) || ((flags & kSymmetric) && n != m) ||
+        e[8] != tiles)
+      return cudaErrorInvalidValue;
+    BlockDesc& d = p.blk[b];
+    d.row_off = e[0];
+    d.col_off = e[1];
+    d.n = n;
+    d.m = m;
+    d.x_set = static_cast<unsigned char>(e[4]);
+    d.y_set = static_cast<unsigned char>(e[5]);
+    d.table = static_cast<unsigned char>(e[6]);
+    d.flags = static_cast<unsigned char>(flags);
+    d.tile_start = static_cast<int>(tiles);
+    const long long tm = (n + kTile - 1) / kTile, tn = (m + kTile - 1) / kTile;
+    d.tiles_n = static_cast<int>(tn);
+    d.inv_tiles_n = 1.0f / static_cast<float>(tn);
+    tiles += (flags & kSymmetric) ? tm * (tm + 1) / 2 : tm * tn;
+    if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  }
+  p.n_blocks = n_blocks;
+  p.n_tiles = static_cast<int>(tiles);
+  *out = p;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch(const Params<T>& packed, void* out, long long ldo, const void* const* pts,
+                   int n_sets, cudaStream_t stream) {
+  if (n_sets != packed.n_sets) return cudaErrorInvalidValue;
+  if (packed.n_tiles == 0) return cudaSuccess;
+  Params<T> p = packed;
+  p.out = static_cast<T*>(out);
+  p.ldo = ldo;
+  for (int s = 0; s < n_sets; ++s) p.pts[s] = static_cast<const T*>(pts[s]);
+  constexpr int kVec = 16 / sizeof(T);
+  const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0 && ldo % kVec == 0;
+  for (int b = 0; b < p.n_blocks; ++b) {
+    BlockDesc& d = p.blk[b];
+    if (aligned && d.row_off % kVec == 0 && d.col_off % kVec == 0) d.flags |= kAligned;
+  }
+  switch (p.dim) {
+    case 1: return launch_dim<T, 1>(p, stream);
+    case 2: return launch_dim<T, 2>(p, stream);
+    case 3: return launch_dim<T, 3>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// C entry point bound with ctypes by ops/gram_tile.py. X is (n, dim) and Y
-// is (m, dim), both row-major and contiguous; out has row stride ldo >= m
-// and unit column stride. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it does not synchronise.
-extern "C" int gram_tile_launch(int is_double, const void* X, const void* Y,
-                                void* out, long long n, long long m, int dim,
-                                long long ldo, const void* table,
-                                const int* degs, int n_terms, void* stream) {
-  if (n <= 0 || m <= 0) return 0;
-  if (dim < 1 || dim > kMaxDim || n_terms < 0 || n_terms > kMaxTerms ||
-      ldo < m || (n + kTileM - 1) / kTileM > 65535)
+// C interface bound with ctypes by ops/gram_tile.py.
+//
+// gram_plan_pack fills the parameters of one plan (gram_plan_params_size()
+// bytes at `params`, kept by the caller) from: blocks, 9 ints per block
+// (row_off, col_off, n, m, x_set, y_set, table, flags, tile_start), none of
+// them empty; the term tables, table i owning terms term_start[i] ..
+// term_start[i + 1] - 1, each with its coefficient coef[t] and dim degrees
+// degs[t * dim + k]; inv_sq; and poly, dim x 45 Horner coefficients (see
+// Params::poly). Returns 0, or cudaErrorInvalidValue for what the kernel
+// cannot take.
+extern "C" int gram_plan_params_size(int is_double) {
+  return is_double ? sizeof(Params<double>) : sizeof(Params<float>);
+}
+
+extern "C" int gram_plan_pack(int is_double, int dim, int n_sets, const int* blocks,
+                              int n_blocks, const double* inv_sq, const double* poly,
+                              const double* coef, const int* degs, const int* term_start,
+                              int n_tables, void* params) {
+  if (dim < 1 || dim > kMaxDim || n_sets < 1 || n_sets > kMaxSets || n_blocks < 0 ||
+      n_blocks > kMaxBlocks || n_tables < 1 || n_tables > kMaxTables ||
+      term_start[n_tables] > kMaxPlanTerms)
     return static_cast<int>(cudaErrorInvalidValue);
+  return is_double ? pack<double>(dim, n_sets, blocks, n_blocks, inv_sq, poly, coef, degs,
+                                  term_start, n_tables, static_cast<Params<double>*>(params))
+                   : pack<float>(dim, n_sets, blocks, n_blocks, inv_sq, poly, coef, degs,
+                                 term_start, n_tables, static_cast<Params<float>*>(params));
+}
+
+// gram_plan_launch makes one launch of a packed plan: each point set pts[s]
+// is (n_s, dim), row-major and contiguous; out has row stride ldo and unit
+// column stride, and every block lies inside it. Launches on `stream` and
+// returns cudaGetLastError() (0 on success); it does not synchronise.
+extern "C" int gram_plan_launch(int is_double, const void* params, void* out, long long ldo,
+                                const void* const* pts, int n_sets, void* stream) {
+  if (ldo < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_double ? launch_dim<double>(dim, X, Y, out, n, m, ldo, table, degs, n_terms, s)
-                : launch_dim<float>(dim, X, Y, out, n, m, ldo, table, degs, n_terms, s);
+      is_double ? launch(*static_cast<const Params<double>*>(params), out, ldo, pts, n_sets, s)
+                : launch(*static_cast<const Params<float>*>(params), out, ldo, pts, n_sets, s);
   return static_cast<int>(err);
 }
 
-extern "C" int gram_tile_max_terms() { return kMaxTerms; }
-extern "C" int gram_tile_max_degree() { return kMaxDeg; }
+// The limits above, in the order of ops/gram_tile.py::_LIMITS.
+extern "C" void gram_plan_limits(int* out) {
+  const int v[] = {kMaxDim, kMaxDeg, kMaxTerms, kMaxPlanTerms, kMaxSets,
+                   kMaxBlocks, kMaxTables, kTile, kBlockInts};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+}

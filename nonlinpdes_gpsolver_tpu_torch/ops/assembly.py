@@ -1,11 +1,10 @@
 """Block Gram-matrix assembly for GP-PDE collocation.
 
-Counterpart of ``nonlinpdes_gpsolver_tpu/ops/assembly.py``. Each Gram block
-is one call of the Gram tile evaluator (:mod:`.gram_tile`): the kernel on
-the card, the plain version on the CPU. Instead of concatenating blocks,
-the Gram matrix is allocated once and each upper block is written straight
-into its slot through the row stride; the lower blocks are transposed
-copies (``kappa`` is symmetric and stationary).
+Counterpart of ``nonlinpdes_gpsolver_tpu/ops/assembly.py``. A Gram matrix
+or a cross-Gram is one :class:`~.gram_tile.GramPlan` run: on the card one
+launch of the Gram kernel K1 writes every block into the preallocated
+matrix, the mirrors of the upper blocks included (``kappa`` is symmetric and
+stationary); on the CPU the plan's plain version walks the same blocks.
 
 The trace-adaptive nugget keeps the JAX package's rule: derivative blocks
 get ``nugget * trace(Theta_ii) / trace(Theta_anchor)`` on their diagonal,
@@ -20,7 +19,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from .gram_tile import gram_tile_pair_fn
+from .gram_tile import cross_plan, gram_plan
 from .kernels import SquaredExponential
 from .operators import LinearOp
 
@@ -57,22 +56,9 @@ def gram_matrix(
     ``Theta[I, J] = (op_I (x) op_J) kappa`` on the point panels of
     observables I (rows) and J (columns), on the points' device and dtype.
     """
-    sizes = observable_sizes(observables, points)
-    offs = _offsets(sizes)
-    ref = points[observables[0].points]
-    n_total = sum(sizes)
-    theta = torch.empty((n_total, n_total), dtype=ref.dtype, device=ref.device)
-    for i, oi in enumerate(observables):
-        ri = slice(offs[i], offs[i] + sizes[i])
-        for j in range(i, len(observables)):
-            oj = observables[j]
-            cj = slice(offs[j], offs[j] + sizes[j])
-            gram_tile_pair_fn(kernel, oi.op, oj.op)(
-                points[oi.points], points[oj.points], out=theta[ri, cj]
-            )
-            if j != i:
-                theta[cj, ri] = theta[ri, cj].T
-    return theta
+    observables = tuple(observables)
+    plan = gram_plan(kernel, observables, observable_sizes(observables, points))
+    return plan.run([points[k] for k in plan.set_keys])
 
 
 def cross_gram(
@@ -84,16 +70,12 @@ def cross_gram(
 ) -> torch.Tensor:
     """Rectangular cross-covariance between ``row_op`` at ``X_rows`` and the
     training functionals; derivatives land on the y (training) side."""
-    sizes = observable_sizes(observables, points)
-    offs = _offsets(sizes)
-    out = torch.empty(
-        (X_rows.shape[0], sum(sizes)), dtype=X_rows.dtype, device=X_rows.device
+    observables = tuple(observables)
+    plan = cross_plan(
+        kernel, row_op, int(X_rows.shape[0]), observables,
+        observable_sizes(observables, points),
     )
-    for o, off, sz in zip(observables, offs, sizes):
-        gram_tile_pair_fn(kernel, row_op, o.op)(
-            X_rows, points[o.points], out=out[:, off : off + sz]
-        )
-    return out
+    return plan.run([X_rows, *(points[k] for k in plan.set_keys)])
 
 
 def adaptive_nugget_diag(

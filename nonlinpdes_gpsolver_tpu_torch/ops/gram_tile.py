@@ -1,24 +1,37 @@
-"""Gram tile kernel K1: derivative-kernel Gram blocks on the card.
+"""Gram assembly kernel K1: whole derivative-kernel Gram matrices on the card.
 
 Counterpart of ``nonlinpdes_gpsolver_tpu/ops/pallas_gram.py``. The CUDA
 kernel (``csrc/gram_tile.cu``) evaluates
 
     out[i, j] = sum_beta c_beta * prod_k p_{beta_k}(u_k) * exp(-sum_k a_k u_k^2)
 
-with ``u = x_i - y_j`` from a small table packed by :func:`_packed_table`
-out of the same :func:`_combined_terms` as the Pallas kernel.
+with ``u = x_i - y_j`` for every block of a :class:`GramPlan` in one launch.
+A plan lists the blocks of one output matrix: for each, its operator pair's
+merged term table (:func:`pack_terms`, from the same :func:`_combined_terms`
+as the Pallas kernel), its row and column point sets, its offsets in the
+output, whether the kernel also writes its transpose (the mirror block of a
+symmetric Gram matrix), and whether it is symmetric (same operator, same
+points), so that only its upper tiles are computed. Plans are cached by
+:func:`gram_plan` (a training Gram matrix), :func:`cross_plan` (a
+cross-Gram) and :func:`pair_plan` (one block, behind
+:func:`gram_tile_pair_fn`).
 
-:func:`gram_tile_pair_fn` returns the block evaluator. Which version runs
-depends only on where the tensors lie: for CPU tensors it runs the plain
-version (``SquaredExponential.pair_fn``); for CUDA tensors it launches the
-kernel, in f32 or f64, and raises for any other dtype. ``LAUNCHES`` counts
-kernel launches, so a run can show that it went through the kernel.
+Which version runs depends only on where the tensors lie: for CPU tensors
+:meth:`GramPlan.run` walks the blocks with the plain version
+(``SquaredExponential.pair_fn``); for CUDA tensors it launches the kernel,
+in f32 or f64, and raises for any other dtype. ``LAUNCHES`` counts kernel
+launches, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import dataclasses
+import itertools
+import math
 from functools import lru_cache
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,11 +39,18 @@ import torch
 from .kernels import SquaredExponential, _derivative_poly_coeffs
 from .operators import LinearOp
 
-# Limits of csrc/gram_tile.cu (kMaxDim, kMaxDeg, kMaxTerms); checked against
-# the built library when it is loaded.
-MAX_DIM = 3
-MAX_DEGREE = 8
-MAX_TERMS = 64
+# Limits of csrc/gram_tile.cu, in the order of gram_plan_limits(); checked
+# against the built library when it is loaded.
+_LIMITS = dict(
+    dim=3, degree=8, terms=64, plan_terms=128, sets=8, blocks=36, tables=36,
+    tile=64, block_ints=9,
+)
+MAX_DIM = _LIMITS["dim"]
+MAX_DEGREE = _LIMITS["degree"]
+MAX_TERMS = _LIMITS["terms"]
+TILE = _LIMITS["tile"]
+_STEPS = MAX_DEGREE // 2 + 1  # Horner coefficients in u^2 per polynomial
+_MIRROR, _SYMMETRIC = 1, 2
 
 LAUNCHES = 0
 """Number of K1 launches in this process (the wrapper adds one per launch)."""
@@ -94,15 +114,259 @@ def pack_terms(inv_sq, terms_x, terms_y):
     )
 
 
-@lru_cache(maxsize=None)
-def _packed_table(inv_sq, terms_x, terms_y, dtype: torch.dtype, device: torch.device):
-    """Device copies of :func:`pack_terms`, cached per pair, dtype and device."""
-    table, degs = pack_terms(inv_sq, terms_x, terms_y)
-    return (
-        torch.as_tensor(table, dtype=dtype, device=device),
-        torch.as_tensor(degs, device=device).reshape(-1),
-        degs.shape[0],
-    )
+@dataclasses.dataclass(frozen=True)
+class PlanBlock:
+    """One block of a plan: ``out[row_off:+n, col_off:+m]`` is
+    ``(op_x (x) op_y) kappa`` of table ``table`` on point sets
+    ``x_set`` (rows) and ``y_set`` (columns)."""
+
+    row_off: int
+    col_off: int
+    n: int
+    m: int
+    x_set: int
+    y_set: int
+    table: int
+    mirror: bool  # also write the transpose at out[col_off:+m, row_off:+n]
+    symmetric: bool  # same operator and points on the diagonal: upper tiles only
+    tile_start: int  # first flat tile index of the block in the launch grid
+
+    @property
+    def tiles(self) -> int:
+        tm, tn = -(-self.n // TILE), -(-self.m // TILE)
+        return tm * (tm + 1) // 2 if self.symmetric else tm * tn
+
+
+class GramPlan:
+    """One K1 launch: a ``shape`` output assembled from ``len(set_sizes)`` point sets.
+
+    ``entries`` lists ``(op_x, op_y, x_set, y_set, row_off, col_off, mirror)``
+    per block; ``set_sizes`` the number of points in each set. Empty blocks
+    are dropped; operator pairs that repeat share one table.
+    """
+
+    def __init__(self, kernel: SquaredExponential, entries, set_sizes, shape, set_keys=()):
+        self.kernel = kernel
+        self.set_keys = tuple(set_keys)  # the points dict's key of each training set
+        self.set_sizes = tuple(int(s) for s in set_sizes)
+        self._set_shapes = tuple((s, kernel.dim) for s in self.set_sizes)
+        self.shape = tuple(int(s) for s in shape)
+        if len(self.set_sizes) > _LIMITS["sets"]:
+            raise ValueError(f"a plan takes at most {_LIMITS['sets']} point sets")
+        table_of, self.pairs, blocks, tiles = {}, [], [], 0
+        for op_x, op_y, xs, ys, row_off, col_off, mirror in entries:
+            n, m = self.set_sizes[xs], self.set_sizes[ys]
+            key = (op_x.terms, op_y.terms)
+            if key not in table_of:
+                table_of[key] = len(self.pairs)
+                self.pairs.append((op_x, op_y))
+            if n == 0 or m == 0:
+                continue
+            symmetric = (
+                not mirror and key[0] == key[1] and xs == ys and row_off == col_off
+            )
+            if (row_off + n > self.shape[0] or col_off + m > self.shape[1]
+                    or (mirror and (col_off + m > self.shape[0] or row_off + n > self.shape[1]))):
+                raise ValueError(f"block at ({row_off}, {col_off}) lies outside {self.shape}")
+            blk = PlanBlock(row_off, col_off, n, m, xs, ys, table_of[key], bool(mirror),
+                            symmetric, tiles)
+            blocks.append(blk)
+            tiles += blk.tiles
+        self.blocks = tuple(blocks)
+        self.n_tiles = tiles
+        if len(self.blocks) > _LIMITS["blocks"] or len(self.pairs) > _LIMITS["tables"]:
+            raise ValueError(
+                f"a plan takes at most {_LIMITS['blocks']} blocks and "
+                f"{_LIMITS['tables']} operator pairs"
+            )
+        self.tables = tuple(
+            pack_terms(kernel.inv_sq, ox.terms, oy.terms) for ox, oy in self.pairs
+        )
+        self._pack()
+
+    def _pack(self):
+        """Flatten the tables and descriptors into the kernel's arrays."""
+        dim = self.kernel.dim
+        # p_b has the parity of b: poly[k, b, i] is its coefficient of
+        # u^(b - 2 i), so that the kernel runs Horner in u^2.
+        poly = np.zeros((dim, MAX_DEGREE + 1, _STEPS))
+        coef, degs, term_start = [], [], [0]
+        stride = MAX_DEGREE + 1
+        for table, tdegs in self.tables:
+            rows = table[dim:].reshape(len(tdegs), 1 + dim * stride)
+            for row, deg in zip(rows, tdegs):
+                coef.append(row[0])
+                degs.append(deg)
+                for k, b in enumerate(deg):
+                    # p_b depends only on (k, b): one copy per plan
+                    cf = row[1 + k * stride : 1 + k * stride + b + 1]
+                    poly[k, b, : b // 2 + 1] = cf[b::-2]
+            term_start.append(len(coef))
+        if len(coef) > _LIMITS["plan_terms"]:
+            raise ValueError(
+                f"plan has {len(coef)} merged terms; the kernel takes at most "
+                f"{_LIMITS['plan_terms']} per launch"
+            )
+        self._arrays = dict(
+            inv_sq=np.asarray(self.kernel.inv_sq, np.float64),
+            poly=np.ascontiguousarray(poly),
+            coef=np.asarray(coef, np.float64),
+            degs=np.asarray(degs, np.int32).reshape(-1, dim),
+            term_start=np.asarray(term_start, np.int32),
+            blocks=np.asarray(
+                [[b.row_off, b.col_off, b.n, b.m, b.x_set, b.y_set, b.table,
+                  _MIRROR * b.mirror + _SYMMETRIC * b.symmetric, b.tile_start]
+                 for b in self.blocks] or np.zeros((0, _LIMITS["block_ints"])),
+                np.int32,
+            ),
+        )
+        self._params = {}  # the kernel's packed parameters, per dtype
+
+    def _packed(self, lib, is_double: int):
+        """The plan's kernel parameters for one dtype, packed once."""
+        params = self._params.get(is_double)
+        if params is None:
+            a = {k: v.ctypes.data for k, v in self._arrays.items()}
+            params = ctypes.create_string_buffer(lib.gram_plan_params_size(is_double))
+            err = lib.gram_plan_pack(
+                is_double, self.kernel.dim, len(self.set_sizes), a["blocks"], len(self.blocks),
+                a["inv_sq"], a["poly"], a["coef"], a["degs"], a["term_start"],
+                len(self.tables), params,
+            )
+            if err != 0:
+                raise RuntimeError(f"gram_tile kernel refused the plan: CUDA error {err}")
+            params = self._params[is_double] = ctypes.addressof(params), params
+        return params[0]
+
+    def tile_coords(self, index: int) -> Tuple[int, int, int]:
+        """(block, tile row, tile column) of flat tile ``index``, as the
+        kernel maps its CTA index (symmetric blocks: upper tiles by columns)."""
+        b = bisect.bisect_right([blk.tile_start for blk in self.blocks], index) - 1
+        blk = self.blocks[b]
+        local = index - blk.tile_start
+        if blk.symmetric:
+            tc = int((math.sqrt(8.0 * local + 1.0) - 1.0) * 0.5)
+            while tc * (tc + 1) // 2 > local:
+                tc -= 1
+            while (tc + 1) * (tc + 2) // 2 <= local:
+                tc += 1
+            return b, local - tc * (tc + 1) // 2, tc
+        tr, tc = divmod(local, -(-blk.m // TILE))
+        return b, tr, tc
+
+    def run(self, sets: Sequence[torch.Tensor], out: torch.Tensor | None = None):
+        """Assemble into ``out`` (allocated if ``None``; else a view of
+        ``shape`` with unit column stride, such as a slot of a larger
+        matrix) from the point sets, ``sets[s]`` of shape (set_sizes[s], dim)."""
+        if len(sets) != len(self._set_shapes):
+            raise ValueError(f"plan takes {len(self._set_shapes)} point sets, got {len(sets)}")
+        ref = sets[0]
+        dtype, dev = ref.dtype, ref.get_device()  # an int: cheaper than Tensor.device
+        for s, shape in zip(sets, self._set_shapes):
+            if s.dtype != dtype or s.get_device() != dev:
+                raise ValueError("point sets must share device and dtype")
+            if s.shape != shape:
+                raise ValueError(f"point sets must be {shape}; got {tuple(s.shape)}")
+        n, m = self.shape
+        if out is None:
+            out = torch.empty(self.shape, dtype=dtype, device=ref.device)
+        elif (
+            out.shape != self.shape or out.dtype != dtype or out.get_device() != dev
+            or (m > 1 and out.stride(1) != 1) or (n > 1 and out.stride(0) < m)
+        ):
+            raise ValueError(
+                f"out must be an {self.shape} {dtype} view on {ref.device} with unit "
+                f"column stride; got {tuple(out.shape)} strides {out.stride()}"
+            )
+        if ref.is_cuda:
+            self._launch(sets, out, dev)
+        elif ref.is_cpu:
+            self._plain(sets, out)
+        else:
+            raise ValueError(f"no Gram tile implementation for device {ref.device}")
+        return out
+
+    def _plain(self, sets, out):
+        """The kernel's plain version: the blocks one by one."""
+        for b in self.blocks:
+            op_x, op_y = self.pairs[b.table]
+            val = self.kernel.pair_fn(op_x, op_y)(sets[b.x_set], sets[b.y_set])
+            if b.symmetric:  # the upper triangle and its mirror, as the kernel writes it
+                val = torch.triu(val) + torch.triu(val, 1).T
+            out[b.row_off : b.row_off + b.n, b.col_off : b.col_off + b.m] = val
+            if b.mirror:
+                out[b.col_off : b.col_off + b.m, b.row_off : b.row_off + b.n] = val.T
+
+    def _launch(self, sets, out, dev: int):
+        global LAUNCHES
+        dtype = out.dtype
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the Gram tile kernel takes float32 or float64, got {dtype}")
+        if not all(s.is_contiguous() for s in sets):
+            raise ValueError("point sets must be contiguous")
+        if not self.blocks:
+            return
+        lib = _kernel_lib()
+        is_double = int(dtype == torch.float64)
+        pts = (ctypes.c_void_p * len(sets))(*[s.data_ptr() for s in sets])
+        err = lib.gram_plan_launch(
+            is_double, self._packed(lib, is_double), out.data_ptr(),
+            max(out.stride(0), self.shape[1]), ctypes.addressof(pts), len(sets),
+            torch._C._cuda_getCurrentRawStream(dev),  # current_stream(dev).cuda_stream
+        )
+        if err != 0:
+            raise RuntimeError(f"gram_tile kernel launch failed: CUDA error {err}")
+        LAUNCHES += 1
+
+
+def _set_keys(observables) -> Tuple[str, ...]:
+    """The distinct point-set keys of ``observables``, in order."""
+    return tuple(dict.fromkeys(o.points for o in observables))
+
+
+@lru_cache(maxsize=256)
+def gram_plan(kernel: SquaredExponential, observables, sizes) -> GramPlan:
+    """Plan of the symmetric Gram matrix of ``observables`` (a tuple of
+    ``Observable``; ``sizes`` their point counts): the upper blocks with
+    their mirrors, the diagonal blocks as symmetric. Its point sets are the
+    distinct ``Observable.points`` keys in order (``plan.set_keys``)."""
+    keys = _set_keys(observables)
+    set_of = {k: i for i, k in enumerate(keys)}
+    set_sizes = [0] * len(keys)
+    for o, s in zip(observables, sizes):
+        set_sizes[set_of[o.points]] = s
+    offs = list(itertools.accumulate(sizes, initial=0))
+    entries = [
+        (oi.op, oj.op, set_of[oi.points], set_of[oj.points], offs[i], offs[j], j != i)
+        for i, oi in enumerate(observables)
+        for j, oj in enumerate(observables) if j >= i
+    ]
+    return GramPlan(kernel, entries, set_sizes, (offs[-1], offs[-1]), keys)
+
+
+@lru_cache(maxsize=256)
+def cross_plan(kernel: SquaredExponential, row_op: LinearOp, n_rows: int, observables,
+               sizes) -> GramPlan:
+    """Plan of the cross-Gram of ``row_op`` at ``n_rows`` points (set 0)
+    against the training functionals (sets 1.., ``plan.set_keys``)."""
+    keys = _set_keys(observables)
+    set_of = {k: i + 1 for i, k in enumerate(keys)}
+    set_sizes = [n_rows] + [0] * len(keys)
+    for o, s in zip(observables, sizes):
+        set_sizes[set_of[o.points]] = s
+    offs = list(itertools.accumulate(sizes, initial=0))
+    entries = [
+        (row_op, o.op, 0, set_of[o.points], 0, off, False)
+        for o, off in zip(observables, offs)
+    ]
+    return GramPlan(kernel, entries, set_sizes, (n_rows, offs[-1]), keys)
+
+
+@lru_cache(maxsize=256)
+def pair_plan(kernel: SquaredExponential, op_x: LinearOp, op_y: LinearOp, n: int,
+              m: int) -> GramPlan:
+    """Plan of one ``(n, m)`` block on two point sets (never symmetric)."""
+    return GramPlan(kernel, [(op_x, op_y, 0, 1, 0, 0, False)], (n, m), (n, m))
 
 
 @lru_cache(maxsize=None)
@@ -110,63 +374,29 @@ def _kernel_lib() -> ctypes.CDLL:
     from ._build import load_library
 
     lib = load_library("gram_tile")
-    lib.gram_tile_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    lib.gram_plan_params_size.argtypes = [ctypes.c_int]
+    lib.gram_plan_params_size.restype = ctypes.c_int
+    lib.gram_plan_pack.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.gram_tile_launch.restype = ctypes.c_int
-    for fn in (lib.gram_tile_max_terms, lib.gram_tile_max_degree):
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
-    if (lib.gram_tile_max_terms(), lib.gram_tile_max_degree()) != (
-        MAX_TERMS, MAX_DEGREE,
-    ):
-        raise RuntimeError("csrc/gram_tile.cu limits differ from ops/gram_tile.py")
+    lib.gram_plan_pack.restype = ctypes.c_int
+    lib.gram_plan_launch.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.gram_plan_launch.restype = ctypes.c_int
+    lib.gram_plan_limits.argtypes = [ctypes.c_void_p]
+    lib.gram_plan_limits.restype = None
+    got = (ctypes.c_int * len(_LIMITS))()
+    lib.gram_plan_limits(ctypes.addressof(got))
+    if list(got) != list(_LIMITS.values()):
+        raise RuntimeError(
+            f"csrc/gram_tile.cu limits {list(got)} differ from ops/gram_tile.py "
+            f"{list(_LIMITS.values())}"
+        )
     return lib
-
-
-def _launch(kernel, op_x, op_y, X, Y, out):
-    global LAUNCHES
-    dtype = X.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the Gram tile kernel takes float32 or float64, got {dtype}")
-    if Y.device != X.device or Y.dtype != dtype:
-        raise ValueError("X and Y must share device and dtype")
-    if X.dim() != 2 or Y.dim() != 2 or X.shape[1] != kernel.dim or Y.shape[1] != kernel.dim:
-        raise ValueError(
-            f"X and Y must be (n, {kernel.dim}) and (m, {kernel.dim}); "
-            f"got {tuple(X.shape)} and {tuple(Y.shape)}"
-        )
-    if not (X.is_contiguous() and Y.is_contiguous()):
-        raise ValueError("X and Y must be contiguous")
-    n, m = X.shape[0], Y.shape[0]
-    if out is None:
-        out = torch.empty((n, m), dtype=dtype, device=X.device)
-    if (
-        out.shape != (n, m) or out.dtype != dtype or out.device != X.device
-        or (m > 1 and out.stride(1) != 1) or (n > 1 and out.stride(0) < m)
-    ):
-        raise ValueError(
-            f"out must be an ({n}, {m}) {dtype} view on {X.device} with unit "
-            f"column stride; got {tuple(out.shape)} strides {out.stride()}"
-        )
-    table, degs, n_terms = _packed_table(
-        kernel.inv_sq, op_x.terms, op_y.terms, dtype, X.device
-    )
-    if n == 0 or m == 0:
-        return out
-    lib = _kernel_lib()
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = lib.gram_tile_launch(
-        int(dtype == torch.float64), X.data_ptr(), Y.data_ptr(), out.data_ptr(),
-        n, m, kernel.dim, max(out.stride(0), m), table.data_ptr(),
-        degs.data_ptr(), n_terms, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"gram_tile kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return out
 
 
 def gram_tile_pair_fn(kernel: SquaredExponential, op_x: LinearOp, op_y: LinearOp):
@@ -175,19 +405,14 @@ def gram_tile_pair_fn(kernel: SquaredExponential, op_x: LinearOp, op_y: LinearOp
     ``X: (N, dim)`` holds the row points and ``Y: (M, dim)`` the column
     points. ``out``, if given, is an ``(N, M)`` view with unit column stride,
     such as a slot of a larger matrix; the block is written into it.
-    CUDA tensors go to the kernel; CPU tensors to the plain version.
+    CUDA tensors go to the kernel (a one-block plan); CPU tensors to the
+    plain version.
     """
-    plain = kernel.pair_fn(op_x, op_y)
 
     def block(X: torch.Tensor, Y: torch.Tensor, out: torch.Tensor | None = None):
-        if X.device.type == "cuda":
-            return _launch(kernel, op_x, op_y, X, Y, out)
-        if X.device.type != "cpu":
-            raise ValueError(f"no Gram tile implementation for device {X.device}")
-        res = plain(X, Y)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
+        if X.dim() != 2 or Y.dim() != 2:
+            raise ValueError(f"X and Y must be 2-D; got {tuple(X.shape)} and {tuple(Y.shape)}")
+        plan = pair_plan(kernel, op_x, op_y, int(X.shape[0]), int(Y.shape[0]))
+        return plan.run((X, Y), out)
 
     return block

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the Gram tile kernel against its plain version,
-its wrapper's checks, and the canonical solve through the kernel.
+"""The port on a CUDA card: the Gram kernel against its plain version (one
+block, and whole one-launch Gram and cross-Gram matrices), its wrapper's
+checks, and the canonical solve through the kernel.
 
 These tests need a card and skip without one (the kernel has no CPU mode).
 The file imports nothing of JAX, so on a machine with a card and no JAX it
@@ -86,6 +87,109 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         fn(X, X, out=torch.empty((8, 16), device=cuda)[:, ::2])
 
 
+# Ragged point sets (no size a tile multiple) and operators of every parity.
+RAGGED = {"domain": 65, "boundary": 33, "edge": 7}
+RAGGED_OBS = (
+    ("domain", laplacian), ("domain", identity), ("boundary", lambda: d(0)),
+    ("boundary", identity), ("edge", lambda: d2(1, 1)),
+)
+
+
+def _ragged(dtype, device, seed=5):
+    rng = np.random.default_rng(seed)
+    pts = {
+        k: torch.as_tensor(rng.uniform(0, 1, (n, 2)), dtype=dtype, device=device)
+        for k, n in RAGGED.items()
+    }
+    obs = tuple(tpt.ops.Observable(k, op()) for k, op in RAGGED_OBS)
+    return pts, obs
+
+
+def _assert_blocks_close(plan, got, ref, limit):
+    """Every block (and its mirror) within ``limit`` of that block's scale."""
+    for b in plan.blocks:
+        slots = [(slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m))]
+        if b.mirror:
+            slots.append(slots[0][::-1])
+        for rs, cs in slots:
+            scale = float(ref[rs, cs].abs().max())
+            assert float((got[rs, cs] - ref[rs, cs]).abs().max()) <= limit * scale, (b, rs, cs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("kname", list(KERNELS))
+def test_one_launch_gram_matches_plain(cuda, dtype, limit, kname):
+    """Theta of five observables on three ragged point sets in one launch:
+    each block within the limit of its scale, and Theta exactly symmetric."""
+    pts, obs = _ragged(dtype, cuda)
+    k = KERNELS[kname]
+    before = gram_tile.LAUNCHES
+    theta = tpt.ops.gram_matrix(k, obs, pts)
+    torch.cuda.synchronize()
+    assert gram_tile.LAUNCHES == before + 1
+    plan = gram_tile.gram_plan(k, obs, tpt.ops.observable_sizes(obs, pts))
+    assert len(plan.blocks) == 15 and sum(b.symmetric for b in plan.blocks) == 5
+    ref = torch.zeros_like(theta)
+    plan._plain([pts[s] for s in plan.set_keys], ref)
+    _assert_blocks_close(plan, theta, ref, limit)
+    assert bool(torch.equal(theta, theta.T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("row_op", [identity, laplacian])
+def test_one_launch_cross_gram_matches_plain(cuda, dtype, limit, row_op):
+    pts, obs = _ragged(dtype, cuda)
+    k = KERNELS["aniso_len"]
+    X = _points(97, 1, dtype, cuda, seed=6)[0]
+    before = gram_tile.LAUNCHES
+    got = tpt.ops.cross_gram(k, row_op(), X, obs, pts)
+    torch.cuda.synchronize()
+    assert gram_tile.LAUNCHES == before + 1
+    assert got.shape == (97, 65 + 65 + 33 + 33 + 7)
+    plan = gram_tile.cross_plan(k, row_op(), 97, obs, tpt.ops.observable_sizes(obs, pts))
+    ref = torch.zeros_like(got)
+    plan._plain([X, *(pts[s] for s in plan.set_keys)], ref)
+    _assert_blocks_close(plan, got, ref, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_launch_gram_into_strided_slot(cuda, dtype):
+    """A whole Theta lands in a slot of a larger buffer through its row
+    stride, equal to the freshly allocated one, and nothing else changes."""
+    pts, obs = _ragged(dtype, cuda, seed=7)
+    k = KERNELS["gaussian"]
+    plan = gram_tile.gram_plan(k, obs, tpt.ops.observable_sizes(obs, pts))
+    sets = [pts[s] for s in plan.set_keys]
+    n = plan.shape[0]
+    big = torch.full((n + 9, n + 21), 7.0, dtype=dtype, device=cuda)
+    plan.run(sets, out=big[4 : 4 + n, 13 : 13 + n])
+    assert bool(torch.equal(big[4 : 4 + n, 13 : 13 + n], plan.run(sets)))
+    big[4 : 4 + n, 13 : 13 + n] = 7.0
+    assert bool((big == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_plans_beyond_the_limits(cuda):
+    """Pairs and plans the kernel cannot take raise before any launch."""
+    X = torch.rand((8, 2), device=cuda)
+    before = gram_tile.LAUNCHES
+    deep = tpt.ops.LinearOp(2, ((1.0, (5, 0)),))  # degree 10 in one dimension
+    with pytest.raises(ValueError, match="order"):
+        gram_tile.gram_tile_pair_fn(KERNELS["gaussian"], deep, deep)(X, X)
+    k4 = tpt.SquaredExponential.gaussian(0.2, dim=4)
+    with pytest.raises(ValueError, match="dim"):
+        gram_tile.gram_tile_pair_fn(k4, identity(4), identity(4))(
+            torch.rand((8, 4), device=cuda), torch.rand((8, 4), device=cuda)
+        )
+    many = tuple(tpt.ops.Observable("p", d2(i % 2, j % 2)) for i in range(3) for j in range(3))
+    with pytest.raises(ValueError, match="blocks"):
+        tpt.ops.gram_matrix(KERNELS["gaussian"], many, {"p": X})
+    assert gram_tile.LAUNCHES == before
+
+
 def _u_truth(x):
     return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1]) + 2 * torch.sin(
         4 * torch.pi * x[0]
@@ -119,7 +223,7 @@ def test_posterior_variance_on_card(cuda, op):
     before = gram_tile.LAUNCHES
     var = post.variance(Xt, op=op())
     torch.cuda.synchronize()
-    assert gram_tile.LAUNCHES - before == 4  # 3 cross-Gram blocks + the prior
+    assert gram_tile.LAUNCHES - before == 2  # the one-launch cross-Gram + the prior
     assert var.device.type == "cuda" and var.dtype == torch.float32 and var.shape == (902,)
     assert bool(torch.isfinite(var).all())
     assert float(var.max()) <= prior * (1 + 1e-6)
@@ -128,7 +232,7 @@ def test_posterior_variance_on_card(cuda, op):
 
 
 @pytest.mark.cuda
-def test_canonical_solve_passes_gate_with_nine_launches(cuda):
+def test_canonical_solve_passes_gate_with_two_launches(cuda):
     u_truth = _u_truth
     prob = tpt.interop.problem_from_numpy(**tpt.interop.load_canonical_inputs(), device=cuda)
     assert prob.dtype == torch.float32
@@ -137,6 +241,6 @@ def test_canonical_solve_passes_gate_with_nine_launches(cuda):
     Xt = tpt.utils.test_grid(60, 60, device=cuda)
     pred = res.posterior.extend(Xt)
     torch.cuda.synchronize()
-    assert gram_tile.LAUNCHES - before == 9
+    assert gram_tile.LAUNCHES - before == 2  # the training Gram and the test cross-Gram
     err = tpt.GPSolver.errors(pred, torch.func.vmap(u_truth)(Xt))
     assert err.l2 <= GATE_L2, err
