@@ -31,8 +31,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    memory peak and the same gate, and two more warm solves for the spread;
    then its two assemblies and the 7,800^2 Laplacian x Laplacian block as
    a one-block launch, checked and timed the same way;
-5. the kernel summary line; then the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+5. the other three reference workloads (``nonlinpdes_gpsolver_tpu_torch/
+   workloads.py``: Burgers 1000/200, Eikonal 1000/200, the Darcy inverse
+   400/100/60, each on the JAX package's draw, f32): a cold solve, a warm
+   one with its K1 launches (2, 2 and 4: each training Gram and each test
+   cross-Gram), memory peak and gate, three more warm solves; then each
+   training Gram and cross-Gram checked against the plain assembly in f32
+   and f64 and timed;
+6. the Krylov steps: ``'cg'`` and ``'woodbury'`` against ``'direct'`` on the
+   JAX package's Krylov test fixtures, gated in f64, reported in f32, and
+   woodbury's inner iterations warm-started (:func:`krylov_steps`);
+7. the script's seconds so far (the build included), the kernel summary
+   line, then the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s in f32
 and 34 TFLOP/s in f64 outside the tensor cores. Device times come from
@@ -50,6 +61,9 @@ GATE_L2 = 3.402e-3  # BASELINE.md row 1, the bench.py accuracy gate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 EXP_OPS = 25  # Cody-Waite exp: reduction, 7 Horner FMAs, exponent assembly
+# K1 launches per solve: each block's training Gram and each extended block's
+# test cross-Gram (Darcy: two blocks, both extended)
+WORKLOAD_LAUNCHES = {"burgers": 2, "eikonal": 2, "darcy": 4}
 
 
 def emit(phase, **fields):
@@ -139,21 +153,105 @@ def blockwise_rel_err(plan, got, ref):
     return rel, diff_max
 
 
-def u_truth(x):
+def krylov_steps(tpt, dev):
+    """``'cg'`` and ``'woodbury'`` against ``'direct'`` on the fixtures of
+    the JAX package's Krylov tests, with their sizes and parameters
+    (``tests/test_engine.py::test_gn_cg_matches_direct``: 120/32 elliptic,
+    sigma 0.3, nugget 1e-10, cg_tol 1e-14; ``tests/test_distributed_solver.py``
+    ``::_small_darcy``: 48/16 Darcy, sigma 0.4, observations
+    ``linspace(0, 0.01, 12)``, noise 1e-2, nugget 1e-4, trsm, cg_tol 1e-9,
+    cg_maxiter 2000), on points from the port's sampler with seed 0. Gated
+    in f64: the elliptic 'cg' over 4 GN steps, Darcy's 'woodbury' over 3
+    (as the JAX package's tests run it) and 'cg' over 2. Reported only:
+    the inner iterations of woodbury's second step from zero and
+    warm-started from the first step's solutions, and the same solves in
+    f32, Darcy's with its inner
+    solves capped at 50 iterations (f32 cannot reach cg_tol 1e-9 there, so
+    every inner solve runs to its cap). A CG iteration costs some 5-10 ms
+    of host time on the card, so the phase keeps its iteration counts low."""
     import torch
 
-    return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1]) + 2 * torch.sin(
-        4 * torch.pi * x[0]
-    ) * torch.sin(4 * torch.pi * x[1])
+    from nonlinpdes_gpsolver_tpu_torch.solvers import gn
 
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
 
-def rhs_f(x):
-    import torch
+    def u(x):
+        return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1])
 
-    return -torch.trace(torch.func.hessian(u_truth)(x)) + u_truth(x) ** 3
+    def rhs(x):
+        return -torch.trace(torch.func.hessian(u)(x)) + u(x) ** 3
+
+    def points(n, nb, dtype):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return tpt.utils.sample_random(gen, n, nb, dtype=dtype)
+
+    def elliptic(dtype):
+        Xd, Xb = points(120, 32, dtype)
+        k = tpt.SquaredExponential.gaussian(0.3)
+        return tpt.factorize(tpt.models.nonlinear_elliptic(k, Xd, Xb, rhs, u, seed=2), 1e-10)
+
+    def darcy(dtype):
+        Xd, Xb = points(48, 16, dtype)
+        k = tpt.SquaredExponential.gaussian(0.4)
+        obs = torch.linspace(0.0, 0.01, 12, dtype=dtype, device=dev)
+        prob = tpt.models.darcy_flow(k, k, Xd, Xb, obs, lambda x: torch.ones_like(x[0]),
+                                     noise_level=1e-2, seed=3)
+        return tpt.factorize(prob, 1e-4, solve_mode="trsm")
+
+    def compare(fp, steps, ref=None, **kw):
+        ref = ref or tpt.gn_solve(fp, max_iter=steps, step_solver="direct")
+        sync()
+        t0 = time.perf_counter()
+        st = tpt.gn_solve(fp, max_iter=steps, **kw)
+        sync()
+        secs = time.perf_counter() - t0
+        iters = st.cg_iters.tolist()
+        row = {**kw, "z_abs_diff": float((st.z - ref.z).abs().max()),
+               "z_rel_diff": float((st.z - ref.z).abs().max() / ref.z.abs().max()),
+               "losses": st.losses.tolist(), "direct_losses": ref.losses.tolist(),
+               "cg_iters": iters, "seconds": secs, "ms_per_cg_iter": secs / max(sum(iters), 1) * 1e3}
+        return row, st, ref
+
+    out = {}
+    fp = elliptic(torch.float64)
+    row, st, ref = compare(fp, 4, step_solver="cg", cg_tol=1e-14)
+    out["f64_elliptic_cg"] = row
+    check(row["z_abs_diff"] <= 5e-6, f"f64 elliptic cg: z differs by {row['z_abs_diff']:.3e}")
+    dl = abs(row["losses"][-1] - row["direct_losses"][-1]) / row["direct_losses"][-1]
+    check(dl <= 1e-6, f"f64 elliptic cg: last loss differs by {dl:.3e} (rtol)")
+    fp = darcy(torch.float64)
+    kw = dict(cg_tol=1e-9, cg_maxiter=2000)
+    for solver, steps in (("woodbury", 3), ("cg", 2)):
+        row = out[f"f64_darcy_{solver}"] = compare(fp, steps, step_solver=solver, **kw)[0]
+        what = f"f64 darcy {solver}"
+        check(all(0 < i < 2000 for i in row["cg_iters"]), f"{what}: cg_iters {row['cg_iters']}")
+        check(row["z_rel_diff"] < 1e-5, f"{what}: z differs by {row['z_rel_diff']:.3e} (rel)")
+        lr = max(abs(a - b) / abs(b) for a, b in zip(row["losses"], row["direct_losses"]))
+        check(lr <= 1e-5, f"{what}: losses differ by {lr:.3e} (rtol)")
+    # the second woodbury step's inner iterations, from zero and from the
+    # first step's solutions (the mesh path's carry; gn_solve starts at zero)
+    z = fp.problem.init_latent()
+    step, first, X = gn._delta_woodbury(fp, z, 0.0, **kw)
+    z = z - step
+    out["f64_darcy_woodbury_warm"] = {
+        "first_step_iters": first,
+        "second_step_iters_cold": gn._delta_woodbury(fp, z, 0.0, **kw)[1],
+        "second_step_iters_warm": gn._delta_woodbury(fp, z, 0.0, X0=X, **kw)[1],
+    }
+    fp = elliptic(torch.float32)
+    out["f32_elliptic_cg"] = compare(fp, 4, step_solver="cg", cg_tol=1e-14)[0]
+    fp = darcy(torch.float32)
+    ref = None
+    for solver in ("woodbury", "cg"):
+        out[f"f32_darcy_{solver}"], _, ref = compare(fp, 2, ref, step_solver=solver,
+                                                     cg_tol=1e-9, cg_maxiter=50)
+    return out
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -165,6 +263,7 @@ def main():
     from nonlinpdes_gpsolver_tpu_torch.ops.operators import d, d2, identity, laplacian
 
     dev = torch.device("cuda")
+    u_truth, rhs_f = tpt.workloads.u_elliptic, tpt.workloads.elliptic_rhs()
     card = smi("name,power.limit")
     emit("device", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
          kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
@@ -306,27 +405,34 @@ def main():
     check(err.l2 <= GATE_L2, f"canonical test L2 {err.l2:.4e} > {GATE_L2}")
     check(bool(res.state.converged_finite), "canonical GN rejected a step")
 
-    def main_path_assemblies(problem, X_test, dtype=None):
-        """(name, plan, point sets) of the two K1 launches of a solve: the
-        training Gram, then the test cross-Gram, optionally cast."""
-        blk = problem.blocks[0]
-        pts, obs = problem.points, blk.observables
+    def main_path_assemblies(problem, X_test, dtype=None, extended=("u",)):
+        """(name, plan, point sets) of the K1 launches of a solve: each
+        block's training Gram, then the test cross-Gram of each block in
+        ``extended``, optionally cast."""
+        pts = problem.points
         if dtype is not None:
             pts = {k: v.to(dtype) for k, v in pts.items()}
             X_test = X_test.to(dtype)
-        sizes = tpt.ops.observable_sizes(obs, pts)
-        plan = gram_tile.gram_plan(blk.kernel, obs, sizes)
-        cplan = gram_tile.cross_plan(blk.kernel, identity(), int(X_test.shape[0]), obs, sizes)
-        sets = [pts[k] for k in plan.set_keys]
-        return [("training Gram", plan, sets), ("test cross-Gram", cplan, [X_test, *sets])]
+        out, cross = [], []
+        for blk in problem.blocks:
+            obs = blk.observables
+            sizes = tpt.ops.observable_sizes(obs, pts)
+            plan = gram_tile.gram_plan(blk.kernel, obs, sizes)
+            sets = [pts[k] for k in plan.set_keys]
+            out.append((f"training Gram {blk.name}", plan, sets))
+            if blk.name in extended:
+                cplan = gram_tile.cross_plan(blk.kernel, identity(), int(X_test.shape[0]), obs, sizes)
+                cross.append((f"test cross-Gram {blk.name}", cplan, [X_test, *sets]))
+        return out + cross
 
-    def time_assemblies(problem, X_test, reps, plain_reps):
-        """Check both assemblies in f32 and f64; time them in f32."""
+    def time_assemblies(problem, X_test, reps, plain_reps, extended=("u",)):
+        """Check every assembly in f32 and f64; time them in f32."""
         out, checks = [], []
         for dtype, limit in limits.items():
-            for name, plan, sets in main_path_assemblies(problem, X_test, dtype):
+            for name, plan, sets in main_path_assemblies(problem, X_test, dtype, extended):
                 checks.append(check_assembly(name, plan, sets, limit))
-        for (name, plan, sets), chk in zip(main_path_assemblies(problem, X_test), checks):
+        for (name, plan, sets), chk in zip(main_path_assemblies(problem, X_test, extended=extended),
+                                           checks):
             bound, by = k1_bound_ms(plan, "float32")
             buf = torch.empty(plan.shape, dtype=sets[0].dtype, device=dev)
             ms = time_ms(lambda: plan.run(sets, out=buf), reps)
@@ -407,7 +513,72 @@ def main():
                     "bound_by": lap_by, "share_of_bound": lap_bound / lap_ms,
                     "rel_err": lap_chk["rel_err"]})
 
-    # -- 5. summary -------------------------------------------------------------
+    # -- 5. the other reference workloads ----------------------------------------
+    del big
+    torch.cuda.empty_cache()
+    wl_summary = {}
+    for name, expected in WORKLOAD_LAUNCHES.items():
+        t0 = time.perf_counter()
+        w = tpt.workloads.WORKLOADS[name](device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+
+        def run(w=w):
+            res = w.solve()
+            return res, w.metrics(res)
+
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        w_cold = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        gram_tile.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res, metrics = run()
+        torch.cuda.synchronize()
+        w_warm = time.perf_counter() - t0
+        w_launches = gram_tile.LAUNCHES
+        w_peak = torch.cuda.max_memory_allocated()
+        w_repeats = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            r, _ = run()
+            torch.cuda.synchronize()
+            w_repeats.append({"e2e_seconds": time.perf_counter() - t0, "phase_seconds": r.timers})
+            del r
+        fp = res.posterior.fp
+        emit("workload", name=name, dtype="float32", card=card,
+             gram_rows={b: int(f.shape[0]) for b, f in fp.factors.items()},
+             latent_dim=w.problem.latent_dim, nugget=w.nugget, gn_steps=w.max_iter,
+             build_seconds=build_s, cold_seconds=w_cold, e2e_seconds=w_warm,
+             phase_seconds=res.timers, repeats=w_repeats, metrics=metrics, gates=w.gates,
+             nugget_scales=fp.nugget_scales, rungs=fp.rungs, losses=res.state.losses.tolist(),
+             converged_finite=bool(res.state.converged_finite), k1_launches=w_launches,
+             max_memory_allocated=w_peak)
+        failed = w.failures(metrics)
+        check(not failed, "; ".join(failed))
+        check(bool(res.state.converged_finite), f"{name}: a GN step was rejected")
+        check(w_launches == expected, f"{name} launched K1 {w_launches} times, expected {expected}")
+        del res
+        extended = ("u", "a") if w.a_truth is not None else ("u",)
+        w_asm, w_checks = time_assemblies(w.problem, w.X_test, 20, 3, extended)
+        emit("k1_workload_assemblies", name=name, card=card, assemblies=w_asm, checks=w_checks)
+        wl_summary[name] = {
+            "launches": w_launches,
+            "ms": sum(a["ms"] for a in w_asm),
+            "plain_ms": sum(a["plain_ms"] for a in w_asm),
+            "bound_ms": sum(a["bound_ms"] for a in w_asm),
+            "max_abs_err": max(c["max_abs_err"] for c in w_checks if c["dtype"] == "float32"),
+        }
+        del w
+
+    # -- 6. the Krylov steps against the exact ones ------------------------------
+    t_krylov = time.perf_counter()
+    krylov = krylov_steps(tpt, dev)
+    emit("krylov_steps", seconds=time.perf_counter() - t_krylov, card=card, **krylov)
+
+    # -- 7. summary -------------------------------------------------------------
+    emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": [{
         "name": "gram_tile",
         "route": "cuda",
@@ -427,6 +598,7 @@ def main():
         "large_solve_bound_ms": sum(a["bound_ms"] for a in big_asm),
         "large_solve_launches": big_launches,
         "large_solve_max_abs_err": big_abs,
+        "workloads": wl_summary,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from . import interop, models, ops, solvers, utils  # noqa: E402
+from . import interop, models, ops, solvers, utils, workloads  # noqa: E402
 from .api import GPSolver, SolveResult  # noqa: E402
 from .ops import SquaredExponential  # noqa: E402
 from .solvers import Posterior, factorize, gn_solve  # noqa: E402
@@ -36,4 +36,5 @@ __all__ = [
     "ops",
     "solvers",
     "utils",
+    "workloads",
 ]

@@ -13,6 +13,8 @@ are functions of a ``torch.device``:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -27,9 +29,29 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+_card_numerics_on_cpu = False
+
+
+@contextlib.contextmanager
+def card_numerics_on_cpu():
+    """Within the block, CPU tensors take the card's numerics
+    (:func:`is_accelerator` is true for them): f32 by default,
+    ``solve_mode='inverse'`` with the Newton step, the controlled SPD solve.
+    It rehearses a card run on the CPU (``scripts/torch_cpu_rehearsal.py``);
+    the Gram kernel's plain version still stands in for the kernel."""
+    global _card_numerics_on_cpu
+    prev, _card_numerics_on_cpu = _card_numerics_on_cpu, True
+    try:
+        yield
+    finally:
+        _card_numerics_on_cpu = prev
+
+
 def is_accelerator(device) -> bool:
-    """True for a CUDA device (f32 working precision, guarded linear algebra)."""
-    return torch.device(device).type == "cuda"
+    """True for a CUDA device (f32 working precision, guarded linear algebra),
+    and for the CPU inside :func:`card_numerics_on_cpu`."""
+    kind = torch.device(device).type
+    return kind == "cuda" or (kind == "cpu" and _card_numerics_on_cpu)
 
 
 def default_dtype(device) -> torch.dtype:

@@ -117,11 +117,16 @@ def spd_solve(H: torch.Tensor, g: torch.Tensor, jitter: float = 0.0) -> torch.Te
     """Solve the SPD Gauss-Newton system ``H x = g``.
 
     Plain Cholesky on the CPU; :func:`spd_solve_controlled` on the card.
+    Where the factorization fails the result is NaN, as the JAX package's
+    Cholesky gives it, so that the caller's non-finite guard rejects the
+    step.
     """
     if jitter:
         H = H + jitter * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
     if not is_accelerator(H.device):
-        return kernel_solve(torch.linalg.cholesky(H), g)
+        L, info = torch.linalg.cholesky_ex(H)
+        x = kernel_solve(L, g)
+        return torch.where(info == 0, x, torch.full_like(x, float("nan")))
     return spd_solve_controlled(H, g)
 
 

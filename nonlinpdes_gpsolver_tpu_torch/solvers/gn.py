@@ -8,13 +8,17 @@ Counterpart of the main-path part of ``nonlinpdes_gpsolver_tpu/solvers/gn.py``:
   until the whitening operator passes the quality probe;
 * :func:`gn_solve` stacks the whitened block residuals ``L_b^{-1} F_b(z)``
   and the weighted misfits into ``r(z)``, and solves ``(J^T J) delta = J^T r``
-  at each step, with the ``'structured'`` or the ``'direct'`` Jacobian.
+  at each step: with the ``'structured'`` or the ``'direct'`` Jacobian
+  panel, or matrix-free by conjugate gradients (``'cg'``, and
+  ``'woodbury'`` for misfit-coupled problems).
 
 The JAX package runs the loop as one compiled ``lax.scan``/``while_loop``;
 here it is a Python loop over eager tensor ops. A step that would make the
 iterate non-finite is rejected (z kept) without a host sync; only the
-``tol`` plateau test reads the loss on the host. Quality checks run
-eagerly during factorization.
+``tol`` plateau test reads the loss on the host. The Krylov steps' CG loop
+reads one boolean on the host per iteration (its exit test), where the JAX
+package's ``while_loop`` keeps it on the device. Quality checks run eagerly
+during factorization.
 
 ``solve_mode='auto'`` is ``'inverse'`` (explicit whitening operator,
 refined by one Newton step) on the card and ``'trsm'`` (triangular solves)
@@ -24,6 +28,7 @@ on the CPU, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, NamedTuple
 
@@ -81,11 +86,13 @@ class FactoredProblem:
         s = s if v.dim() == 1 else s[:, None]
         return s * kernel_solve(self.factors[name], v * s)
 
-    def whitened_residual(self, z: torch.Tensor) -> torch.Tensor:
+    def whitened_residual(self, z: torch.Tensor, misfits: bool = True) -> torch.Tensor:
+        """``r(z)``: the whitened block residuals, then (with ``misfits``)
+        the square-root-weighted misfit residuals."""
         p = self.problem
         parts = [self.whiten(b.name, b.residual(z, p.data)) for b in p.blocks]
-        for m in p.misfits:
-            parts.append(math.sqrt(m.weight) * m.residual(z, p.data))
+        if misfits:
+            parts += [math.sqrt(m.weight) * m.residual(z, p.data) for m in p.misfits]
         return torch.cat(parts)
 
     def loss(self, z: torch.Tensor) -> torch.Tensor:
@@ -97,6 +104,10 @@ class GNState(NamedTuple):
     z: torch.Tensor
     losses: torch.Tensor  # loss history, one entry per iteration (post-step)
     converged_finite: torch.Tensor  # False if any step was rejected as non-finite
+    # inner CG iterations per GN step (a CPU int64 tensor): zeros for the
+    # exact steps and for untaken iterations; == cg_maxiter means the inner
+    # solve stopped at its cap before reaching cg_tol
+    cg_iters: torch.Tensor
 
 
 def _probe_vec(n: int, dtype, device) -> torch.Tensor:
@@ -260,12 +271,151 @@ def _structured_jacobian(fp: FactoredProblem, z, structure):
     return torch.cat(parts, dim=0)
 
 
+def _misfit_jacobian(m, data, z):
+    """``(r_m(z), J_m)`` with ``J_m`` the misfit's (K, n) Jacobian, from K
+    VJPs (misfit row counts are small by construction)."""
+    F, vjp = torch.func.vjp(lambda zz: m.residual(zz, data), z)
+    eye = torch.eye(F.shape[0], dtype=z.dtype, device=z.device)
+    return F, torch.func.vmap(lambda e: vjp(e)[0])(eye)
+
+
 def _misfit_jacobians(p: CollocationProblem, z):
-    return [
-        math.sqrt(m.weight)
-        * torch.func.jacfwd(lambda zz, _m=m: _m.residual(zz, p.data))(z)
-        for m in p.misfits
-    ]
+    return [math.sqrt(m.weight) * _misfit_jacobian(m, p.data, z)[1] for m in p.misfits]
+
+
+def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None):
+    """Conjugate gradients on a matrix of right-hand sides sharing one SPD
+    operator: the inner solve of the ``'cg'`` and ``'woodbury'`` steps.
+
+    ``normal_op(V)`` applies the operator to each column of ``V`` (m, k).
+    Per-column step lengths keep each column's recursion exact (k CG runs
+    sharing their operator applications, not block CG). A column whose
+    residual fell below ``tol * ||b||`` is frozen (alpha = beta = 0) while
+    the others go on; the loop ends when all have, or at ``maxiter``.
+    ``M`` is an optional preconditioner, ``X0`` an optional warm start (one
+    more operator application for its residual). Returns ``(X, iters)``.
+
+    The exit test reads one boolean on the host per iteration (a device
+    sync on the card), where the JAX package's ``while_loop`` decides on
+    the device.
+    """
+    tol2 = float(tol) ** 2 * torch.sum(B * B, dim=0)
+    prec = M if M is not None else (lambda R: R)
+    if X0 is None:
+        X, R = torch.zeros_like(B), B
+    else:
+        X, R = X0, B - normal_op(X0)
+    Z = prec(R)
+    P, gamma = Z, torch.sum(R * Z, dim=0)
+    iters = 0
+    while iters < maxiter:
+        active = torch.sum(R * R, dim=0) > tol2
+        if not bool(active.any()):
+            break
+        Q = normal_op(P)
+        denom = torch.sum(P * Q, dim=0)
+        safe = active & (denom > 0)
+        alpha = torch.where(safe, gamma / torch.where(safe, denom, 1.0), 0.0)
+        X = X + alpha * P
+        R = R - alpha * Q
+        Z = prec(R)
+        gamma_new = torch.sum(R * Z, dim=0)
+        beta = torch.where(safe, gamma_new / torch.where(gamma > 0, gamma, 1.0), 0.0)
+        P, gamma = Z + beta * P, gamma_new
+        iters += 1
+    return X, iters
+
+
+def _normal_op(jvp, vjp, hessian_jitter):
+    """``V -> J^T (J V) (+ jitter V)`` column by column (``vmap``) from a
+    linearization's JVP and VJP."""
+
+    def op(V):
+        HV = torch.func.vmap(lambda v: vjp(jvp(v))[0], in_dims=1, out_dims=1)(V)
+        return HV + hessian_jitter * V if hessian_jitter else HV
+
+    return op
+
+
+def _misfit_jacobi_precond(p: CollocationProblem, z):
+    """Jacobi preconditioner of the ``'cg'`` normal solve, or ``None``
+    without misfits.
+
+    Heavily weighted misfits (``1/noise^2 ~ 1e6`` for the Darcy inverse) put
+    entries of that scale on a few diagonal entries of ``J^T J`` while the
+    whitened GP blocks contribute O(1..1e2). The misfits' exact part of
+    ``diag(J^T J)`` is their weighted squared column sums; the GP blocks'
+    part is taken as 1. The returned ``M`` divides each column of a panel
+    by that diagonal (the JAX package divides an (m, 1) panel by an (m,)
+    vector, which broadcasts to (m, m): fault R1, fixed here).
+    """
+    if not p.misfits:
+        return None
+    d = torch.ones_like(z)
+    for m in p.misfits:
+        J = _misfit_jacobian(m, p.data, z)[1]
+        d = d + m.weight * torch.sum(J * J, dim=0)
+    d = d[:, None]
+    return lambda V: V / d
+
+
+def _woodbury_pieces(p: CollocationProblem, z):
+    """``(U, wvec, F)``: the (m, K) stacked misfit Jacobian transposes, the
+    per-row weights and the stacked misfit residuals, so that the misfits'
+    Hessian term is ``U diag(wvec) U^T`` and their gradient ``U (wvec F)``."""
+    Us, ws, Fs = [], [], []
+    for m in p.misfits:
+        F, J = _misfit_jacobian(m, p.data, z)
+        Us.append(J.T)
+        ws.append(torch.full((F.shape[0],), m.weight, dtype=z.dtype, device=z.device))
+        Fs.append(F)
+    return torch.cat(Us, dim=1), torch.cat(ws), torch.cat(Fs)
+
+
+def _woodbury_correct(X, U, wvec, hessian_jitter):
+    """Combine the misfit-free solves ``X = H0^{-1} [g, U]`` into the step
+    for ``H = H0 + U diag(w) U^T`` (Sherman-Morrison-Woodbury on the rank-K
+    misfit term):
+
+    ``H^{-1} g = X_g - X_U (diag(1/w) + U^T X_U)^{-1} (U^T X_g)``.
+
+    The capacitance matrix is (K, K): K = 60 data rows for the reference
+    Darcy inverse."""
+    Xg, Xu = X[:, 0], X[:, 1:]
+    C = torch.diag(1.0 / wvec) + U.T @ Xu
+    y = spd_solve(C, U.T @ Xg, jitter=hessian_jitter)
+    return Xg - Xu @ y
+
+
+def _delta_cg(fp: FactoredProblem, z, hessian_jitter, cg_tol, cg_maxiter):
+    """The ``'cg'`` step: Jacobi-preconditioned CG on ``J^T J`` (one JVP and
+    one VJP per iteration), never forming the Jacobian."""
+    r, jvp = torch.func.linearize(fp.whitened_residual, z)
+    _, vjp = torch.func.vjp(fp.whitened_residual, z)
+    X, iters = _batched_cg(
+        _normal_op(jvp, vjp, hessian_jitter), vjp(r)[0][:, None], cg_tol, cg_maxiter,
+        M=_misfit_jacobi_precond(fp.problem, z),
+    )
+    return X[:, 0], iters
+
+
+def _delta_woodbury(fp: FactoredProblem, z, hessian_jitter, cg_tol, cg_maxiter, X0=None):
+    """The ``'woodbury'`` step: batched CG on the misfit-free normal
+    operator ``H0`` (whose spectrum is the whitened GP blocks'; the
+    ``1/noise^2`` misfit rows are what stall plain CG) against ``[g, U]``,
+    then the rank-K correction of :func:`_woodbury_correct`. Returns
+    ``(delta, iters, X)``; ``X0`` warm-starts the inner solves (the mesh
+    path's carry of the previous step's ``X``), zero when ``None``."""
+    wr0 = functools.partial(fp.whitened_residual, misfits=False)
+    r0, jvp0 = torch.func.linearize(wr0, z)
+    _, vjp0 = torch.func.vjp(wr0, z)
+    U, wvec, F = _woodbury_pieces(fp.problem, z)
+    g = vjp0(r0)[0] + U @ (wvec * F)
+    X, iters = _batched_cg(
+        _normal_op(jvp0, vjp0, hessian_jitter), torch.cat([g[:, None], U], dim=1),
+        cg_tol, cg_maxiter, X0=X0,
+    )
+    return _woodbury_correct(X, U, wvec, hessian_jitter), iters, X
 
 
 def _direct_jacobian(fp: FactoredProblem, z):
@@ -287,6 +437,8 @@ def gn_solve(
     step_size: float = 1.0,
     hessian_jitter: float = 0.0,
     step_solver: str = "auto",
+    cg_tol: float = 1e-10,
+    cg_maxiter: int | None = None,
     tol: float | None = None,
 ) -> GNState:
     """Run up to ``max_iter`` Gauss-Newton steps.
@@ -299,22 +451,37 @@ def gn_solve(
     least two steps), or when a step was rejected; untaken iterations repeat
     the last loss in the history.
 
-    ``step_solver``: ``'structured'`` (the whitened panel from column slabs
-    of the whitening operator; needs ``solve_mode='inverse'`` factors and
-    pointwise-per-slice residuals), ``'direct'`` (the full Jacobian panel),
-    or ``'auto'``: ``'structured'`` where it applies, else ``'direct'``.
-    The Krylov steps ``'cg'`` and ``'woodbury'`` are not ported yet.
+    ``step_solver``:
+
+    * ``'structured'``: the whitened panel from column slabs of the
+      whitening operator; needs ``solve_mode='inverse'`` factors and
+      pointwise-per-slice residuals;
+    * ``'direct'``: the full Jacobian panel, ``J^T J`` and a Cholesky solve;
+    * ``'auto'``: ``'structured'`` where it applies, else ``'direct'``;
+    * ``'cg'``: matrix-free Jacobi-preconditioned CG on ``J^T J``;
+    * ``'woodbury'`` (problems with misfits only): batched CG on the
+      misfit-free operator plus the exact rank-K misfit correction.
+
+    The Krylov steps solve to ``cg_tol`` (relative residual) in at most
+    ``cg_maxiter`` iterations (500 when ``None``: an inner solve that
+    cannot converge ends there, and ``GNState.cg_iters`` shows it). They
+    have no deflation, Levenberg floor or damped update (fault R3, as in
+    the JAX package's dense path): at small nuggets in f32 their steps can
+    be poor. Each step's inner CG starts from zero, as in the JAX package's
+    dense path.
     """
     p = fp.problem
     z = (p.init_latent() if z0 is None else torch.as_tensor(z0)).to(
         device=p.device, dtype=p.dtype
     )
-    if step_solver in ("cg", "woodbury"):
-        raise NotImplementedError(
-            f"step_solver={step_solver!r} is not ported yet (slice 2 of the port)"
-        )
-    if step_solver not in ("auto", "structured", "direct"):
+    if step_solver not in ("auto", "structured", "direct", "cg", "woodbury"):
         raise ValueError(f"unknown step_solver {step_solver!r}")
+    if step_solver == "woodbury" and not p.misfits:
+        raise ValueError(
+            "step_solver='woodbury' is the misfit-coupled step; this problem "
+            "has no misfit terms (use 'cg' or 'direct')"
+        )
+    cg_maxiter = 500 if cg_maxiter is None else int(cg_maxiter)
     structure = None
     if step_solver in ("auto", "structured"):
         cand = _slice_structure(p)
@@ -332,17 +499,23 @@ def gn_solve(
         structure = cand if valid else None
 
     def delta(z):
+        if step_solver == "cg":
+            return _delta_cg(fp, z, hessian_jitter, cg_tol, cg_maxiter)
+        if step_solver == "woodbury":
+            return _delta_woodbury(fp, z, hessian_jitter, cg_tol, cg_maxiter)[:2]
         J = _direct_jacobian(fp, z) if structure is None else _structured_jacobian(fp, z, structure)
-        return spd_solve(J.T @ J, J.T @ fp.whitened_residual(z), jitter=hessian_jitter)
+        return spd_solve(J.T @ J, J.T @ fp.whitened_residual(z), jitter=hessian_jitter), 0
 
     ok = torch.ones((), dtype=torch.bool, device=p.device)
-    losses = []
+    losses, cg_iters = [], []
     prev = cur = math.inf
     for i in range(int(max_iter)):
         if tol is not None and i >= 2:
             if abs(prev - cur) <= tol * max(cur, torch.finfo(p.dtype).tiny):
                 break
-        z_new = z - step_size * delta(z)
+        step, iters = delta(z)
+        cg_iters.append(iters)
+        z_new = z - step_size * step
         finite = torch.isfinite(z_new).all()
         z = torch.where(finite, z_new, z)
         ok = ok & finite
@@ -355,4 +528,5 @@ def gn_solve(
     if losses.shape[0] < max_iter:
         pad = losses[-1:].expand(int(max_iter) - losses.shape[0])
         losses = torch.cat([losses, pad])
-    return GNState(z=z, losses=losses, converged_finite=ok)
+    cg_iters = torch.tensor(cg_iters + [0] * (int(max_iter) - len(cg_iters)), dtype=torch.int64)
+    return GNState(z=z, losses=losses, converged_finite=ok, cg_iters=cg_iters)

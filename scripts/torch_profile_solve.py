@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the device time of one port solve goes, by kernel.
 
-    python3 scripts/torch_profile_solve.py [--sizes 900:124 7800:600] [--top 12]
+    python3 scripts/torch_profile_solve.py [--sizes 900:124 7800:600]
+        [--workloads burgers eikonal darcy] [--top 12]
 
 For each size (the JAX package's canonical N=900 draw, and the port's
 sampler with seed 0 for other sizes) it runs the elliptic solve of
-``chip_smoke.py`` (f32, nugget 1e-5, 4 GN steps, extension to a 60x60 grid)
-once cold, then once more under ``torch.profiler`` and prints one JSON line:
+``chip_smoke.py`` (f32, nugget 1e-5, 4 GN steps, extension to a 60x60 grid),
+and for each named workload of ``nonlinpdes_gpsolver_tpu_torch/workloads.py``
+its solve and test extensions, once cold, then once more under
+``torch.profiler``, and prints one JSON line each:
 the synchronized wall seconds of the profiled solve, the device busy time
 (the union of all kernel intervals), the idle share ``1 - busy / wall``, the
 solver's phase seconds, and the ``--top`` kernels by total device time with
@@ -32,24 +35,20 @@ def main():
     import nonlinpdes_gpsolver_tpu_torch as tpt
 
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--sizes", nargs="+", default=["900:124", "7800:600"])
+    ap.add_argument("--sizes", nargs="*", default=["900:124", "7800:600"])
+    ap.add_argument("--workloads", nargs="*", default=[],
+                    choices=["elliptic", "burgers", "eikonal", "darcy"])
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda")
 
-    def u_truth(x):
-        return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1]) + 2 * torch.sin(
-            4 * torch.pi * x[0]
-        ) * torch.sin(4 * torch.pi * x[1])
-
-    def rhs_f(x):
-        return -torch.trace(torch.func.hessian(u_truth)(x)) + u_truth(x) ** 3
-
+    u_truth, rhs_f = tpt.workloads.u_elliptic, tpt.workloads.elliptic_rhs()
     Xt = tpt.utils.test_grid(60, 60, device=dev)
     truth = torch.func.vmap(u_truth)(Xt)
-    for size in args.sizes:
+
+    def size_case(size):
         n_dom, n_bdy = map(int, size.split(":"))
 
         def solve():
@@ -63,14 +62,26 @@ def main():
                     tpt.SquaredExponential.gaussian(0.2), Xd, Xb, rhs_f, u_truth, seed=1
                 )
             res = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4)
-            err = tpt.GPSolver.errors(res.posterior.extend(Xt), truth)
-            return res, err
+            return res, tpt.GPSolver.errors(res.posterior.extend(Xt), truth).l2
 
+        return {"n_domain": n_dom, "n_boundary": n_bdy}, solve
+
+    def workload_case(name):
+        w = tpt.workloads.WORKLOADS[name](device=dev)
+
+        def solve():
+            res = w.solve()
+            return res, w.metrics(res)["test_l2"]
+
+        return {"workload": name}, solve
+
+    cases = [size_case(s) for s in args.sizes] + [workload_case(n) for n in args.workloads]
+    for label, solve in cases:
         solve()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res, err = solve()
+            res, l2 = solve()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -90,10 +101,10 @@ def main():
             by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[: args.top]
         print(json.dumps({
-            "n_domain": n_dom, "n_boundary": n_bdy, "wall_s": wall,
+            **label, "wall_s": wall,
             "device_busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": len(kernels), "phase_seconds": res.timers,
-            "test_l2": err.l2, "rungs": res.posterior.fp.rungs,
+            "test_l2": l2, "rungs": res.posterior.fp.rungs,
             "top_kernels": [{"name": n[:120], "launches": c, "ms": ms} for n, (c, ms) in top],
         }), flush=True)
         del res

@@ -1,6 +1,7 @@
 """The port on a CUDA card: the Gram kernel against its plain version (one
 block, and whole one-launch Gram and cross-Gram matrices), its wrapper's
-checks, and the canonical solve through the kernel.
+checks, the canonical solve and the other reference workloads through the
+kernel, and a Woodbury step against the direct one.
 
 These tests need a card and skip without one (the kernel has no CPU mode).
 The file imports nothing of JAX, so on a machine with a card and no JAX it
@@ -244,3 +245,56 @@ def test_canonical_solve_passes_gate_with_two_launches(cuda):
     assert gram_tile.LAUNCHES - before == 2  # the training Gram and the test cross-Gram
     err = tpt.GPSolver.errors(pred, torch.func.vmap(u_truth)(Xt))
     assert err.l2 <= GATE_L2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,launches", [("burgers", 2), ("eikonal", 2), ("darcy", 4)])
+def test_workload_passes_gate_with_its_launches(cuda, name, launches):
+    """The JAX package's draw of each reference workload, f32 on the card:
+    one K1 launch per training Gram and per test cross-Gram (Darcy: two of
+    each), and the workload's gate."""
+    w = tpt.workloads.WORKLOADS[name](device=cuda)
+    assert w.problem.dtype == torch.float32
+    before = gram_tile.LAUNCHES
+    res = w.solve()
+    metrics = w.metrics(res)
+    torch.cuda.synchronize()
+    assert gram_tile.LAUNCHES - before == launches
+    assert not w.failures(metrics), metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["burgers", "darcy"])
+def test_workload_training_plans_match_plain(cuda, name):
+    """Each training Gram of the workload in one f32 launch, every block
+    within 1e-5 of its scale of the plain version, exactly symmetric."""
+    w = tpt.workloads.WORKLOADS[name](device=cuda)
+    pts = w.problem.points
+    for b in w.problem.blocks:
+        plan = gram_tile.gram_plan(b.kernel, b.observables, tpt.ops.observable_sizes(b.observables, pts))
+        sets = [pts[s] for s in plan.set_keys]
+        got = plan.run(sets)
+        ref = torch.zeros_like(got)
+        plan._plain(sets, ref)
+        torch.cuda.synchronize()
+        _assert_blocks_close(plan, got, ref, 1e-5)
+        assert bool(torch.equal(got, got.T))
+
+
+@pytest.mark.cuda
+def test_small_darcy_woodbury_step_matches_direct(cuda):
+    """f64: one 'woodbury' step on the JAX package's small Darcy fixture
+    (48/16, sigma 0.4, nugget 1e-4, trsm; points from the port's sampler)
+    matches the 'direct' step to 1e-5 of z's scale."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    Xd, Xb = tpt.utils.sample_random(gen, 48, 16, dtype=torch.float64)
+    k = tpt.SquaredExponential.gaussian(0.4)
+    obs = torch.linspace(0.0, 0.01, 12, dtype=torch.float64, device=cuda)
+    prob = tpt.models.darcy_flow(k, k, Xd, Xb, obs, lambda x: torch.ones_like(x[0]),
+                                 noise_level=1e-2, seed=3)
+    fp = tpt.factorize(prob, 1e-4, solve_mode="trsm")
+    direct = tpt.gn_solve(fp, max_iter=1, step_solver="direct")
+    wood = tpt.gn_solve(fp, max_iter=1, step_solver="woodbury", cg_tol=1e-9, cg_maxiter=2000)
+    assert float((wood.z - direct.z).abs().max() / direct.z.abs().max()) < 1e-5
+    np.testing.assert_allclose(wood.losses.cpu().numpy(), direct.losses.cpu().numpy(), rtol=1e-5)
+    assert 0 < int(wood.cg_iters[0]) < 2000

@@ -229,8 +229,8 @@ def test_callable_rhs_matches_values():
 
 
 def test_solver_guards():
-    """A Gram block at the mesh crossover raises (the mesh path is not ported),
-    and so do the Krylov step solvers; the generator-seeded latent is
+    """A Gram block at the mesh crossover raises (the mesh path is not ported);
+    the Krylov step solvers run; the generator-seeded latent is
     reproducible."""
     Xd = torch.rand((8100, 2), dtype=torch.float64)
     Xb = torch.rand((200, 2), dtype=torch.float64)
@@ -246,8 +246,10 @@ def test_solver_guards():
     )
     assert torch.equal(prob.init_latent(), prob.init_latent())
     fp = tpt.factorize(prob, 1e-8)
-    with pytest.raises(NotImplementedError):
-        tpt.gn_solve(fp, step_solver="cg")
+    st = tpt.gn_solve(fp, max_iter=2, step_solver="cg", cg_maxiter=50)
+    assert bool(torch.isfinite(st.z).all()) and all(0 < i <= 50 for i in st.cg_iters.tolist())
+    with pytest.raises(ValueError, match="step_solver"):
+        tpt.gn_solve(fp, step_solver="normal")
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
@@ -262,6 +264,19 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     assert tpt.utils.test_grid(4, 4, device="cpu").dtype == torch.float64
 
 
+def test_card_numerics_on_cpu():
+    """Inside the override CPU tensors take the card's rules (f32 by
+    default, solve_mode 'auto' -> 'inverse'); outside it, the CPU's."""
+    Xd, Xb, f, g, z0 = _small_problem(n_dom=20, n_bdy=8)
+    prob = tpt.interop.problem_from_numpy(Xd, Xb, f, g, z0, (12.5, 12.5), device="cpu")
+    backend = tpt.ops.backend
+    assert not tpt.factorize(prob, 1e-8).inv_factors
+    with backend.card_numerics_on_cpu():
+        assert backend.default_dtype("cpu") == torch.float32
+        assert set(tpt.factorize(prob, 1e-8).inv_factors) == {b.name for b in prob.blocks}
+    assert backend.default_dtype("cpu") == torch.float64 and not backend.is_accelerator("cpu")
+
+
 def test_tf32_is_off():
     assert torch.get_float32_matmul_precision() == "highest"
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -270,7 +285,8 @@ def test_tf32_is_off():
 
 def test_port_imports_no_jax():
     """The port, imported with jax and the JAX package blocked, runs a CPU
-    solve and leaves neither in sys.modules."""
+    elliptic solve and a 'woodbury' step of a small Darcy problem built from
+    its saved inputs, and leaves neither in sys.modules."""
     code = textwrap.dedent(
         """
         import importlib.abc, sys
@@ -282,11 +298,20 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, Block())
         import torch
         import nonlinpdes_gpsolver_tpu_torch as tpt
+        torch.set_num_threads(1)  # beside other test processes
         inp = tpt.interop.load_canonical_inputs()
         small = {k: v[:40] if k != "inv_sq" else v for k, v in inp.items()}
         prob = tpt.interop.problem_from_numpy(**small, device="cpu")
         res = tpt.GPSolver(prob, nugget=1e-8).solve(max_iter=2)
         res.posterior.extend(tpt.utils.test_grid(5, 5, device="cpu"))
+        d = tpt.interop.load_inputs("darcy")
+        n, nb, k = 40, 16, 8
+        small = dict(d, X_domain=d["X_domain"][:n], X_boundary=d["X_boundary"][:nb],
+                     f=d["f"][:n], g=d["g"][:nb], obs=d["obs"][:k],
+                     z0=d["z0"].reshape(6, -1)[:, :n].ravel())
+        darcy = tpt.interop.darcy_from_numpy(**small, device="cpu")
+        st = tpt.GPSolver(darcy, nugget=1e-2).solve(max_iter=1, step_solver="woodbury").state
+        assert bool(torch.isfinite(st.z).all()) and int(st.cg_iters[0]) > 0
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ok")
