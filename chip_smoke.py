@@ -41,9 +41,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 6. the Krylov steps: ``'cg'`` and ``'woodbury'`` against ``'direct'`` on the
    JAX package's Krylov test fixtures, gated in f64, reported in f32, and
    woodbury's inner iterations warm-started (:func:`krylov_steps`);
-7. the script's seconds so far (the build included), the kernel summary
-   line, then the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+7. ``k2_vs_plain``: K2 (K1 with the equilibrating epilogue) against its
+   plain version on every superblock window of a 5,000-row elliptic layout
+   and on Darcy u layouts, f32 and f64, one launch each, exact unit
+   diagonal, nothing written outside the slot; timed (:func:`k2_vs_plain`);
+8. ``mesh_solve``: ``workloads.mesh_elliptic`` (42,500 Gram rows) through
+   plain ``GPSolver(problem, nugget=1e-5)``, which ``auto_mesh`` must route
+   to the mesh path: cold, warm (K1 and K2 launches, peak memory) and two
+   more solves, phase seconds, superblocks and attempts, rungs, probe
+   quality, CG iterations and the device ms of one kernel solve, gate
+   3.402e-3; then each of its 21 K2 windows and its K1 launches checked
+   against their plain versions and timed;
+9. ``mesh_vs_dense``: phase 4's 16,200-row problem through
+   ``mesh=make_mesh(1)``, cold and warm, beside the dense path's seconds
+   (the card's datum on ``_AUTO_MESH_GRAM_ROWS``), same gate, its K2
+   windows and K1 launches timed;
+10. ``mesh_darcy``: ``workloads.darcy_past_wall`` (N_d 3,000) under its gates,
+    its routed step solver (``'woodbury'``), deflation rank, CG iterations,
+    memory and seconds, its K2 windows and K1 launches timed;
+11. ``mesh_steps``: every step solver of the mesh path against the dense
+    ``'direct'`` step on the JAX package's mesh-test fixtures, gated in
+    f64 (:func:`mesh_steps`);
+12. the script's seconds so far (the build included), the kernel summary
+    line (K1 with its mesh-path launches, K2), then the card's name and
+    power limit, and last ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s in f32
 and 34 TFLOP/s in f64 outside the tensor cores. Device times come from
@@ -117,19 +138,25 @@ def host_us(fn, reps):
 
 
 def k1_bound_ms(plan, dtype_name):
-    """Least time for one K1 launch of ``plan``: each output entry written
-    once (mirrors included) and each input read once at the HBM rate,
-    against the operations of each distinct entry (the upper triangle of a
-    symmetric block) at the peak rate. Returns (ms, "bytes"|"operations")."""
+    """Least time for one K1 (or K2) launch of ``plan``: each output entry
+    written once (mirrors included) and each input read once at the HBM
+    rate (K2: the row and column scales too), against the operations of each
+    distinct entry (the upper triangle of a symmetric block; K2: two more
+    products an entry, none in fill blocks) at the peak rate. Returns (ms,
+    "bytes"|"operations")."""
     esize = 4 if dtype_name == "float32" else 8
     dim = plan.kernel.dim
     a = plan._arrays
     written = sum(b.n * b.m * (2 if b.mirror else 1) for b in plan.blocks)
     read = sum(plan.set_sizes) * dim + a["inv_sq"].size + a["poly"].size + a["coef"].size
+    if plan.equilibrated:
+        read += sum(plan.shape)
     bytes_moved = esize * (written + read) + 4 * (a["degs"].size + a["blocks"].size)
     flops = 0
     for b in plan.blocks:
-        per_entry = dim + 3 * dim + EXP_OPS + 1  # u, q, exp, final product
+        if b.fill:
+            continue
+        per_entry = dim + 3 * dim + EXP_OPS + 1 + 2 * plan.equilibrated  # u, q, exp, products
         for row in plan.tables[b.table][1]:
             per_entry += 1 + sum(2 * int(d) + 1 for d in row if d > 0)  # Horner, products, sum
         flops += per_entry * (b.n * (b.n + 1) // 2 if b.symmetric else b.n * b.m)
@@ -140,9 +167,12 @@ def k1_bound_ms(plan, dtype_name):
 
 def blockwise_rel_err(plan, got, ref):
     """Largest |got - ref| over each block (and its mirror) relative to that
-    block's scale, and the largest absolute difference."""
+    block's scale, and the largest absolute difference (K2's fill blocks
+    are held to exact equality apart)."""
     rel, diff_max = 0.0, 0.0
     for b in plan.blocks:
+        if b.fill:
+            continue
         slots = [(slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m))]
         if b.mirror:
             slots.append(slots[0][::-1])
@@ -248,6 +278,323 @@ def krylov_steps(tpt, dev):
         out[f"f32_darcy_{solver}"], _, ref = compare(fp, 2, ref, step_solver=solver,
                                                      cg_tol=1e-9, cg_maxiter=50)
     return out
+
+
+def mesh_steps(tpt, dev):
+    """Each step solver of the mesh path against the dense ``'direct'``
+    step, 3 GN steps, on the fixtures of the JAX package's mesh tests
+    (``tests/test_distributed_solver.py``: ``_elliptic_problem``, 150/40,
+    sigma 0.3, nugget 1e-10, here from z0 = 0, and ``_small_darcy``, 48/16,
+    sigma 0.4, 12 observations on linspace(0, 0.01), noise 1e-2, nugget
+    1e-4; woodbury at cg_tol 1e-9, cg_maxiter 2,000), on points from the
+    port's sampler with seed 0, 16-row blocks. Gated in f64 (within 1e-6 of
+    z's scale), reported in f32. The elliptic fixture starts from zero: from
+    its random start the first full step more than doubles the loss, so the
+    mesh path's damped update halves it where the dense loop takes it
+    (fault R3), and the two paths part by design."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.parallel import make_mesh
+    from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import (
+        factorize_distributed, gn_solve_distributed,
+    )
+
+    mesh = make_mesh(1, device=dev)
+
+    def u(x):
+        return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1])
+
+    def rhs(x):
+        return -torch.trace(torch.func.hessian(u)(x)) + u(x) ** 3
+
+    def points(n, nb, dtype):
+        return tpt.utils.sample_random(torch.Generator(device=dev).manual_seed(0), n, nb,
+                                       dtype=dtype)
+
+    def elliptic(dtype):
+        Xd, Xb = points(150, 40, dtype)
+        k = tpt.SquaredExponential.gaussian(0.3)
+        return tpt.models.nonlinear_elliptic(k, Xd, Xb, rhs, u, init="zero"), 1e-10
+
+    def darcy(dtype):
+        Xd, Xb = points(48, 16, dtype)
+        k = tpt.SquaredExponential.gaussian(0.4)
+        obs = torch.linspace(0.0, 0.01, 12, dtype=dtype, device=dev)
+        return tpt.models.darcy_flow(k, k, Xd, Xb, obs, lambda x: torch.ones_like(x[0]),
+                                     noise_level=1e-2, seed=3), 1e-4
+
+    fixtures = (("elliptic", elliptic, ("structured", "direct", "cg", "normal")),
+                ("darcy", darcy, ("woodbury", "structured", "normal")))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[1]
+        for name, build, solvers in fixtures:
+            prob, nugget = build(dtype)
+            ref = tpt.gn_solve(tpt.factorize(prob, nugget, solve_mode="trsm"), max_iter=3,
+                               step_solver="direct")
+            dfp = factorize_distributed(prob, mesh, nugget=nugget, block=16)
+            for solver in solvers:
+                kw = dict(cg_tol=1e-9, cg_maxiter=2000) if solver == "woodbury" else {}
+                sync()
+                t0 = time.perf_counter()
+                st = gn_solve_distributed(dfp, max_iter=3, step_solver=solver, **kw)
+                sync()
+                rel = float((st.z - ref.z).abs().max() / ref.z.abs().max())
+                out[f"{tag}_{name}_{solver}"] = {
+                    "z_rel_diff": rel, "losses": st.losses.tolist(),
+                    "direct_losses": ref.losses.tolist(), "cg_iters": st.cg_iters.tolist(),
+                    "seconds": time.perf_counter() - t0, "rungs": dfp.rungs,
+                }
+                if dtype == torch.float64:
+                    check(rel <= 1e-6, f"mesh {solver} on {name}: z differs by {rel:.3e}")
+    return out
+
+
+LIMITS = {"float32": 1e-5, "float64": 1e-12}  # of a block's scale, kernel against plain
+
+
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def counts():
+    from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
+
+    return gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES
+
+
+def zero_counts():
+    from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
+
+    gram_tile.LAUNCHES = gram_tile.K2_LAUNCHES = 0
+
+
+def check_k2(what, plan, sets, d_r, d_c):
+    """One K2 launch of ``plan`` into a slot of a larger buffer against its
+    plain version on the same inputs: each block within the dtype's limit
+    of its scale, fill blocks and the diagonal exact, nothing written
+    outside the slot."""
+    import torch
+
+    dtype = str(sets[0].dtype).split(".")[1]
+    h, S = plan.shape
+    big = torch.full((h + 8, S + 16), 7.0, dtype=sets[0].dtype, device=sets[0].device)
+    slot = big[4 : 4 + h, 8 : 8 + S]
+    before = counts()
+    plan.run_equilibrated(sets, d_r, d_c, out=slot)
+    sync()
+    after = counts()
+    check(after == (before[0], before[1] + 1), f"K2 {what}: launches {before} -> {after}")
+    ref = torch.empty((h, S), dtype=sets[0].dtype, device=sets[0].device)
+    plan._plain_equilibrated(sets, d_r, d_c, ref)
+    rel, diff = blockwise_rel_err(plan, slot, ref)
+    check(math.isfinite(rel) and rel <= LIMITS[dtype], f"K2 {what} {dtype}: {rel:.3e}")
+    check(bool((slot.diagonal() == 1.0).all()), f"K2 {what} {dtype}: diagonal not exactly 1")
+    for b in plan.blocks:
+        if b.fill:
+            rs, cs = slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m)
+            check(bool(torch.equal(slot[rs, cs], ref[rs, cs])), f"K2 {what}: fill block differs")
+    slot.fill_(7.0)
+    check(bool((big == 7.0).all()), f"K2 {what} {dtype}: wrote outside its slot")
+    return {"what": what, "shape": [h, S], "dtype": dtype, "blocks": len(plan.blocks),
+            "fill_blocks": sum(b.fill for b in plan.blocks), "sets": len(plan.set_sizes),
+            "rel_err": rel, "max_abs_err": diff}
+
+
+def window_cases(block, points, nugget, dtype=None, rows=512, S=2048):
+    """``(name, plan, sets, d_r, d_c)`` of every K2 launch of the fused
+    factorization of GP ``block`` (``rows``-row blocks, ``S``-wide
+    superblocks), at the nugget's equilibration, optionally cast."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops.assembly import observable_sizes
+    from nonlinpdes_gpsolver_tpu_torch.parallel import fused, gram, pad_to_blocks
+
+    pts = points if dtype is None else {k: v.to(dtype) for k, v in points.items()}
+    obs = block.observables
+    sizes = observable_sizes(obs, pts)
+    n = sum(sizes)
+    n_pad = pad_to_blocks(n, rows, 1)
+    ref = pts[obs[0].points]
+    c, nug = gram._equilibration_parts(block.kernel, gram._segments(obs, pts), "adaptive",
+                                       nugget, ref.dtype, ref.device)
+    d_pad = torch.cat([torch.rsqrt(c + nug), c.new_ones(n_pad - n)])
+    out = []
+    for kb0, F in fused._superblocks(n_pad // rows, S // rows):
+        c0, c1 = kb0 * rows, (kb0 + F) * rows
+        plan = fused.window_plan(block.kernel, obs, sizes, c0, c1, n_pad)
+        out.append((f"window [{c0}, {c1}) of {n_pad}", plan, gram.window_sets(plan, pts),
+                    d_pad[c0:], d_pad[c0:c1]))
+    return out
+
+
+def time_k2(cases, reps, plain_reps):
+    """Device ms, plain ms, host us per launch and the bound of each K2
+    launch (f32), and the sums."""
+    import torch
+
+    rows = []
+    for name, plan, sets, d_r, d_c in cases:
+        buf = torch.empty(plan.shape, dtype=sets[0].dtype, device=sets[0].device)
+        bound, by = k1_bound_ms(plan, str(buf.dtype).split(".")[1])
+        ms = time_ms(lambda: plan.run_equilibrated(sets, d_r, d_c, out=buf), reps)
+        rows.append({"launch": name, "shape": list(plan.shape), "blocks": len(plan.blocks),
+                     "ms": ms, "plain_ms": time_ms(lambda: plan._plain_equilibrated(
+                         sets, d_r, d_c, buf), plain_reps),
+                     "host_us_per_call": host_us(lambda: plan.run_equilibrated(
+                         sets, d_r, d_c, out=buf), reps),
+                     "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms})
+        del buf
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    return rows, total
+
+
+def k2_vs_plain(tpt, dev):
+    """K2 against its plain version on the card: every superblock window of
+    a 5,000-row elliptic layout (N 2,300, 400 boundary points; 512-row
+    blocks, S = 2,048: three windows, the last a ragged 1,024 wide with the
+    padding), a window of the Darcy u layout at N_d = 3,000 that straddles
+    two segments, and the whole Darcy u layout at N_d = 300 (one window, 25
+    blocks and 2 fill blocks), in f32 and f64 (limits 1e-5 and 1e-12 of a
+    block's scale), each one launch with an exact unit diagonal and nothing
+    written outside its slot; then each timed in f32."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = tpt.SquaredExponential.gaussian(0.2)
+    Xd, Xb = tpt.utils.sample_random(gen, 2300, 400)
+    ell = tpt.models.nonlinear_elliptic(k, Xd, Xb, None, None)
+    layouts = [("elliptic 5,000", ell, lambda c: c)]
+    for n_d in (3000, 300):
+        Xd, Xb = tpt.utils.sample_random(gen, n_d, n_d // 4)
+        darcy = tpt.models.darcy_flow(k, k, Xd, Xb, torch.zeros(60, device=dev), None)
+        pick = (lambda c: c[1:2]) if n_d == 3000 else (lambda c: c)
+        layouts.append((f"darcy u N_d={n_d}", darcy, pick))
+    rows, timed = [], []
+    for dtype in (torch.float32, torch.float64):
+        for name, prob, pick in layouts:
+            blk = prob.block("u")
+            for what, plan, sets, d_r, d_c in pick(window_cases(blk, prob.points, 1e-5, dtype)):
+                rows.append(check_k2(f"{name} {what}", plan, sets, d_r, d_c))
+                if dtype == torch.float32:
+                    timed.append((f"{name} {what}", plan, sets, d_r, d_c))
+    times, total = time_k2(timed, 20, 3)
+    return {"cases": rows, "times": times, "total": total,
+            "worst_rel_err": {d: max(r["rel_err"] for r in rows if r["dtype"] == d)
+                              for d in LIMITS}}
+
+
+def mesh_k1_cases(tpt, problem, X_test, extended=("u",)):
+    """``(name, plan, sets)`` of the K1 launches of a mesh-path solve: each
+    block's sampled-row probe (one cross-Gram a segment, 32 rows) and each
+    extended block's test cross-Gram chunks."""
+    import numpy as np
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
+    from nonlinpdes_gpsolver_tpu_torch.ops.operators import identity
+    from nonlinpdes_gpsolver_tpu_torch.solvers.posterior import _row_chunks, _serving_chunk
+
+    pts, out = problem.points, []
+    for blk in problem.blocks:
+        obs = blk.observables
+        sizes = tpt.ops.observable_sizes(obs, pts)
+        for o, size in zip(obs, sizes):
+            idx = torch.as_tensor(np.linspace(0, size - 1, min(32, size)).astype(int), device=X_test.device)
+            plan = gram_tile.cross_plan(blk.kernel, o.op, int(idx.shape[0]), obs, sizes)
+            out.append((f"probe {blk.name}", plan, [pts[o.points][idx], *(pts[k] for k in plan.set_keys)]))
+        if blk.name in extended:
+            for xs in _row_chunks(X_test, _serving_chunk(int(X_test.shape[0]), sum(sizes))):
+                plan = gram_tile.cross_plan(blk.kernel, identity(), int(xs.shape[0]), obs, sizes)
+                out.append((f"extension {blk.name}", plan, [xs.contiguous(), *(pts[k] for k in plan.set_keys)]))
+    return out
+
+
+def time_k1(cases, reps, plain_reps):
+    """Device ms, plain ms and the bound of each K1 launch, and the sums."""
+    import torch
+
+    rows = []
+    for name, plan, sets in cases:
+        buf = torch.empty(plan.shape, dtype=sets[0].dtype, device=sets[0].device)
+        bound, by = k1_bound_ms(plan, str(buf.dtype).split(".")[1])
+        ms = time_ms(lambda: plan.run(sets, out=buf), reps)
+        ref = torch.zeros_like(buf)
+        plan._plain(sets, ref)
+        plan.run(sets, out=buf)
+        rel, diff = blockwise_rel_err(plan, buf, ref)
+        check(rel <= LIMITS[str(buf.dtype).split(".")[1]], f"K1 {name}: {rel:.3e}")
+        rows.append({"launch": name, "shape": list(plan.shape), "ms": ms,
+                     "plain_ms": time_ms(lambda: plan._plain(sets, buf), plain_reps),
+                     "bound_ms": bound, "bound_by": by, "rel_err": rel, "max_abs_err": diff})
+        del buf, ref
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return rows, total
+
+
+def mesh_run(w, auto=False):
+    """One solve of workload ``w`` on the mesh path and its metrics, with
+    the extension timed: ``GPSolver(problem, nugget)`` (``auto``: routed by
+    auto_mesh) or ``w.solve()`` (an explicit one-device mesh)."""
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+
+    t0 = time.perf_counter()
+    res = tpt.GPSolver(w.problem, nugget=w.nugget).solve(max_iter=w.max_iter) if auto else w.solve()
+    sync()
+    t1 = time.perf_counter()
+    metrics = w.metrics(res)
+    sync()
+    t2 = time.perf_counter()
+    return res, metrics, {"e2e_seconds": t2 - t0, "solve_seconds": t1 - t0,
+                          "extension_seconds": t2 - t1, "phase_seconds": res.timers}
+
+
+def mesh_report(res, metrics, timing, launches, peak):
+    fp = res.posterior.fp
+    iters = res.state.cg_iters.tolist()
+    gn = timing["phase_seconds"]["gauss_newton"]
+    return {**timing, "metrics": metrics, "gram_rows": {b: f.n for b, f in fp.factors.items()},
+            "n_pad": {b: f.n_pad for b, f in fp.factors.items()},
+            "nugget_scales": fp.nugget_scales, "rungs": fp.rungs, "quality": fp.quality,
+            "factor_stats": fp.stats, "losses": res.state.losses.tolist(), "cg_iters": iters,
+            "gn_ms_per_cg_iter": gn / sum(iters) * 1e3 if sum(iters) else None,
+            "converged_finite": bool(res.state.converged_finite),
+            "k1_launches": launches[0], "k2_launches": launches[1],
+            "max_memory_allocated": peak}
+
+
+def mesh_phase(w, repeats, auto=False):
+    """A cold solve of a mesh workload, a warm one (counted: K1 and K2
+    launches, peak memory; and the device ms of one kernel solve, the two
+    triangular solves of each CG operator application), then ``repeats``
+    more; its gates checked."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed
+
+    cold = mesh_run(w, auto)[2]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, metrics, timing = mesh_run(w, auto)
+    report = mesh_report(res, metrics, timing, counts(), torch.cuda.max_memory_allocated())
+    fp = res.posterior.fp
+    report["step_solver"] = distributed.route_step_solver(fp)[0]
+    report["deflation_rank"] = (distributed.default_deflation_rank(fp.problem.latent_dim)
+                                if report["step_solver"] == "woodbury" else 0)
+    v = {b: torch.randn(f.n, device=f.local.device) for b, f in fp.factors.items()}
+    report["kernel_solve_ms"] = {b: time_ms(lambda: fp.kernel_solve(b, v[b]), 10) for b in v}
+    report["routed_to_mesh"] = type(res.posterior).__name__ == "DistributedPosterior"
+    del res, fp
+    report["cold"] = cold
+    report["repeats"] = [mesh_run(w, auto)[2] for _ in range(repeats)]
+    failed = w.failures(metrics)
+    check(not failed, "; ".join(failed))
+    check(report["converged_finite"], f"{w.name}: a GN step had no finite trial")
+    return report
 
 
 def main():
@@ -497,6 +844,7 @@ def main():
     check(big_err.l2 <= GATE_L2, f"large test L2 {big_err.l2:.4e} > {GATE_L2}")
     check(big_launches == 2, f"large solve launched K1 {big_launches} times, expected 2")
 
+    big_res_timers = big_res.timers
     del big_res, big_pred
     big_asm, big_checks = time_assemblies(big, Xt, 5, 2)
     big_abs = max(c["max_abs_err"] for c in big_checks if c["dtype"] == "float32")
@@ -577,7 +925,91 @@ def main():
     krylov = krylov_steps(tpt, dev)
     emit("krylov_steps", seconds=time.perf_counter() - t_krylov, card=card, **krylov)
 
-    # -- 7. summary -------------------------------------------------------------
+    # -- 7. K2 against its plain version -----------------------------------------
+    t_phase = time.perf_counter()
+    k2 = k2_vs_plain(tpt, dev)
+    emit("k2_vs_plain", seconds=time.perf_counter() - t_phase, card=card, limits=LIMITS, **k2)
+
+    # -- 8. the mesh path past the dense wall, routed by auto_mesh --------------
+    from nonlinpdes_gpsolver_tpu_torch.api import _AUTO_MESH_GRAM_ROWS, largest_gram_rows
+    from nonlinpdes_gpsolver_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    w = tpt.workloads.mesh_elliptic(device=dev)
+    check(largest_gram_rows(w.problem) >= _AUTO_MESH_GRAM_ROWS, "mesh_elliptic is below the crossover")
+    mesh_solve = mesh_phase(w, 2, auto=True)
+    check(mesh_solve["routed_to_mesh"], "auto_mesh did not route mesh_elliptic to the mesh path")
+    blk = w.problem.blocks[0]
+    k2_rows, k2_total = time_k2(window_cases(blk, w.problem.points, w.nugget), 5, 1)
+    k2_checks = [check_k2(name, *case) for name, *case in window_cases(blk, w.problem.points, w.nugget)]
+    mesh_k1_rows, mesh_k1_total = time_k1(mesh_k1_cases(tpt, w.problem, w.X_test), 5, 1)
+    emit("mesh_solve", seconds=time.perf_counter() - t_phase, card=card, workload=w.name,
+         n_domain=20000, n_boundary=2500, dtype="float32", nugget=w.nugget, gn_steps=w.max_iter,
+         gate_l2=GATE_L2, **mesh_solve, k2_windows=k2_rows, k2_total=k2_total, k2_checks=k2_checks,
+         k1_launches_timed=mesh_k1_rows, k1_total=mesh_k1_total)
+    check(mesh_solve["k2_launches"] > 0 and mesh_solve["k1_launches"] > 0,
+          f"mesh_elliptic launched K1/K2 {mesh_solve['k1_launches']}/{mesh_solve['k2_launches']} times")
+    del w
+    torch.cuda.empty_cache()
+
+    # -- 9. the 16,200-row problem of phase 4 on the mesh path ------------------
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Xd, Xb = tpt.utils.sample_random(gen, 7800, 600)
+    big = tpt.models.nonlinear_elliptic(kernel, Xd, Xb, rhs_f, u_truth, seed=1)
+    mesh1 = make_mesh(1, device=dev)
+
+    def large_mesh():
+        t0 = time.perf_counter()
+        res = tpt.GPSolver(big, nugget=1e-5, mesh=mesh1).solve(max_iter=4)
+        err = tpt.GPSolver.errors(res.posterior.extend(Xt), truth_t)
+        sync()
+        return res, err, time.perf_counter() - t0
+
+    big_mesh_cold = large_mesh()[2]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, err, secs = large_mesh()
+    mvd_launches, mvd_peak = counts(), torch.cuda.max_memory_allocated()
+    mvd_k2_rows, mvd_k2_total = time_k2(window_cases(big.blocks[0], big.points, 1e-5), 5, 1)
+    mvd_k1_rows, mvd_k1_total = time_k1(mesh_k1_cases(tpt, big, Xt), 5, 1)
+    emit("mesh_vs_dense", seconds=time.perf_counter() - t_phase, card=card, gram_rows=16200,
+         dtype="float32", nugget=1e-5, gn_steps=4, mesh_cold_seconds=big_mesh_cold,
+         mesh_e2e_seconds=secs, mesh_phase_seconds=res.timers, dense_e2e_seconds=big_s,
+         dense_repeats=big_repeats, dense_phase_seconds=big_res_timers, test_l2=err.l2,
+         dense_test_l2=big_err.l2, rungs=res.posterior.fp.rungs, cg_iters=res.state.cg_iters.tolist(),
+         factor_stats=res.posterior.fp.stats, k1_launches=mvd_launches[0],
+         k2_launches=mvd_launches[1], max_memory_allocated=mvd_peak,
+         dense_max_memory_allocated=peak, auto_mesh_gram_rows=_AUTO_MESH_GRAM_ROWS,
+         k2_windows=mvd_k2_rows, k2_total=mvd_k2_total, k1_launches_timed=mvd_k1_rows,
+         k1_total=mvd_k1_total)
+    check(err.l2 <= GATE_L2, f"16,200 rows on the mesh path: test L2 {err.l2:.4e} > {GATE_L2}")
+    del res, big
+    torch.cuda.empty_cache()
+
+    # -- 10. the Darcy inverse problem past the wall ------------------------------
+    t_phase = time.perf_counter()
+    w = tpt.workloads.darcy_past_wall(device=dev)
+    mesh_darcy = mesh_phase(w, 0)
+    check(mesh_darcy["step_solver"] == "woodbury", f"darcy_past_wall took {mesh_darcy['step_solver']}")
+    darcy_k1_rows, darcy_k1_total = time_k1(mesh_k1_cases(tpt, w.problem, w.X_test, ("u", "a")), 5, 1)
+    darcy_k2_rows, darcy_k2_total = time_k2(
+        [case for blk in w.problem.blocks for case in window_cases(blk, w.problem.points, w.nugget)],
+        5, 1)
+    emit("mesh_darcy", seconds=time.perf_counter() - t_phase, card=card, workload=w.name,
+         n_domain=3000, n_boundary=750, n_data=60, dtype="float32", nugget=w.nugget,
+         gn_steps=w.max_iter, gates=w.gates, latent_dim=w.problem.latent_dim, **mesh_darcy,
+         k1_launches_timed=darcy_k1_rows, k1_total=darcy_k1_total, k2_windows=darcy_k2_rows,
+         k2_total=darcy_k2_total)
+    del w
+    torch.cuda.empty_cache()
+
+    # -- 11. every step solver of the mesh path against the dense 'direct' -------
+    t_phase = time.perf_counter()
+    steps = mesh_steps(tpt, dev)
+    emit("mesh_steps", seconds=time.perf_counter() - t_phase, card=card, **steps)
+
+    # -- 12. summary ------------------------------------------------------------
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": [{
         "name": "gram_tile",
@@ -599,6 +1031,36 @@ def main():
         "large_solve_launches": big_launches,
         "large_solve_max_abs_err": big_abs,
         "workloads": wl_summary,
+        "mesh_path": {
+            "per": "the mesh path's K1 launches (sampled-row probes, test cross-Gram chunks), summed",
+            "mesh_elliptic_launches": mesh_solve["k1_launches"], **{
+                f"mesh_elliptic_{k}": v for k, v in mesh_k1_total.items()},
+            "mesh_darcy_launches": mesh_darcy["k1_launches"], **{
+                f"mesh_darcy_{k}": v for k, v in darcy_k1_total.items()},
+            "mesh_vs_dense_launches": mvd_launches[0], **{
+                f"mesh_vs_dense_{k}": v for k, v in mvd_k1_total.items()},
+        },
+    }, {
+        "name": "gram_tile_k2",
+        "route": "cuda",
+        "source": "nonlinpdes_gpsolver_tpu_torch/csrc/gram_tile.cu",
+        "replaces": "nonlinpdes_gpsolver_tpu/parallel/fused.py:188, "
+                    "nonlinpdes_gpsolver_tpu/parallel/gram.py:109",
+        "launches": mesh_solve["k2_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
+        "ms": k2_total["ms"],
+        "plain_ms": k2_total["plain_ms"],
+        "bound_ms": k2_total["bound_ms"],
+        "bound_by": max(k2_rows, key=lambda a: a["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "checked": True,
+        "per": "mesh_elliptic's superblock windows (one K2 launch each), summed, f32",
+        "k2_vs_plain_total": k2["total"],
+        "k2_vs_plain_worst_rel_err": k2["worst_rel_err"],
+        "mesh_darcy_launches": mesh_darcy["k2_launches"],
+        **{f"mesh_darcy_{k}": v for k, v in darcy_k2_total.items()},
+        "mesh_vs_dense_launches": mvd_launches[1],
+        **{f"mesh_vs_dense_{k}": v for k, v in mvd_k2_total.items()},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ stays the reference. It keeps that package's layout (``ops/``, ``models/``,
 JAX. Entry points run on the CUDA card unless given ``device="cpu"``; the
 working dtype is f32 on the card and f64 on the CPU. The derivative-kernel
 Gram blocks go through a CUDA C++ kernel for ``sm_90a``
-(``csrc/gram_tile.cu``), built at first use.
+(``csrc/gram_tile.cu``), built at first use. Past 16,384 Gram rows (or
+with ``GPSolver(..., mesh=parallel.make_mesh(1))``) the solve takes the
+JAX package's mesh path at P = 1 (``parallel/``, ``solvers/distributed.py``).
 
 Importing the package turns TF32 off for float32 matmuls and convolutions:
 the factorizations and whitening need full f32 products, the hazard that
@@ -19,7 +21,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from . import interop, models, ops, solvers, utils, workloads  # noqa: E402
+from . import interop, models, ops, parallel, solvers, utils, workloads  # noqa: E402
 from .api import GPSolver, SolveResult  # noqa: E402
 from .ops import SquaredExponential  # noqa: E402
 from .solvers import Posterior, factorize, gn_solve  # noqa: E402
@@ -34,6 +36,7 @@ __all__ = [
     "interop",
     "models",
     "ops",
+    "parallel",
     "solvers",
     "utils",
     "workloads",

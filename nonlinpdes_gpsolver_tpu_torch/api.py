@@ -1,4 +1,4 @@
-"""User-facing solver facade on the dense single-device path.
+"""User-facing solver facade: the dense path and the mesh path.
 
 Counterpart of ``nonlinpdes_gpsolver_tpu/api.py``. Typical use::
 
@@ -10,8 +10,13 @@ Counterpart of ``nonlinpdes_gpsolver_tpu/api.py``. Typical use::
     u_test = result.posterior.extend(X_test)
 
 The problem's tensors decide the device and dtype (CUDA and f32 for a
-problem built with the defaults). Factorization checks its quality eagerly,
-so there is no deferred verdict and no re-run of a solve.
+problem built with the defaults). A problem whose largest Gram block has
+16,384 rows or more, or any problem given ``mesh=parallel.make_mesh(1)``,
+takes the mesh path on its device: the fused assemble-and-factorize, the
+distributed Gauss-Newton steps and :class:`~.solvers.distributed.
+DistributedPosterior` (``solvers/distributed.py``). Factorization checks
+its quality eagerly, so there is no deferred verdict and no re-run of a
+solve.
 """
 
 from __future__ import annotations
@@ -24,22 +29,26 @@ import numpy as np
 import torch
 
 from .models.spec import CollocationProblem
+from .parallel.mesh import Mesh, make_mesh
+from .solvers.distributed import DistributedPosterior, factorize_distributed, gn_solve_distributed
 from .solvers.gn import FactoredProblem, GNState, factorize, gn_solve
 from .solvers.posterior import Posterior
 from .utils.metrics import ErrorStats, PhaseTimers, error_stats
 
 log = logging.getLogger("nonlinpdes_gpsolver_tpu_torch")
 
-# The JAX package's dense-vs-mesh crossover (measured on its accelerator):
-# at this many Gram rows it switches to the fused streaming mesh path,
-# which is not ported yet.
+# The JAX package's dense-vs-mesh crossover (measured on its accelerator,
+# api.py:52-57 there): from this many rows in the largest Gram block the
+# solve takes the mesh path. chip_smoke.py's phase mesh_vs_dense measures
+# the two paths at 16,200 rows on the card; the constant stays the JAX
+# package's until a decision on that datum (ROADMAP).
 _AUTO_MESH_GRAM_ROWS = 16384
 
 
 @dataclasses.dataclass
 class SolveResult:
     state: GNState
-    posterior: Posterior
+    posterior: Posterior  # a DistributedPosterior on the mesh path
     timers: dict
 
     @property
@@ -51,14 +60,25 @@ class SolveResult:
         return self.state.losses.cpu().numpy()
 
 
+def largest_gram_rows(problem: CollocationProblem) -> int:
+    """Rows of the problem's largest Gram block."""
+    return max(
+        sum(int(problem.points[o.points].shape[0]) for o in b.observables)
+        for b in problem.blocks
+    )
+
+
 class GPSolver:
     """Factorizes once, then supports repeated solves / posterior queries.
 
-    ``auto_mesh`` (default on): a problem whose largest Gram block has at
-    least 16,384 rows would take the JAX package's mesh path, which is not
-    ported yet (slice 3 of the port), so it raises ``NotImplementedError``
-    instead of running densely in silence. ``auto_mesh=False`` forces the
-    dense path.
+    ``mesh`` (a :class:`~.parallel.mesh.Mesh` from ``parallel.make_mesh``)
+    runs the mesh path with ``mesh_block``-row blocks; a mesh of one device
+    is the only one ported. ``auto_mesh`` (default on): with no ``mesh``,
+    a problem whose largest Gram block has at least ``_AUTO_MESH_GRAM_ROWS``
+    rows takes the mesh path on the problem's device, where the dense path
+    would hold the Gram matrix, its f64 copy, the factor and the whitening
+    operator at once. ``auto_mesh=False`` forces the dense path.
+    ``solve_mode`` is the dense path's (see :func:`.solvers.gn.factorize`).
     """
 
     def __init__(
@@ -68,23 +88,29 @@ class GPSolver:
         nugget_type: str = "adaptive",
         solve_mode: str = "auto",
         auto_mesh: bool = True,
+        mesh: Optional[Mesh] = None,
+        mesh_block: int = 512,
     ):
-        n_max = max(
-            sum(int(problem.points[o.points].shape[0]) for o in b.observables)
-            for b in problem.blocks
-        )
-        if auto_mesh and n_max >= _AUTO_MESH_GRAM_ROWS:
-            raise NotImplementedError(
-                f"largest Gram block has {n_max} rows (>= {_AUTO_MESH_GRAM_ROWS}):"
-                " that size takes the mesh path, which is slice 3 of the port "
-                "and not ported yet; pass auto_mesh=False to run it densely"
-            )
+        if mesh is None and auto_mesh:
+            n_max = largest_gram_rows(problem)
+            if n_max >= _AUTO_MESH_GRAM_ROWS:
+                mesh = make_mesh(1, device=problem.device)
+                log.info(
+                    "auto_mesh: largest Gram block has %d rows (>= %d); the mesh path "
+                    "on %s", n_max, _AUTO_MESH_GRAM_ROWS, problem.device,
+                )
         self.problem = problem
+        self.mesh = mesh
         self.timers = PhaseTimers(problem.device)
         with self.timers.phase("factorize"):
-            self.fp: FactoredProblem = factorize(
-                problem, nugget=nugget, nugget_type=nugget_type, solve_mode=solve_mode
-            )
+            if mesh is not None:
+                self.fp = factorize_distributed(
+                    problem, mesh, nugget=nugget, nugget_type=nugget_type, block=mesh_block
+                )
+            else:
+                self.fp: FactoredProblem = factorize(
+                    problem, nugget=nugget, nugget_type=nugget_type, solve_mode=solve_mode
+                )
         for name, scale in self.fp.nugget_scales.items():
             if self.fp.rungs[name]:
                 log.warning(
@@ -101,15 +127,16 @@ class GPSolver:
         step_solver: str = "auto",
         tol: Optional[float] = None,
     ) -> SolveResult:
-        """Run the Gauss-Newton solve (see :func:`.solvers.gn.gn_solve`) and
+        """Run the Gauss-Newton solve (:func:`.solvers.gn.gn_solve`, or on
+        the mesh path :func:`.solvers.distributed.gn_solve_distributed`) and
         build the posterior at its solution."""
+        kw = dict(z0=z0, max_iter=max_iter, step_size=step_size, hessian_jitter=hessian_jitter,
+                  step_solver=step_solver, tol=tol)
+        on_mesh = self.mesh is not None
         with self.timers.phase("gauss_newton"):
-            state = gn_solve(
-                self.fp, z0=z0, max_iter=max_iter, step_size=step_size,
-                hessian_jitter=hessian_jitter, step_solver=step_solver, tol=tol,
-            )
+            state = (gn_solve_distributed if on_mesh else gn_solve)(self.fp, **kw)
         with self.timers.phase("posterior_weights"):
-            post = Posterior(self.fp, state.z)
+            post = (DistributedPosterior if on_mesh else Posterior)(self.fp, state.z)
         if not bool(state.converged_finite):
             log.warning(
                 "problem %r: at least one GN step was rejected as non-finite "

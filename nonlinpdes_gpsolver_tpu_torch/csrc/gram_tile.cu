@@ -48,6 +48,26 @@
 //   host-to-device copy and no sync per launch. It fits the classic 4 KB
 //   parameter limit (static_assert below).
 //
+// K2: K1 with an equilibrating epilogue. It replaces the XLA strips of the
+// JAX package's mesh path, nonlinpdes_gpsolver_tpu/parallel/fused.py:188
+// (_fused_chol_kernel, the superblock column strip) and parallel/gram.py:109
+// (_assembly_kernel, the two-pass strip), which evaluate the closed form on
+// a strip, scale it by d_r[i] d_c[j] and write an exact unit diagonal. Here
+// the same plan walk runs with a second template instantiation whose tiles,
+// still in registers, become
+//
+//     out[i, j] = 1 if i == j else d_r[i] * d_c[j] * K[i, j]
+//
+// before they are staged and stored: the view `out` starts on the matrix's
+// diagonal (a factor's column panel L[c0:, c0:c0+S], or the whole padded
+// matrix), so its row i and column j are the same global index exactly when
+// i == j. Fill blocks (flag kFill) evaluate nothing: they cover the padding
+// rows and columns, which come out 0 off the diagonal and 1 on it. A K2
+// plan has no mirrored or symmetric blocks (a strip below its top S x S is
+// not symmetric), so every entry is computed and written once. It is bound
+// by the same bytes written as K1; the epilogue adds two scale loads a row
+// and a column per thread (cached) and one multiply per output.
+//
 // Measurement switches, for scripts/torch_k1_split.py only (the library is
 // never built with them): K1_SPLIT_NO_EVAL replaces the evaluation by a
 // coordinate difference, K1_SPLIT_NO_STORE drops the global stores.
@@ -89,6 +109,7 @@ constexpr int kBlockInts = 9;  // ints per block descriptor from the host
 constexpr int kMirror = 1;     // also write the transposed tile
 constexpr int kSymmetric = 2;  // same operator, same points: upper tiles only
 constexpr int kAligned = 4;    // set by the launcher: 16-byte vector stores fit
+constexpr int kFill = 8;       // K2 padding: no evaluation, zeros (and the unit diagonal)
 
 // 16-byte vectors for the stores of full tiles.
 template <typename T> struct Vec16;
@@ -108,6 +129,8 @@ template <typename T>
 struct Params {
   T* out;
   long long ldo;
+  const T* d_r;  // K2 only: the row and column scales, indexed like out
+  const T* d_c;
   const T* pts[kMaxSets];
   T inv_sq[kMaxDim];
   // p_b for dimension k (it depends only on (k, b)) has the parity of b:
@@ -150,6 +173,7 @@ struct TileLoc {
   bool diag;    // a diagonal tile of a symmetric block
   bool mirror;  // also store the transpose
   bool vec;     // a full tile of an aligned block: 16-byte stores
+  bool fill;    // a K2 padding tile: nothing to evaluate
 };
 
 template <typename T>
@@ -182,6 +206,7 @@ __device__ __forceinline__ TileLoc locate(const Params<T>& p, int tile, int b = 
   t.diag = sym && tr == tc;
   t.mirror = (d.flags & kMirror) || (sym && tr != tc);
   t.vec = (d.flags & kAligned) && t.rows == kTile && t.cols == kTile;
+  t.fill = d.flags & kFill;
   return t;
 }
 
@@ -203,7 +228,7 @@ __device__ __forceinline__ void fetch_coords(const Params<T>& p, const TileLoc& 
     const int r = rem / DIM, k = rem % DIM;
     const T* src = p.pts[side ? d.y_set : d.x_set];
     const int row = (side ? t.c0 : t.r0) + r;
-    const bool valid = row < (side ? d.m : d.n);
+    const bool valid = !t.fill && row < (side ? d.m : d.n);  // a fill block has no points
     const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(&c[side][k][r]));
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
                  "l"(valid ? src + static_cast<int64_t>(row) * DIM + k : src),
@@ -325,6 +350,31 @@ __device__ __forceinline__ void eval_tile(const Params<T>& p, int table, const C
     }
 }
 
+// K2's epilogue on the thread's 16 outputs: scale by d_r[i] d_c[j], in the
+// order of the JAX package (the product of the scales first), and put an
+// exact 1 where i == j. Entries past the tile's edge are never stored.
+template <typename T>
+__device__ __forceinline__ void equilibrate(const Params<T>& p, const TileLoc& t,
+                                            T (&val)[kRows][kCols]) {
+  const BlockDesc& d = p.blk[t.blk];
+  const int r0 = d.row_off + t.r0, c0 = d.col_off + t.c0;
+  T dc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int c = threadIdx.x + j * kThreadsX;
+    dc[j] = c < t.cols ? p.d_c[c0 + c] : T(0);
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = threadIdx.y + i * kThreadsY;
+    const T dr = r < t.rows ? p.d_r[r0 + r] : T(0);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      val[i][j] = (r0 + r == c0 + static_cast<int>(threadIdx.x) + j * kThreadsX)
+                      ? T(1) : val[i][j] * (dr * dc[j]);
+  }
+}
+
 // Store a staged tile row by row (a warp store covers consecutive
 // entries of a row), its lower half from the transpose on a diagonal tile,
 // then its transpose into the mirror block the same way. Full tiles of
@@ -396,8 +446,9 @@ __device__ __forceinline__ void store_tile(const Params<T>& p, const TileLoc& t,
 // tile's coordinates are copied into the other buffer while the current
 // tile is computed.
 // In f32 two CTAs fit on an SM (at most 128 registers a thread); in f64
-// the doubled registers would spill, so one.
-template <typename T, int DIM>
+// the doubled registers would spill, so one. kEpi selects K2 (the
+// equilibrating epilogue and fill tiles); K1 is the instantiation without.
+template <typename T, int DIM, bool kEpi>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 gram_plan_kernel(const __grid_constant__ Params<T> p) {
   __shared__ T stage[kTile][kTile + 1];
@@ -429,8 +480,16 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
         val[i][j] = coords[buf][0][0][threadIdx.y + i * kThreadsY] -
                     coords[buf][1][0][threadIdx.x + j * kThreadsX];
 #else
-    eval_tile<T, DIM>(p, cur.table, coords[buf], val);
+    if (kEpi && cur.fill) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) val[i][j] = T(0);
+    } else {
+      eval_tile<T, DIM>(p, cur.table, coords[buf], val);
+    }
 #endif
+    if (kEpi) equilibrate(p, cur, val);
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -448,16 +507,16 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
   }
 }
 
-// CTAs of gram_plan_kernel<T, DIM> resident on one SM, times the SMs of the
-// current device: the persistent grid (queried once per process).
-template <typename T, int DIM>
+// CTAs of gram_plan_kernel<T, DIM, kEpi> resident on one SM, times the SMs
+// of the current device: the persistent grid (queried once per process).
+template <typename T, int DIM, bool kEpi>
 int resident_ctas() {
   static int n = 0;
   if (n == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_plan_kernel<T, DIM>,
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_plan_kernel<T, DIM, kEpi>,
                                                       kThreads, 0) != cudaSuccess)
       return 0;
     n = sms * per_sm;
@@ -465,13 +524,23 @@ int resident_ctas() {
   return n;
 }
 
-template <typename T, int DIM>
+template <typename T, int DIM, bool kEpi>
 cudaError_t launch_dim(const Params<T>& p, cudaStream_t stream) {
-  const int ctas = resident_ctas<T, DIM>();
+  const int ctas = resident_ctas<T, DIM, kEpi>();
   if (ctas <= 0) return cudaErrorInvalidConfiguration;
   const dim3 block(kThreadsX, kThreadsY);
-  gram_plan_kernel<T, DIM><<<ctas < p.n_tiles ? ctas : p.n_tiles, block, 0, stream>>>(p);
+  gram_plan_kernel<T, DIM, kEpi><<<ctas < p.n_tiles ? ctas : p.n_tiles, block, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, bool kEpi>
+cudaError_t launch_epi(const Params<T>& p, cudaStream_t stream) {
+  switch (p.dim) {
+    case 1: return launch_dim<T, 1, kEpi>(p, stream);
+    case 2: return launch_dim<T, 2, kEpi>(p, stream);
+    case 3: return launch_dim<T, 3, kEpi>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Fill a plan's parameters from the host arrays (once per plan and dtype);
@@ -511,10 +580,12 @@ int pack(int dim, int n_sets, const int* blocks, int n_blocks, const double* inv
     // row_off, col_off, n, m, x_set, y_set, table, flags, tile_start
     const int* e = blocks + kBlockInts * b;
     const int n = e[2], m = e[3], flags = e[7];
-    if (e[0] < 0 || e[1] < 0 || n < 1 || m < 1 || e[4] < 0 || e[4] >= n_sets ||
-        e[5] < 0 || e[5] >= n_sets || e[6] < 0 || e[6] >= n_tables ||
-        (flags & ~(kMirror | kSymmetric)) || ((flags & kSymmetric) && n != m) ||
-        e[8] != tiles)
+    const bool fill = flags & kFill;  // evaluates nothing: its sets and table are unused
+    if (e[0] < 0 || e[1] < 0 || n < 1 || m < 1 ||
+        (!fill && (e[4] < 0 || e[4] >= n_sets || e[5] < 0 || e[5] >= n_sets ||
+                   e[6] < 0 || e[6] >= n_tables)) ||
+        (flags & ~(kMirror | kSymmetric | kFill)) || (fill && (flags & ~kFill)) ||
+        ((flags & kSymmetric) && n != m) || e[8] != tiles)
       return cudaErrorInvalidValue;
     BlockDesc& d = p.blk[b];
     d.row_off = e[0];
@@ -539,26 +610,26 @@ int pack(int dim, int n_sets, const int* blocks, int n_blocks, const double* inv
 }
 
 template <typename T>
-cudaError_t launch(const Params<T>& packed, void* out, long long ldo, const void* const* pts,
-                   int n_sets, cudaStream_t stream) {
-  if (n_sets != packed.n_sets) return cudaErrorInvalidValue;
+cudaError_t launch(const Params<T>& packed, void* out, long long ldo, const void* d_r,
+                   const void* d_c, const void* const* pts, int n_sets, cudaStream_t stream) {
+  if (n_sets != packed.n_sets || (d_r == nullptr) != (d_c == nullptr)) return cudaErrorInvalidValue;
   if (packed.n_tiles == 0) return cudaSuccess;
+  const bool epi = d_r != nullptr;
   Params<T> p = packed;
   p.out = static_cast<T*>(out);
   p.ldo = ldo;
+  p.d_r = static_cast<const T*>(d_r);
+  p.d_c = static_cast<const T*>(d_c);
   for (int s = 0; s < n_sets; ++s) p.pts[s] = static_cast<const T*>(pts[s]);
   constexpr int kVec = 16 / sizeof(T);
   const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0 && ldo % kVec == 0;
   for (int b = 0; b < p.n_blocks; ++b) {
     BlockDesc& d = p.blk[b];
+    // K2 writes every entry once: no mirrors, no symmetric shortcut; K1 has no fill
+    if (epi ? (d.flags & (kMirror | kSymmetric)) : (d.flags & kFill)) return cudaErrorInvalidValue;
     if (aligned && d.row_off % kVec == 0 && d.col_off % kVec == 0) d.flags |= kAligned;
   }
-  switch (p.dim) {
-    case 1: return launch_dim<T, 1>(p, stream);
-    case 2: return launch_dim<T, 2>(p, stream);
-    case 3: return launch_dim<T, 3>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return epi ? launch_epi<T, true>(p, stream) : launch_epi<T, false>(p, stream);
 }
 
 }  // namespace
@@ -568,7 +639,9 @@ cudaError_t launch(const Params<T>& packed, void* out, long long ldo, const void
 // gram_plan_pack fills the parameters of one plan (gram_plan_params_size()
 // bytes at `params`, kept by the caller) from: blocks, 9 ints per block
 // (row_off, col_off, n, m, x_set, y_set, table, flags, tile_start), none of
-// them empty; the term tables, table i owning terms term_start[i] ..
+// them empty, flags a mix of 1 (mirror), 2 (symmetric) and 8 (fill, alone:
+// a K2 block of padding, whose sets and table are not read); the term
+// tables, table i owning terms term_start[i] ..
 // term_start[i + 1] - 1, each with its coefficient coef[t] and dim degrees
 // degs[t * dim + k]; inv_sq; and poly, dim x 45 Horner coefficients (see
 // Params::poly). Returns 0, or cudaErrorInvalidValue for what the kernel
@@ -593,15 +666,22 @@ extern "C" int gram_plan_pack(int is_double, int dim, int n_sets, const int* blo
 
 // gram_plan_launch makes one launch of a packed plan: each point set pts[s]
 // is (n_s, dim), row-major and contiguous; out has row stride ldo and unit
-// column stride, and every block lies inside it. Launches on `stream` and
-// returns cudaGetLastError() (0 on success); it does not synchronise.
+// column stride, and every block lies inside it. With d_r and d_c null it
+// is K1; with both given (one scale per row and per column of out) it is
+// K2, the equilibrating epilogue, for a plan without mirrored or symmetric
+// blocks whose out view starts on the matrix's diagonal. Launches on
+// `stream` and returns cudaGetLastError() (0 on success); it does not
+// synchronise.
 extern "C" int gram_plan_launch(int is_double, const void* params, void* out, long long ldo,
-                                const void* const* pts, int n_sets, void* stream) {
+                                const void* d_r, const void* d_c, const void* const* pts,
+                                int n_sets, void* stream) {
   if (ldo < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_double ? launch(*static_cast<const Params<double>*>(params), out, ldo, pts, n_sets, s)
-                : launch(*static_cast<const Params<float>*>(params), out, ldo, pts, n_sets, s);
+      is_double ? launch(*static_cast<const Params<double>*>(params), out, ldo, d_r, d_c, pts,
+                         n_sets, s)
+                : launch(*static_cast<const Params<float>*>(params), out, ldo, d_r, d_c, pts,
+                         n_sets, s);
   return static_cast<int>(err);
 }
 

@@ -18,7 +18,7 @@ import torch
 from .. import GPSolver, models
 from ..utils.config import SolverConfig, add_config_args, build_kernel, config_from_args, runtime
 from ..workloads import darcy_observations, darcy_test, darcy_truth
-from ._cli import add_solve_args, check_mesh, sample_points
+from ._cli import add_solve_args, sample_points, solver_mesh_args
 
 
 def main(argv=None):
@@ -32,7 +32,6 @@ def main(argv=None):
     add_solve_args(parser)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    check_mesh(args)
     device, dtype = runtime(cfg)
 
     truth = darcy_truth()  # the FD solve on the 80x80 grid (boundary ring included)
@@ -44,7 +43,8 @@ def main(argv=None):
         kernel, kernel, Xd, Xb, torch.as_tensor(noisy), rhs_f=lambda x: torch.ones_like(x[0]),
         noise_level=args.noise_level, init=cfg.initial, seed=cfg.seed,
     )
-    solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type)
+    solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
+                      **solver_mesh_args(args, device))
     res = solver.solve(max_iter=cfg.GNsteps, step_size=cfg.step_size,
                        step_solver=args.step_solver, tol=args.tol)
     print(f"[GN] losses: {res.losses}")

@@ -15,7 +15,7 @@ import torch
 from .. import GPSolver, models
 from ..utils.config import SolverConfig, add_config_args, build_kernel, config_from_args, runtime
 from ..workloads import eikonal_test
-from ._cli import add_solve_args, check_mesh, sample_points
+from ._cli import add_solve_args, sample_points, solver_mesh_args
 
 
 def main(argv=None):
@@ -29,7 +29,6 @@ def main(argv=None):
     add_solve_args(parser)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    check_mesh(args)
     device, dtype = runtime(cfg)
 
     Xd, Xb = sample_points(cfg, device, dtype)
@@ -37,7 +36,8 @@ def main(argv=None):
         build_kernel(cfg), Xd, Xb, rhs_f=lambda x: torch.ones_like(x[0]), eps=args.eps,
         init=cfg.initial, seed=cfg.seed,
     )
-    solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type)
+    solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
+                      **solver_mesh_args(args, device))
     res = solver.solve(max_iter=cfg.GNsteps, step_size=cfg.step_size,
                        step_solver=args.step_solver, tol=args.tol)
     print(f"[GN] losses: {res.losses}")

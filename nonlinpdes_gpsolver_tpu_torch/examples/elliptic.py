@@ -15,7 +15,7 @@ from .. import GPSolver, models
 from ..utils.config import SolverConfig, add_config_args, build_kernel, config_from_args, runtime
 from ..utils.sampling import test_grid
 from ..workloads import elliptic_rhs, u_elliptic
-from ._cli import add_solve_args, check_mesh, sample_points
+from ._cli import add_solve_args, sample_points, solver_mesh_args
 
 
 def main(argv=None):
@@ -28,7 +28,6 @@ def main(argv=None):
     add_solve_args(parser)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    check_mesh(args)
     device, dtype = runtime(cfg)
 
     Xd, Xb = sample_points(cfg, device, dtype)
@@ -39,7 +38,8 @@ def main(argv=None):
         build_kernel(cfg), Xd, Xb, elliptic_rhs(args.alpha, args.m), u_elliptic,
         alpha=args.alpha, m=args.m, init=cfg.initial, seed=cfg.seed, **extra,
     )
-    solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type)
+    solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
+                      **solver_mesh_args(args, device))
     res = solver.solve(max_iter=cfg.GNsteps, step_size=cfg.step_size,
                        step_solver=args.step_solver, tol=args.tol)
     print(f"[GN] losses: {res.losses}")

@@ -24,6 +24,11 @@ holds the model's scalars as 0-d arrays):
 
 ``PYTHONPATH=. python tests/test_torch_workloads.py`` writes them again from the JAX
 package; the tests hold the saved files to a fresh draw.
+
+A factorization is state too: :func:`factor_from_numpy` takes the JAX
+package's mesh-path factor (a ``BlockCyclicFactor``'s arrays as numpy, and
+its column scales) and returns the port's, so that the port's Gauss-Newton
+steps and posterior can run on a factor the JAX package computed.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from .models.elliptic import nonlinear_elliptic
 from .models.spec import CollocationProblem
 from .ops.backend import default_dtype, resolve_device
 from .ops.kernels import SquaredExponential
+from .parallel.cholesky import BlockCyclicFactor, _block_perm
+from .parallel.mesh import Mesh, make_mesh
 
 DATA = Path(__file__).resolve().parent / "data"
 INPUT_FILES = {
@@ -124,6 +131,31 @@ def eikonal_from_numpy(X_domain, X_boundary, f, g, z0, inv_sq, eps=0.1,
     t = _converter(device, dtype)
     prob = eikonal(_kernel(inv_sq), t(X_domain), t(X_boundary), t(f), t(g), eps=float(eps))
     return _starting_at(prob, t(z0))
+
+
+def factor_from_numpy(local: np.ndarray, diag_inv: np.ndarray, block: int, n: int, n_pad: int,
+                      d_isqrt: np.ndarray, n_devices: int = 1, mesh: Mesh | None = None,
+                      dtype: torch.dtype | None = None):
+    """``(factor, col_scales)``: the port's :class:`~.parallel.cholesky.
+    BlockCyclicFactor` and ``d^{-1/2}`` from the JAX package's factor.
+
+    ``local`` is the JAX factor's ``(nb, B, n_pad)`` array as numpy, in the
+    block-cyclic order of the ``n_devices``-device mesh it was computed on
+    (put back in natural row order here), ``diag_inv`` its ``(nb, B, B)``
+    diagonal-block inverses and ``d_isqrt`` the column scales returned with
+    it. The factor lands on ``mesh`` (default: a one-device mesh on the
+    card) in ``dtype`` (the device's default).
+    """
+    mesh = make_mesh(1) if mesh is None else mesh
+    t = _converter(mesh.device, dtype)
+    nb = local.shape[0]
+    if local.shape != (nb, block, n_pad) or nb * block != n_pad or diag_inv.shape != (nb, block, block):
+        raise ValueError(f"local {local.shape} and diag_inv {diag_inv.shape} do not match "
+                         f"block {block}, n_pad {n_pad}")
+    natural = np.asarray(local)[np.argsort(_block_perm(nb, n_devices))]
+    factor = BlockCyclicFactor(t(natural), mesh, mesh.axis, int(block), int(n), int(n_pad),
+                               t(diag_inv))
+    return factor, t(d_isqrt)
 
 
 def darcy_from_numpy(X_domain, X_boundary, f, g, obs, z0, inv_sq, noise_level=1e-3,

@@ -16,11 +16,21 @@ points), so that only its upper tiles are computed. Plans are cached by
 cross-Gram) and :func:`pair_plan` (one block, behind
 :func:`gram_tile_pair_fn`).
 
+K2 is the same kernel with an equilibrating epilogue (the strips of the JAX
+package's mesh path, ``parallel/fused.py:188`` and ``parallel/gram.py:109``):
+an *equilibrated* plan (``equilibrated=True``, built by
+``parallel/fused.py::window_plan``) computes every entry of its blocks, has
+fill blocks for the padding, and runs through
+:meth:`GramPlan.run_equilibrated`, which writes
+``1 if i == j else d_r[i] d_c[j] K[i, j]`` into an output view that starts
+on the matrix's diagonal.
+
 Which version runs depends only on where the tensors lie: for CPU tensors
 :meth:`GramPlan.run` walks the blocks with the plain version
-(``SquaredExponential.pair_fn``); for CUDA tensors it launches the kernel,
-in f32 or f64, and raises for any other dtype. ``LAUNCHES`` counts kernel
-launches, so a run can show that it went through the kernel.
+(``SquaredExponential.pair_fn``, and for K2 the same scaling and unit
+diagonal in torch); for CUDA tensors it launches the kernel, in f32 or f64,
+and raises for any other dtype. ``LAUNCHES`` and ``K2_LAUNCHES`` count
+kernel launches, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -50,10 +60,12 @@ MAX_DEGREE = _LIMITS["degree"]
 MAX_TERMS = _LIMITS["terms"]
 TILE = _LIMITS["tile"]
 _STEPS = MAX_DEGREE // 2 + 1  # Horner coefficients in u^2 per polynomial
-_MIRROR, _SYMMETRIC = 1, 2
+_MIRROR, _SYMMETRIC, _FILL = 1, 2, 8
 
 LAUNCHES = 0
 """Number of K1 launches in this process (the wrapper adds one per launch)."""
+K2_LAUNCHES = 0
+"""Number of K2 launches (K1 with the equilibrating epilogue) in this process."""
 
 
 def _combined_terms(inv_sq, terms_x, terms_y):
@@ -130,6 +142,7 @@ class PlanBlock:
     mirror: bool  # also write the transpose at out[col_off:+m, row_off:+n]
     symmetric: bool  # same operator and points on the diagonal: upper tiles only
     tile_start: int  # first flat tile index of the block in the launch grid
+    fill: bool = False  # K2 padding: zeros (and the unit diagonal), no points
 
     @property
     def tiles(self) -> int:
@@ -143,16 +156,24 @@ class GramPlan:
     ``entries`` lists ``(op_x, op_y, x_set, y_set, row_off, col_off, mirror)``
     per block; ``set_sizes`` the number of points in each set. Empty blocks
     are dropped; operator pairs that repeat share one table.
+
+    ``equilibrated=True`` makes it a K2 plan: no block is mirrored or
+    computed as symmetric, ``fills`` lists ``(row_off, col_off, n, m)``
+    blocks of padding, and it runs through :meth:`run_equilibrated`.
     """
 
-    def __init__(self, kernel: SquaredExponential, entries, set_sizes, shape, set_keys=()):
+    def __init__(self, kernel: SquaredExponential, entries, set_sizes, shape, set_keys=(),
+                 fills=(), equilibrated: bool = False):
         self.kernel = kernel
         self.set_keys = tuple(set_keys)  # the points dict's key of each training set
         self.set_sizes = tuple(int(s) for s in set_sizes)
         self._set_shapes = tuple((s, kernel.dim) for s in self.set_sizes)
         self.shape = tuple(int(s) for s in shape)
+        self.equilibrated = bool(equilibrated)
         if len(self.set_sizes) > _LIMITS["sets"]:
             raise ValueError(f"a plan takes at most {_LIMITS['sets']} point sets")
+        if fills and not self.equilibrated:
+            raise ValueError("fill blocks belong to equilibrated (K2) plans")
         table_of, self.pairs, blocks, tiles = {}, [], [], 0
         for op_x, op_y, xs, ys, row_off, col_off, mirror in entries:
             n, m = self.set_sizes[xs], self.set_sizes[ys]
@@ -162,14 +183,23 @@ class GramPlan:
                 self.pairs.append((op_x, op_y))
             if n == 0 or m == 0:
                 continue
+            if mirror and self.equilibrated:
+                raise ValueError("an equilibrated (K2) plan has no mirrored blocks")
             symmetric = (
-                not mirror and key[0] == key[1] and xs == ys and row_off == col_off
+                not self.equilibrated and not mirror and key[0] == key[1] and xs == ys
+                and row_off == col_off
             )
             if (row_off + n > self.shape[0] or col_off + m > self.shape[1]
                     or (mirror and (col_off + m > self.shape[0] or row_off + n > self.shape[1]))):
                 raise ValueError(f"block at ({row_off}, {col_off}) lies outside {self.shape}")
             blk = PlanBlock(row_off, col_off, n, m, xs, ys, table_of[key], bool(mirror),
                             symmetric, tiles)
+            blocks.append(blk)
+            tiles += blk.tiles
+        for row_off, col_off, n, m in fills:
+            if n < 1 or m < 1 or row_off + n > self.shape[0] or col_off + m > self.shape[1]:
+                raise ValueError(f"fill block ({row_off}, {col_off}, {n}, {m}) outside {self.shape}")
+            blk = PlanBlock(row_off, col_off, n, m, 0, 0, 0, False, False, tiles, fill=True)
             blocks.append(blk)
             tiles += blk.tiles
         self.blocks = tuple(blocks)
@@ -215,7 +245,7 @@ class GramPlan:
             term_start=np.asarray(term_start, np.int32),
             blocks=np.asarray(
                 [[b.row_off, b.col_off, b.n, b.m, b.x_set, b.y_set, b.table,
-                  _MIRROR * b.mirror + _SYMMETRIC * b.symmetric, b.tile_start]
+                  _MIRROR * b.mirror + _SYMMETRIC * b.symmetric + _FILL * b.fill, b.tile_start]
                  for b in self.blocks] or np.zeros((0, _LIMITS["block_ints"])),
                 np.int32,
             ),
@@ -254,10 +284,8 @@ class GramPlan:
         tr, tc = divmod(local, -(-blk.m // TILE))
         return b, tr, tc
 
-    def run(self, sets: Sequence[torch.Tensor], out: torch.Tensor | None = None):
-        """Assemble into ``out`` (allocated if ``None``; else a view of
-        ``shape`` with unit column stride, such as a slot of a larger
-        matrix) from the point sets, ``sets[s]`` of shape (set_sizes[s], dim)."""
+    def _checked_out(self, sets, out):
+        """Check the point sets and ``out``; ``out`` (allocated if ``None``)."""
         if len(sets) != len(self._set_shapes):
             raise ValueError(f"plan takes {len(self._set_shapes)} point sets, got {len(sets)}")
         ref = sets[0]
@@ -269,8 +297,8 @@ class GramPlan:
                 raise ValueError(f"point sets must be {shape}; got {tuple(s.shape)}")
         n, m = self.shape
         if out is None:
-            out = torch.empty(self.shape, dtype=dtype, device=ref.device)
-        elif (
+            return torch.empty(self.shape, dtype=dtype, device=ref.device)
+        if (
             out.shape != self.shape or out.dtype != dtype or out.get_device() != dev
             or (m > 1 and out.stride(1) != 1) or (n > 1 and out.stride(0) < m)
         ):
@@ -278,17 +306,62 @@ class GramPlan:
                 f"out must be an {self.shape} {dtype} view on {ref.device} with unit "
                 f"column stride; got {tuple(out.shape)} strides {out.stride()}"
             )
+        return out
+
+    def run(self, sets: Sequence[torch.Tensor], out: torch.Tensor | None = None):
+        """Assemble into ``out`` (allocated if ``None``; else a view of
+        ``shape`` with unit column stride, such as a slot of a larger
+        matrix) from the point sets, ``sets[s]`` of shape (set_sizes[s], dim)."""
+        if self.equilibrated:
+            raise ValueError("an equilibrated (K2) plan runs through run_equilibrated")
+        out = self._checked_out(sets, out)
+        ref = sets[0]
         if ref.is_cuda:
-            self._launch(sets, out, dev)
+            self._launch(sets, out, ref.get_device())
         elif ref.is_cpu:
             self._plain(sets, out)
         else:
             raise ValueError(f"no Gram tile implementation for device {ref.device}")
         return out
 
+    def run_equilibrated(self, sets: Sequence[torch.Tensor], d_r: torch.Tensor,
+                         d_c: torch.Tensor, out: torch.Tensor | None = None):
+        """K2: ``out[i, j] = 1 if i == j else d_r[i] d_c[j] K[i, j]``, every
+        entry written once (fill blocks: 0 off the diagonal). ``out`` is a
+        view of ``shape`` with unit column stride whose first entry lies on
+        the matrix's diagonal; ``d_r`` and ``d_c`` hold one scale per row and
+        per column of it, contiguous, like the point sets."""
+        if not self.equilibrated:
+            raise ValueError("run_equilibrated needs an equilibrated (K2) plan")
+        out = self._checked_out(sets, out)
+        ref = sets[0]
+        for v, size in ((d_r, self.shape[0]), (d_c, self.shape[1])):
+            if (v.shape != (size,) or v.dtype != ref.dtype or v.get_device() != ref.get_device()
+                    or not v.is_contiguous()):
+                raise ValueError(
+                    f"scales must be contiguous ({size},) {ref.dtype} on {ref.device}; "
+                    f"got {tuple(v.shape)} {v.dtype} on {v.device}"
+                )
+        if ref.is_cuda:
+            self._launch(sets, out, ref.get_device(), d_r, d_c)
+        elif ref.is_cpu:
+            self._plain_equilibrated(sets, d_r, d_c, out)
+        else:
+            raise ValueError(f"no Gram tile implementation for device {ref.device}")
+        return out
+
+    def _plain_equilibrated(self, sets, d_r, d_c, out):
+        """K2's plain version: :meth:`_plain`, the scaling, the unit diagonal."""
+        self._plain(sets, out)
+        out.mul_(d_r[:, None] * d_c[None, :])
+        out.diagonal().fill_(1.0)
+
     def _plain(self, sets, out):
         """The kernel's plain version: the blocks one by one."""
         for b in self.blocks:
+            if b.fill:
+                out[b.row_off : b.row_off + b.n, b.col_off : b.col_off + b.m] = 0.0
+                continue
             op_x, op_y = self.pairs[b.table]
             val = self.kernel.pair_fn(op_x, op_y)(sets[b.x_set], sets[b.y_set])
             if b.symmetric:  # the upper triangle and its mirror, as the kernel writes it
@@ -297,8 +370,9 @@ class GramPlan:
             if b.mirror:
                 out[b.col_off : b.col_off + b.m, b.row_off : b.row_off + b.n] = val.T
 
-    def _launch(self, sets, out, dev: int):
-        global LAUNCHES
+    def _launch(self, sets, out, dev: int, d_r=None, d_c=None):
+        """K1, or K2 when the scales ``d_r``, ``d_c`` are given."""
+        global LAUNCHES, K2_LAUNCHES
         dtype = out.dtype
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"the Gram tile kernel takes float32 or float64, got {dtype}")
@@ -311,12 +385,17 @@ class GramPlan:
         pts = (ctypes.c_void_p * len(sets))(*[s.data_ptr() for s in sets])
         err = lib.gram_plan_launch(
             is_double, self._packed(lib, is_double), out.data_ptr(),
-            max(out.stride(0), self.shape[1]), ctypes.addressof(pts), len(sets),
+            max(out.stride(0), self.shape[1]),
+            None if d_r is None else d_r.data_ptr(), None if d_c is None else d_c.data_ptr(),
+            ctypes.addressof(pts), len(sets),
             torch._C._cuda_getCurrentRawStream(dev),  # current_stream(dev).cuda_stream
         )
         if err != 0:
             raise RuntimeError(f"gram_tile kernel launch failed: CUDA error {err}")
-        LAUNCHES += 1
+        if d_r is None:
+            LAUNCHES += 1
+        else:
+            K2_LAUNCHES += 1
 
 
 def _set_keys(observables) -> Tuple[str, ...]:
@@ -384,7 +463,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.gram_plan_pack.restype = ctypes.c_int
     lib.gram_plan_launch.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.gram_plan_launch.restype = ctypes.c_int
     lib.gram_plan_limits.argtypes = [ctypes.c_void_p]

@@ -12,7 +12,8 @@ package is imported), so only the numerical safeguards carry over:
   (the factorization runs in f64, see :func:`equilibrated_cholesky`);
 * the Newton refinement of the triangular inverse;
 * the ``1 + 32 eps`` floor on the unit diagonal of the equilibrated
-  Gauss-Newton normal matrix.
+  Gauss-Newton normal matrix, and of the small SPD inverse of the mesh
+  path's deflation preconditioner (:func:`spd_inverse`).
 """
 
 from __future__ import annotations
@@ -62,9 +63,9 @@ def equilibrated_cholesky(
     s = float(s0)
     for rung in range(MAX_ESCALATIONS):
         M, d_isqrt = equilibrate(theta, nug_diag, s)
-        L, info = torch.linalg.cholesky_ex(M)
+        L, ok = cholesky_f64(M)
         del M
-        if int(info) == 0 and bool(torch.isfinite(L).all()):
+        if ok:
             return L.to(theta.dtype), d_isqrt, s, rung
         del L
         s *= 10.0
@@ -72,6 +73,20 @@ def equilibrated_cholesky(
         f"Cholesky failed after {MAX_ESCALATIONS} nugget escalations from "
         f"{s0:g}x (last scale {s / 10.0:g}x)"
     )
+
+
+def cholesky_f64(M: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """``(L, ok)``: the lower Cholesky factor of the SPD matrix ``M``,
+    computed and returned in f64, and whether it is usable (``cholesky_ex``
+    reported success and the factor is finite; one host read).
+
+    The one Cholesky of the Gram matrices on both paths: the dense
+    factorization and each superblock diagonal of the mesh path's fused
+    factorization share it, so that the two paths round alike (see
+    :func:`equilibrated_cholesky` for why it is f64).
+    """
+    L, info = torch.linalg.cholesky_ex(M.to(torch.float64))
+    return L, bool((info == 0) & torch.isfinite(L).all())
 
 
 def whiten(L: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -90,8 +105,8 @@ def kernel_solve(L: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def tri_inverse(L: torch.Tensor) -> torch.Tensor:
-    """Explicit ``L^{-1}`` (lower triangular)."""
-    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    """Explicit ``L^{-1}`` (lower triangular; or of each matrix of a batch)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
     return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
@@ -104,9 +119,10 @@ def newton_refine_tri_inverse(
     inverse of these ill-conditioned equilibrated Gram factors carries
     ``||W L - I||`` around 1e-2 and one step brings it to about 1e-4; the
     JAX package measured the step moving the canonical solve's test L2 from
-    9.5e-3 to 2.3e-3 on its accelerator. This is the dense two-matmul form.
+    9.5e-3 to 2.3e-3 on its accelerator. This is the dense two-matmul form
+    (of each matrix of a batch, for a batch).
     """
-    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
     for _ in range(steps):
         E = eye - W @ L
         W = W + E @ W
@@ -128,6 +144,25 @@ def spd_solve(H: torch.Tensor, g: torch.Tensor, jitter: float = 0.0) -> torch.Te
         x = kernel_solve(L, g)
         return torch.where(info == 0, x, torch.full_like(x, float("nan")))
     return spd_solve_controlled(H, g)
+
+
+def spd_inverse(H: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of a small SPD matrix, as ``ops/linalg.py::spd_inverse``
+    of the JAX package: ``D^{-1/2} W^T W D^{-1/2}`` with ``W`` the inverse
+    Cholesky factor of the equilibrated matrix, its unit diagonal floored at
+    ``1 + 32 eps`` (of ``H``'s dtype). It serves the (r, r) projected
+    operators of the mesh path's deflation preconditioner, applied every CG
+    iteration. The factorization and inverse run in f64 (r <= 768: no
+    measurable cost) and the result comes back in ``H``'s dtype; where the
+    factorization fails the result is NaN, which the caller's guards reject.
+    """
+    d_isqrt = torch.rsqrt(torch.clamp(torch.diagonal(H), min=torch.finfo(H.dtype).tiny))
+    Hs = (H * (d_isqrt[:, None] * d_isqrt[None, :])).to(torch.float64)
+    Hs.fill_diagonal_(1.0 + 32.0 * torch.finfo(H.dtype).eps)
+    L, info = torch.linalg.cholesky_ex(Hs)
+    W = tri_inverse(L)
+    inv = (W.T @ W).to(H.dtype) * (d_isqrt[:, None] * d_isqrt[None, :])
+    return torch.where(info == 0, inv, torch.full_like(inv, float("nan")))
 
 
 def spd_solve_controlled(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -248,6 +248,42 @@ def validate_slice_structure(
     return bool(worst < 1e-4)
 
 
+def identity_slice_rows(problem: CollocationProblem, structure):
+    """For each latent slice ``j``, the ``(block index, row offset)`` of a
+    residual segment that is exactly the identity on that slice, or
+    ``None`` if a slice has none (``solvers/gn.py:616`` of the JAX
+    package). Those rows give a selection ``S`` with ``S J = I``, whose
+    prior restriction ``S Theta S^T`` spans the smooth latent modes: the
+    mesh path's deflation basis. Checked with two random-tangent JVPs per
+    candidate (numpy seed 7); one host read per candidate checked."""
+    p = problem
+    s, N, seginfo = structure
+    rng = np.random.default_rng(7)
+    kw = dict(dtype=p.dtype, device=p.device)
+    z = torch.as_tensor(rng.standard_normal(p.latent_dim), **kw)
+    t1 = torch.as_tensor(rng.standard_normal(p.latent_dim), **kw)
+    t2 = torch.as_tensor(rng.standard_normal(p.latent_dim), **kw)
+    found = [None] * s
+    for bi, (b, segs) in enumerate(zip(p.blocks, seginfo)):
+        _, jvp = torch.func.linearize(lambda zz, _b=b: _b.residual(zz, p.data), z)
+        y1, y2 = jvp(t1), jvp(t2)
+        for off, sz in segs:
+            if sz != N:
+                continue
+            for j in range(s):
+                if found[j] is not None:
+                    continue
+                ok = all(
+                    float(torch.max(torch.abs(y[off : off + N] - t[j * N : (j + 1) * N])))
+                    < 1e-6 * (1.0 + float(torch.max(torch.abs(t))))
+                    for y, t in ((y1, t1), (y2, t2))
+                )
+                if ok:
+                    found[j] = (bi, off)
+                    break
+    return tuple(found) if all(f is not None for f in found) else None
+
+
 def _structured_jacobian(fp: FactoredProblem, z, structure):
     """Whitened Jacobian panel from column slabs of the whitening operators;
     misfit rows come from a dense (small) ``jacfwd``."""

@@ -4,7 +4,10 @@ Counterpart of ``nonlinpdes_gpsolver_tpu/solvers/posterior.py``. The
 representer weights ``Theta^{-1} F(z*)`` are computed once per block; each
 query is then a cross-Gram assembly (Gram tile kernel) plus one matvec,
 evaluated in row chunks so that the cross-Gram temporary stays bounded at
-any number of test points.
+any number of test points. The mesh path's
+:class:`~.distributed.DistributedPosterior` is this class run against a
+``DistributedFactoredProblem``, whose ``kernel_solve`` and ``whiten`` go
+through its block factors.
 """
 
 from __future__ import annotations
@@ -88,7 +91,7 @@ class Posterior:
         b, op = self._block_op(block, op)
         p, fp = self.fp.problem, self.fp
         X_test = X_test.to(device=p.device, dtype=p.dtype).contiguous()
-        n_train = int(fp.factors[b.name].shape[0])
+        n_train = int(fp.col_scales[b.name].shape[0])
         chunk = _serving_chunk(int(X_test.shape[0]), n_train)
         parts = []
         for xs in _row_chunks(X_test, chunk):

@@ -11,6 +11,17 @@ Burgers, the Cole-Hopf finite-difference solve for Eikonal, and the 80x80
 finite-volume Darcy solve (whose interpolated, noisy values are the
 observations). The truth helpers serve the example scripts too.
 
+Two more run the mesh path past the dense wall, on the port's own draw
+(``utils/sampling.py``): ``mesh_elliptic``, the ``'mesh'`` case of
+``examples/bench_workloads.py:169-204`` (elliptic N = 20,000 with 2,500
+boundary points, 42,500 Gram rows, sigma 0.2, nugget 1e-5, 4 GN steps,
+512-row blocks; gate test L2 <= 3.402e-3), and ``darcy_past_wall``, the
+configuration of ``tests/test_acceptance_full.py:283-327`` (the Darcy
+inverse at N_d = 3,000, 750 boundary points, 60 observations at noise
+1e-3, nugget 1e-8, 8 GN steps, an explicit one-device mesh; 12,750 + 9,000
+Gram rows; gates u L2 <= 5e-3 and a rel L2 <= 0.55, that test's). Both
+take sizes, so that the CPU tests run them small.
+
 Gates. Elliptic: test L2 <= 3.402e-3 (BASELINE.md row 1). Eikonal and
 Darcy: the JAX package's acceptance thresholds (``tests/test_acceptance.py``):
 L2 <= 5e-3; Darcy u L2 <= 5e-3 and the relative L2 of ``a = exp(phi)``
@@ -31,11 +42,15 @@ from scipy.interpolate import RegularGridInterpolator
 
 from . import interop
 from .api import GPSolver, SolveResult
+from .models.darcy import darcy_flow
+from .models.elliptic import nonlinear_elliptic
 from .models.spec import CollocationProblem
 from .ops.backend import default_dtype, resolve_device
+from .ops.kernels import SquaredExponential
+from .parallel.mesh import make_mesh
 from .utils.classical import burgers_cole_hopf_truth, darcy_fd_solve, eikonal_cole_hopf_solve
 from .utils.metrics import error_stats
-from .utils.sampling import test_grid
+from .utils.sampling import sample_random, test_grid
 
 GATE_ELLIPTIC_L2 = 3.402e-3
 BURGERS_DOMAIN = ((0.0, 1.0), (-1.0, 1.0))
@@ -115,7 +130,8 @@ class Workload:
 
     ``gates`` maps a metric of :meth:`metrics` to its upper limit.
     ``a_truth`` (Darcy) is the coefficient ``a`` at ``X_test``, held
-    against ``exp`` of block ``a``'s posterior mean.
+    against ``exp`` of block ``a``'s posterior mean. ``mesh``: solve on the
+    mesh path (a one-device mesh), at any size.
     """
 
     name: str
@@ -126,10 +142,12 @@ class Workload:
     max_iter: int
     gates: Dict[str, float]
     a_truth: Optional[torch.Tensor] = None
+    mesh: bool = False
 
     def solve(self) -> SolveResult:
-        """``GPSolver(problem, nugget).solve(max_iter)``."""
-        return GPSolver(self.problem, nugget=self.nugget).solve(max_iter=self.max_iter)
+        """``GPSolver(problem, nugget, mesh).solve(max_iter)``."""
+        mesh = make_mesh(1, device=self.problem.device) if self.mesh else None
+        return GPSolver(self.problem, nugget=self.nugget, mesh=mesh).solve(max_iter=self.max_iter)
 
     def metrics(self, result: SolveResult) -> Dict[str, float]:
         """Test errors of block ``u`` (and of ``a``), and the loss ratio."""
@@ -203,6 +221,42 @@ def darcy(device=None, dtype=None, inputs=None) -> Workload:
         "darcy", interop.darcy_from_numpy(**inputs, device=device, dtype=dtype),
         Xt, truth, 1e-8, 8, {"test_l2": 5e-3, "a_rel_l2": 0.45}, a_truth,
     )
+
+
+def mesh_elliptic(device=None, dtype=None, n_domain: int = 20000,
+                  n_boundary: int = 2500) -> Workload:
+    """The elliptic problem past the dense wall on the mesh path: N = 20,000
+    and 2,500 boundary points from the port's sampler (seed 1), sigma 0.2,
+    nugget 1e-5, 4 GN steps; tested on the 60x60 grid."""
+    device, dtype = _device_dtype(device, dtype)
+    Xd, Xb = sample_random(torch.Generator(device=device).manual_seed(1), n_domain, n_boundary,
+                           dtype=dtype)
+    prob = nonlinear_elliptic(SquaredExponential.gaussian(0.2), Xd, Xb, elliptic_rhs(),
+                              u_elliptic, seed=1)
+    Xt = test_grid(60, 60, device=device, dtype=dtype)
+    return Workload("mesh_elliptic", prob, Xt, torch.func.vmap(u_elliptic)(Xt), 1e-5, 4,
+                    {"test_l2": GATE_ELLIPTIC_L2}, mesh=True)
+
+
+def darcy_past_wall(device=None, dtype=None, n_domain: int = 3000,
+                    n_boundary: Optional[int] = None, n_data: int = 60) -> Workload:
+    """The Darcy inverse problem on the mesh path: N_d = 3,000 and N_d / 4
+    boundary points from the port's sampler (seed 1), 60 observations of
+    the 78-point FD solution at noise 1e-3 (numpy seed 1), the seed-2
+    latent, sigma 0.2 for both blocks, nugget 1e-8, 8 GN steps; tested on
+    the 80x80 FD grid."""
+    device, dtype = _device_dtype(device, dtype)
+    n_boundary = n_domain // 4 if n_boundary is None else n_boundary
+    Xd, Xb = sample_random(torch.Generator(device=device).manual_seed(1), n_domain, n_boundary,
+                           dtype=dtype)
+    truth = darcy_truth()
+    obs = darcy_observations(Xd[:n_data].cpu().double().numpy(), 1e-3, 1, truth)
+    k = SquaredExponential.gaussian(0.2)
+    prob = darcy_flow(k, k, Xd, Xb, torch.as_tensor(obs, dtype=dtype, device=device),
+                      lambda x: torch.ones_like(x[0]), noise_level=1e-3, seed=2)
+    Xt, u_truth, a_truth = darcy_test(device, dtype, truth)
+    return Workload("darcy_past_wall", prob, Xt, u_truth, 1e-8, 8,
+                    {"test_l2": 5e-3, "a_rel_l2": 0.55}, a_truth, mesh=True)
 
 
 WORKLOADS = {"elliptic": elliptic, "burgers": burgers, "eikonal": eikonal, "darcy": darcy}

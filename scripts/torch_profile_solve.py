@@ -2,13 +2,15 @@
 """Where the device time of one port solve goes, by kernel.
 
     python3 scripts/torch_profile_solve.py [--sizes 900:124 7800:600]
-        [--workloads burgers eikonal darcy] [--top 12]
+        [--workloads burgers eikonal darcy mesh_elliptic darcy_past_wall] [--top 12]
 
 For each size (the JAX package's canonical N=900 draw, and the port's
 sampler with seed 0 for other sizes) it runs the elliptic solve of
 ``chip_smoke.py`` (f32, nugget 1e-5, 4 GN steps, extension to a 60x60 grid),
 and for each named workload of ``nonlinpdes_gpsolver_tpu_torch/workloads.py``
-its solve and test extensions, once cold, then once more under
+(the mesh path's ``mesh_elliptic`` and ``darcy_past_wall`` too; ``--sizes``
+with no value profiles no elliptic size) its solve and test extensions,
+once cold, then once more under
 ``torch.profiler``, and prints one JSON line each:
 the synchronized wall seconds of the profiled solve, the device busy time
 (the union of all kernel intervals), the idle share ``1 - busy / wall``, the
@@ -37,7 +39,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--sizes", nargs="*", default=["900:124", "7800:600"])
     ap.add_argument("--workloads", nargs="*", default=[],
-                    choices=["elliptic", "burgers", "eikonal", "darcy"])
+                    choices=["elliptic", "burgers", "eikonal", "darcy", "mesh_elliptic",
+                             "darcy_past_wall"])
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -67,7 +70,7 @@ def main():
         return {"n_domain": n_dom, "n_boundary": n_bdy}, solve
 
     def workload_case(name):
-        w = tpt.workloads.WORKLOADS[name](device=dev)
+        w = getattr(tpt.workloads, name)(device=dev)
 
         def solve():
             res = w.solve()

@@ -298,3 +298,66 @@ def test_small_darcy_woodbury_step_matches_direct(cuda):
     assert float((wood.z - direct.z).abs().max() / direct.z.abs().max()) < 1e-5
     np.testing.assert_allclose(wood.losses.cpu().numpy(), direct.losses.cpu().numpy(), rtol=1e-5)
     assert 0 < int(wood.cg_iters[0]) < 2000
+
+
+def _darcy_u(n_dom, device, dtype):
+    gen = torch.Generator(device=device).manual_seed(0)
+    Xd, Xb = tpt.utils.sample_random(gen, n_dom, n_dom // 4, dtype=dtype)
+    k = tpt.SquaredExponential.gaussian(0.2)
+    prob = tpt.models.darcy_flow(k, k, Xd, Xb, torch.zeros(8, dtype=dtype, device=device), None)
+    return prob.block("u"), prob.points
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n_dom,block,sup", [(300, 512, 2048), (700, 128, 512)])
+def test_k2_windows_match_plain(cuda, dtype, limit, n_dom, block, sup):
+    """Every superblock window of the Darcy u layout (5 observables on 2
+    point sets) in one K2 launch each: every block within ``limit`` of its
+    scale of the plain version, the diagonal exactly 1, the fill blocks
+    exact, nothing written outside the slot."""
+    from nonlinpdes_gpsolver_tpu_torch.parallel import fused, gram
+
+    blk, pts = _darcy_u(n_dom, cuda, dtype)
+    sizes = tpt.ops.observable_sizes(blk.observables, pts)
+    n = sum(sizes)
+    n_pad = -(-n // block) * block
+    d = torch.linspace(0.5, 1.5, n_pad, dtype=dtype, device=cuda)
+    for kb0, F in fused._superblocks(n_pad // block, sup // block):
+        c0, c1 = kb0 * block, (kb0 + F) * block
+        plan = fused.window_plan(blk.kernel, blk.observables, sizes, c0, c1, n_pad)
+        sets = gram.window_sets(plan, pts)
+        h, S = plan.shape
+        big = torch.full((h + 5, S + 9), 7.0, dtype=dtype, device=cuda)
+        before = (gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES)
+        plan.run_equilibrated(sets, d[c0:], d[c0:c1], out=big[2 : 2 + h, 4 : 4 + S])
+        torch.cuda.synchronize()
+        assert (gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES) == (before[0], before[1] + 1)
+        got = big[2 : 2 + h, 4 : 4 + S]
+        ref = torch.empty_like(got)
+        plan._plain_equilibrated(sets, d[c0:], d[c0:c1], ref)
+        _assert_blocks_close(plan, got, ref, limit)
+        assert bool((got.diagonal() == 1.0).all())
+        for b in plan.blocks:
+            if b.fill:
+                rs, cs = slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m)
+                assert bool(torch.equal(got[rs, cs], ref[rs, cs]))
+        got.fill_(7.0)
+        assert bool((big == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_small_mesh_solve_on_card(cuda):
+    """A 3,000-row elliptic problem on the mesh path in f32 (several
+    superblocks): K2 launches one per superblock, the posterior is the mesh
+    path's, and the test L2 passes the 3.402e-3 gate."""
+    w = tpt.workloads.mesh_elliptic(device=cuda, n_domain=1300, n_boundary=400)
+    before = gram_tile.K2_LAUNCHES
+    res = tpt.GPSolver(w.problem, nugget=1e-5, mesh=tpt.parallel.make_mesh(1, device=cuda),
+                       mesh_block=256).solve(max_iter=4)
+    metrics = w.metrics(res)
+    torch.cuda.synchronize()
+    fp = res.posterior.fp
+    assert isinstance(res.posterior, tpt.solvers.DistributedPosterior)
+    assert gram_tile.K2_LAUNCHES - before == fp.stats["u"]["superblocks"] >= 2
+    assert not w.failures(metrics), metrics

@@ -228,16 +228,24 @@ def test_callable_rhs_matches_values():
     np.testing.assert_allclose(prob.data["g"].numpy(), g, rtol=1e-12, atol=1e-14)
 
 
-def test_solver_guards():
-    """A Gram block at the mesh crossover raises (the mesh path is not ported);
-    the Krylov step solvers run; the generator-seeded latent is
+def test_solver_guards(monkeypatch):
+    """A Gram block at the mesh crossover takes the mesh path (its
+    factorization is stubbed here: 16,400 rows are too many for the CPU
+    test); the Krylov step solvers run; the generator-seeded latent is
     reproducible."""
+    from nonlinpdes_gpsolver_tpu_torch import api
+
     Xd = torch.rand((8100, 2), dtype=torch.float64)
     Xb = torch.rand((200, 2), dtype=torch.float64)
     big = tpt.models.nonlinear_elliptic(
         tpt.SquaredExponential.gaussian(0.2), Xd, Xb, None, None
     )
-    with pytest.raises(NotImplementedError, match="slice 3"):
+
+    def routed(problem, mesh, **kw):
+        raise LookupError(f"mesh path on {mesh.device}, block {kw['block']}")
+
+    monkeypatch.setattr(api, "factorize_distributed", routed)
+    with pytest.raises(LookupError, match="mesh path on cpu, block 512"):
         tpt.GPSolver(big, nugget=1e-5)
     Xd, Xb, f, g, z0 = _small_problem(n_dom=20, n_bdy=8)
     prob = tpt.models.nonlinear_elliptic(
