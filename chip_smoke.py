@@ -431,23 +431,25 @@ def window_cases(block, points, nugget, dtype=None, rows=512, S=2048):
 
 
 def time_k2(cases, reps, plain_reps):
-    """Device ms, plain ms, host us per launch and the bound of each K2
-    launch (f32), and the sums."""
+    """Each K2 launch held against its plain version (:func:`check_k2`),
+    then its device ms, plain ms, host us per launch and bound; and the
+    sums, with the largest error."""
     import torch
 
     rows = []
     for name, plan, sets, d_r, d_c in cases:
+        checked = check_k2(name, plan, sets, d_r, d_c)
         buf = torch.empty(plan.shape, dtype=sets[0].dtype, device=sets[0].device)
-        bound, by = k1_bound_ms(plan, str(buf.dtype).split(".")[1])
+        bound, by = k1_bound_ms(plan, checked["dtype"])
         ms = time_ms(lambda: plan.run_equilibrated(sets, d_r, d_c, out=buf), reps)
-        rows.append({"launch": name, "shape": list(plan.shape), "blocks": len(plan.blocks),
-                     "ms": ms, "plain_ms": time_ms(lambda: plan._plain_equilibrated(
+        rows.append({**checked, "ms": ms, "plain_ms": time_ms(lambda: plan._plain_equilibrated(
                          sets, d_r, d_c, buf), plain_reps),
                      "host_us_per_call": host_us(lambda: plan.run_equilibrated(
                          sets, d_r, d_c, out=buf), reps),
                      "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms})
         del buf
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return rows, total
 
 
@@ -472,16 +474,12 @@ def k2_vs_plain(tpt, dev):
         darcy = tpt.models.darcy_flow(k, k, Xd, Xb, torch.zeros(60, device=dev), None)
         pick = (lambda c: c[1:2]) if n_d == 3000 else (lambda c: c)
         layouts.append((f"darcy u N_d={n_d}", darcy, pick))
-    rows, timed = [], []
-    for dtype in (torch.float32, torch.float64):
-        for name, prob, pick in layouts:
-            blk = prob.block("u")
-            for what, plan, sets, d_r, d_c in pick(window_cases(blk, prob.points, 1e-5, dtype)):
-                rows.append(check_k2(f"{name} {what}", plan, sets, d_r, d_c))
-                if dtype == torch.float32:
-                    timed.append((f"{name} {what}", plan, sets, d_r, d_c))
-    times, total = time_k2(timed, 20, 3)
-    return {"cases": rows, "times": times, "total": total,
+    cases = {dtype: [(f"{name} {what}", *case) for name, prob, pick in layouts
+                     for what, *case in pick(window_cases(prob.block("u"), prob.points, 1e-5, dtype))]
+             for dtype in (torch.float32, torch.float64)}
+    times, total = time_k2(cases[torch.float32], 20, 3)
+    rows = times + [check_k2(*case) for case in cases[torch.float64]]
+    return {"cases": rows, "total": total,
             "worst_rel_err": {d: max(r["rel_err"] for r in rows if r["dtype"] == d)
                               for d in LIMITS}}
 
@@ -570,10 +568,9 @@ def mesh_phase(w, repeats, auto=False):
     """A cold solve of a mesh workload, a warm one (counted: K1 and K2
     launches, peak memory; and the device ms of one kernel solve, the two
     triangular solves of each CG operator application), then ``repeats``
-    more; its gates checked."""
+    more; its gates checked. The step solver and deflation rank are the
+    ones the solve recorded."""
     import torch
-
-    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed
 
     cold = mesh_run(w, auto)[2]
     torch.cuda.empty_cache()
@@ -582,9 +579,8 @@ def mesh_phase(w, repeats, auto=False):
     res, metrics, timing = mesh_run(w, auto)
     report = mesh_report(res, metrics, timing, counts(), torch.cuda.max_memory_allocated())
     fp = res.posterior.fp
-    report["step_solver"] = distributed.route_step_solver(fp)[0]
-    report["deflation_rank"] = (distributed.default_deflation_rank(fp.problem.latent_dim)
-                                if report["step_solver"] == "woodbury" else 0)
+    report["step_solver"] = res.state.step_solver
+    report["deflation_rank"] = res.state.deflation_rank
     v = {b: torch.randn(f.n, device=f.local.device) for b, f in fp.factors.items()}
     report["kernel_solve_ms"] = {b: time_ms(lambda: fp.kernel_solve(b, v[b]), 10) for b in v}
     report["routed_to_mesh"] = type(res.posterior).__name__ == "DistributedPosterior"
@@ -941,11 +937,10 @@ def main():
     check(mesh_solve["routed_to_mesh"], "auto_mesh did not route mesh_elliptic to the mesh path")
     blk = w.problem.blocks[0]
     k2_rows, k2_total = time_k2(window_cases(blk, w.problem.points, w.nugget), 5, 1)
-    k2_checks = [check_k2(name, *case) for name, *case in window_cases(blk, w.problem.points, w.nugget)]
     mesh_k1_rows, mesh_k1_total = time_k1(mesh_k1_cases(tpt, w.problem, w.X_test), 5, 1)
     emit("mesh_solve", seconds=time.perf_counter() - t_phase, card=card, workload=w.name,
          n_domain=20000, n_boundary=2500, dtype="float32", nugget=w.nugget, gn_steps=w.max_iter,
-         gate_l2=GATE_L2, **mesh_solve, k2_windows=k2_rows, k2_total=k2_total, k2_checks=k2_checks,
+         gate_l2=GATE_L2, **mesh_solve, k2_windows=k2_rows, k2_total=k2_total,
          k1_launches_timed=mesh_k1_rows, k1_total=mesh_k1_total)
     check(mesh_solve["k2_launches"] > 0 and mesh_solve["k1_launches"] > 0,
           f"mesh_elliptic launched K1/K2 {mesh_solve['k1_launches']}/{mesh_solve['k2_launches']} times")
@@ -1047,7 +1042,7 @@ def main():
         "replaces": "nonlinpdes_gpsolver_tpu/parallel/fused.py:188, "
                     "nonlinpdes_gpsolver_tpu/parallel/gram.py:109",
         "launches": mesh_solve["k2_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
+        "max_abs_err": k2_total["max_abs_err"],
         "ms": k2_total["ms"],
         "plain_ms": k2_total["plain_ms"],
         "bound_ms": k2_total["bound_ms"],

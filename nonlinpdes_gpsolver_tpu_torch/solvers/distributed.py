@@ -639,7 +639,8 @@ def gn_solve_distributed(
         losses = torch.cat([losses, losses[-1:].expand(int(max_iter) - losses.shape[0])])
     cg_iters = torch.tensor(cg_iters + [0] * (int(max_iter) - len(cg_iters)), dtype=torch.int64)
     return GNState(z=z, losses=losses, converged_finite=torch.tensor(ok, device=p.device),
-                   cg_iters=cg_iters)
+                   cg_iters=cg_iters, step_solver=step_solver,
+                   deflation_rank=0 if V_defl is None else int(V_defl.shape[1]))
 
 
 class DistributedPosterior(Posterior):

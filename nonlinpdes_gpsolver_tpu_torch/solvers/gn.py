@@ -108,6 +108,10 @@ class GNState(NamedTuple):
     # exact steps and for untaken iterations; == cg_maxiter means the inner
     # solve stopped at its cap before reaching cg_tol
     cg_iters: torch.Tensor
+    # the step solver that ``step_solver`` (``'auto'`` included) resolved to,
+    # and the width of the spectral-deflation basis it used (0: none)
+    step_solver: str = ""
+    deflation_rank: int = 0
 
 
 def _probe_vec(n: int, dtype, device) -> torch.Tensor:
@@ -565,4 +569,7 @@ def gn_solve(
         pad = losses[-1:].expand(int(max_iter) - losses.shape[0])
         losses = torch.cat([losses, pad])
     cg_iters = torch.tensor(cg_iters + [0] * (int(max_iter) - len(cg_iters)), dtype=torch.int64)
-    return GNState(z=z, losses=losses, converged_finite=ok, cg_iters=cg_iters)
+    routed = step_solver if step_solver != "auto" else (
+        "direct" if structure is None else "structured")
+    return GNState(z=z, losses=losses, converged_finite=ok, cg_iters=cg_iters,
+                   step_solver=routed)

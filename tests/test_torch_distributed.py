@@ -109,6 +109,7 @@ def test_structured_matches_direct_and_auto(factored, name):
     torch.testing.assert_close(s.z, d.z, rtol=0, atol=1e-9)
     a = tdist.gn_solve_distributed(tfp, max_iter=3)
     assert torch.equal(a.z, s.z)
+    assert (a.step_solver, a.deflation_rank) == ("structured", 0)
 
 
 def test_woodbury_matches_normal_darcy(factored):
@@ -135,6 +136,8 @@ def test_auto_past_the_panel_cap_takes_woodbury(factored):
                                       cg_maxiter=4000)
     norm = tdist.gn_solve_distributed(tfp, max_iter=3, step_solver="normal")
     assert auto.cg_iters[0] > 0
+    assert auto.step_solver == "woodbury"
+    assert auto.deflation_rank == tdist.default_deflation_rank(tfp.problem.latent_dim)
     assert float((auto.z - norm.z).abs().max() / norm.z.abs().max()) < 1e-5
 
 
@@ -178,6 +181,7 @@ def test_auto_routes_every_step_solver(factored):
     st = tdist.gn_solve_distributed(dfp, max_iter=3, direct_panel_limit=1, normal_budget_bytes=0,
                                     cg_tol=1e-9, cg_maxiter=2000)
     assert st.cg_iters[0] > 0 and st.losses[-1] < st.losses[0] / 10
+    assert st.step_solver == "woodbury"
 
 
 def test_tol_plateau(factored):
