@@ -44,7 +44,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 7. ``k2_vs_plain``: K2 (K1 with the equilibrating epilogue) against its
    plain version on every superblock window of a 5,000-row elliptic layout
    and on Darcy u layouts, f32 and f64, one launch each, exact unit
-   diagonal, nothing written outside the slot; timed (:func:`k2_vs_plain`);
+   diagonal, nothing written outside the slot; timed; and K2 on a rank's
+   block-cyclic rows (rank-mapped plans: ranks 0 and 1 of 2, rank 3 of 4)
+   the same way (:func:`k2_vs_plain`);
 8. ``mesh_solve``: ``workloads.mesh_elliptic`` (42,500 Gram rows) through
    plain ``GPSolver(problem, nugget=1e-5)``, which ``auto_mesh`` must route
    to the mesh path: cold, warm (K1 and K2 launches, peak memory) and two
@@ -62,9 +64,20 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 11. ``mesh_steps``: every step solver of the mesh path against the dense
     ``'direct'`` step on the JAX package's mesh-test fixtures, gated in
     f64 (:func:`mesh_steps`);
-12. the script's seconds so far (the build included), the kernel summary
-    line (K1 with its mesh-path launches, K2), then the card's name and
-    power limit, and last ``{"ok": true, "device": {...}}``.
+12. ``mesh_ranks``: two spawned ranks sharing the card over gloo, every
+    collective staged through host memory (:func:`mesh_ranks`): each
+    rank's rank-mapped K2 windows of ``mesh_elliptic`` checked and timed,
+    ``mesh_elliptic`` routed to ``'cg'`` (cold, then warm: launches, peak
+    memory a rank, factorize and GN seconds) and ``darcy_past_wall`` with
+    ``'woodbury'`` under their gates, test L2 within 10% of phases 8 and
+    10, z beside phase 8's, and the five step solvers of phase 11 in f64;
+13. ``mesh_nccl``: one rank per visible card over NCCL (:func:`mesh_nccl`),
+    phase 9's 16,200-row problem under its gate, z beside phase 9's; on a
+    machine with one card, a group of one, and it says so;
+14. the script's seconds so far (the build included), the kernel summary
+    line (K1 with its mesh-path launches, K2 with its rank-mapped ones),
+    then the card's name and power limit, and last
+    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s in f32
 and 34 TFLOP/s in f64 outside the tensor cores. Device times come from
@@ -75,10 +88,14 @@ timed apart.
 
 import json
 import math
+import os
+import socket
 import subprocess
+import tempfile
 import time
 
 GATE_L2 = 3.402e-3  # BASELINE.md row 1, the bench.py accuracy gate
+Z_REL_GATE = 1e-4  # z across ranks against one device, of z's scale (measured ~7e-6 in f32)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 EXP_OPS = 25  # Cody-Waite exp: reduction, 7 Horner FMAs, exponent assembly
@@ -280,8 +297,9 @@ def krylov_steps(tpt, dev):
     return out
 
 
-def mesh_steps(tpt, dev):
-    """Each step solver of the mesh path against the dense ``'direct'``
+def mesh_steps(tpt, dev, mesh=None, dtypes=None):
+    """Each step solver of the mesh path (on ``mesh``, default the card
+    alone; ``dtypes`` default f64 and f32) against the dense ``'direct'``
     step, 3 GN steps, on the fixtures of the JAX package's mesh tests
     (``tests/test_distributed_solver.py``: ``_elliptic_problem``, 150/40,
     sigma 0.3, nugget 1e-10, here from z0 = 0, and ``_small_darcy``, 48/16,
@@ -299,7 +317,7 @@ def mesh_steps(tpt, dev):
         factorize_distributed, gn_solve_distributed,
     )
 
-    mesh = make_mesh(1, device=dev)
+    mesh = make_mesh(1, device=dev) if mesh is None else mesh
 
     def u(x):
         return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1])
@@ -326,7 +344,7 @@ def mesh_steps(tpt, dev):
     fixtures = (("elliptic", elliptic, ("structured", "direct", "cg", "normal")),
                 ("darcy", darcy, ("woodbury", "structured", "normal")))
     out = {}
-    for dtype in (torch.float64, torch.float32):
+    for dtype in dtypes or (torch.float64, torch.float32):
         tag = str(dtype).split(".")[1]
         for name, build, solvers in fixtures:
             prob, nugget = build(dtype)
@@ -335,10 +353,10 @@ def mesh_steps(tpt, dev):
             dfp = factorize_distributed(prob, mesh, nugget=nugget, block=16)
             for solver in solvers:
                 kw = dict(cg_tol=1e-9, cg_maxiter=2000) if solver == "woodbury" else {}
-                sync()
+                sync(dev)
                 t0 = time.perf_counter()
                 st = gn_solve_distributed(dfp, max_iter=3, step_solver=solver, **kw)
-                sync()
+                sync(dev)
                 rel = float((st.z - ref.z).abs().max() / ref.z.abs().max())
                 out[f"{tag}_{name}_{solver}"] = {
                     "z_rel_diff": rel, "losses": st.losses.tolist(),
@@ -353,10 +371,11 @@ def mesh_steps(tpt, dev):
 LIMITS = {"float32": 1e-5, "float64": 1e-12}  # of a block's scale, kernel against plain
 
 
-def sync():
+def sync(dev=None):
     import torch
 
-    torch.cuda.synchronize()
+    if dev is None or torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def counts():
@@ -391,7 +410,10 @@ def check_k2(what, plan, sets, d_r, d_c):
     plan._plain_equilibrated(sets, d_r, d_c, ref)
     rel, diff = blockwise_rel_err(plan, slot, ref)
     check(math.isfinite(rel) and rel <= LIMITS[dtype], f"K2 {what} {dtype}: {rel:.3e}")
-    check(bool((slot.diagonal() == 1.0).all()), f"K2 {what} {dtype}: diagonal not exactly 1")
+    w = plan.window_rows(slot.device)  # the rows' window rows: the unit diagonal's columns
+    on = w < S
+    check(bool((slot[torch.nonzero(on)[:, 0], w[on]] == 1.0).all()),
+          f"K2 {what} {dtype}: diagonal not exactly 1")
     for b in plan.blocks:
         if b.fill:
             rs, cs = slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m)
@@ -400,13 +422,15 @@ def check_k2(what, plan, sets, d_r, d_c):
     check(bool((big == 7.0).all()), f"K2 {what} {dtype}: wrote outside its slot")
     return {"what": what, "shape": [h, S], "dtype": dtype, "blocks": len(plan.blocks),
             "fill_blocks": sum(b.fill for b in plan.blocks), "sets": len(plan.set_sizes),
-            "rel_err": rel, "max_abs_err": diff}
+            "row_map": plan.row_map, "rel_err": rel, "max_abs_err": diff}
 
 
-def window_cases(block, points, nugget, dtype=None, rows=512, S=2048):
+def window_cases(block, points, nugget, dtype=None, rows=512, S=2048, ranks=1, rank=0):
     """``(name, plan, sets, d_r, d_c)`` of every K2 launch of the fused
     factorization of GP ``block`` (``rows``-row blocks, ``S``-wide
-    superblocks), at the nugget's equilibration, optionally cast."""
+    superblocks) on rank ``rank`` of ``ranks`` (rank-mapped plans past one
+    rank; a window where the rank owns no row has no launch), at the
+    nugget's equilibration, optionally cast."""
     import torch
 
     from nonlinpdes_gpsolver_tpu_torch.ops.assembly import observable_sizes
@@ -416,7 +440,7 @@ def window_cases(block, points, nugget, dtype=None, rows=512, S=2048):
     obs = block.observables
     sizes = observable_sizes(obs, pts)
     n = sum(sizes)
-    n_pad = pad_to_blocks(n, rows, 1)
+    n_pad = pad_to_blocks(n, rows, ranks)
     ref = pts[obs[0].points]
     c, nug = gram._equilibration_parts(block.kernel, gram._segments(obs, pts), "adaptive",
                                        nugget, ref.dtype, ref.device)
@@ -424,8 +448,11 @@ def window_cases(block, points, nugget, dtype=None, rows=512, S=2048):
     out = []
     for kb0, F in fused._superblocks(n_pad // rows, S // rows):
         c0, c1 = kb0 * rows, (kb0 + F) * rows
-        plan = fused.window_plan(block.kernel, obs, sizes, c0, c1, n_pad)
-        out.append((f"window [{c0}, {c1}) of {n_pad}", plan, gram.window_sets(plan, pts),
+        plan = fused.window_plan(block.kernel, obs, sizes, c0, c1, n_pad, ranks, rank, rows)
+        if plan.shape[0] == 0:
+            continue
+        tag = f" rank {rank} of {ranks}" if ranks > 1 else ""
+        out.append((f"window [{c0}, {c1}) of {n_pad}{tag}", plan, gram.window_sets(plan, pts),
                     d_pad[c0:], d_pad[c0:c1]))
     return out
 
@@ -461,7 +488,11 @@ def k2_vs_plain(tpt, dev):
     two segments, and the whole Darcy u layout at N_d = 300 (one window, 25
     blocks and 2 fill blocks), in f32 and f64 (limits 1e-5 and 1e-12 of a
     block's scale), each one launch with an exact unit diagonal and nothing
-    written outside its slot; then each timed in f32."""
+    written outside its slot; then each timed in f32. Then K2 on a rank's
+    block-cyclic rows (rank-mapped plans): the elliptic layout's windows on
+    ranks 0 and 1 of 2 (the same three windows, 5,120 padded rows) and on
+    rank 3 of 4 (6,144 padded rows: its last block lies in the padding), the
+    same checks, and the P = 2 windows timed in f32 beside the unmapped ones."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -479,8 +510,17 @@ def k2_vs_plain(tpt, dev):
              for dtype in (torch.float32, torch.float64)}
     times, total = time_k2(cases[torch.float32], 20, 3)
     rows = times + [check_k2(*case) for case in cases[torch.float64]]
-    return {"cases": rows, "total": total,
-            "worst_rel_err": {d: max(r["rel_err"] for r in rows if r["dtype"] == d)
+    mapped = {dtype: [(f"elliptic 5,000 {what}", *case) for P, p in ((2, 0), (2, 1), (4, 3))
+                      for what, *case in window_cases(ell.block("u"), ell.points, 1e-5, dtype,
+                                                      ranks=P, rank=p)]
+              for dtype in (torch.float32, torch.float64)}
+    f32 = mapped[torch.float32]
+    mtimes, mtotal = time_k2([c for c in f32 if " of 2" in c[0]], 20, 3)
+    mrows = mtimes + [check_k2(*c) for c in f32 if " of 2" not in c[0]]
+    mrows += [check_k2(*case) for case in mapped[torch.float64]]
+    return {"cases": rows, "total": total, "rank_mapped_cases": mrows,
+            "rank_mapped_total": mtotal,
+            "worst_rel_err": {d: max(r["rel_err"] for r in rows + mrows if r["dtype"] == d)
                               for d in LIMITS}}
 
 
@@ -533,18 +573,21 @@ def time_k1(cases, reps, plain_reps):
     return rows, total
 
 
-def mesh_run(w, auto=False):
+def mesh_run(w, auto=False, mesh=None):
     """One solve of workload ``w`` on the mesh path and its metrics, with
     the extension timed: ``GPSolver(problem, nugget)`` (``auto``: routed by
-    auto_mesh) or ``w.solve()`` (an explicit one-device mesh)."""
+    auto_mesh) or ``w.solve(mesh)`` (an explicit mesh: the card alone, or
+    ``mesh``)."""
     import nonlinpdes_gpsolver_tpu_torch as tpt
 
+    dev = w.problem.device
     t0 = time.perf_counter()
-    res = tpt.GPSolver(w.problem, nugget=w.nugget).solve(max_iter=w.max_iter) if auto else w.solve()
-    sync()
+    res = (tpt.GPSolver(w.problem, nugget=w.nugget).solve(max_iter=w.max_iter) if auto
+           else w.solve(mesh))
+    sync(dev)
     t1 = time.perf_counter()
     metrics = w.metrics(res)
-    sync()
+    sync(dev)
     t2 = time.perf_counter()
     return res, metrics, {"e2e_seconds": t2 - t0, "solve_seconds": t1 - t0,
                           "extension_seconds": t2 - t1, "phase_seconds": res.timers}
@@ -564,12 +607,12 @@ def mesh_report(res, metrics, timing, launches, peak):
             "max_memory_allocated": peak}
 
 
-def mesh_phase(w, repeats, auto=False):
+def mesh_phase(w, repeats, auto=False, keep=None):
     """A cold solve of a mesh workload, a warm one (counted: K1 and K2
     launches, peak memory; and the device ms of one kernel solve, the two
     triangular solves of each CG operator application), then ``repeats``
     more; its gates checked. The step solver and deflation rank are the
-    ones the solve recorded."""
+    ones the solve recorded. ``keep`` receives the warm solve's ``z``."""
     import torch
 
     cold = mesh_run(w, auto)[2]
@@ -584,6 +627,8 @@ def mesh_phase(w, repeats, auto=False):
     v = {b: torch.randn(f.n, device=f.local.device) for b, f in fp.factors.items()}
     report["kernel_solve_ms"] = {b: time_ms(lambda: fp.kernel_solve(b, v[b]), 10) for b in v}
     report["routed_to_mesh"] = type(res.posterior).__name__ == "DistributedPosterior"
+    if keep is not None:
+        keep["z"] = res.z.clone()
     del res, fp
     report["cold"] = cold
     report["repeats"] = [mesh_run(w, auto)[2] for _ in range(repeats)]
@@ -591,6 +636,233 @@ def mesh_phase(w, repeats, auto=False):
     check(not failed, "; ".join(failed))
     check(report["converged_finite"], f"{w.name}: a GN step had no finite trial")
     return report
+
+
+# -- the mesh path across ranks ------------------------------------------------------
+#
+# Each phase spawns its ranks with torch.multiprocessing (spawn, not fork: the
+# parent holds a CUDA context) and the torchrun variables (RANK, LOCAL_RANK,
+# WORLD_SIZE, MASTER_ADDR, MASTER_PORT), so that each rank starts its group
+# with parallel.initialize_distributed(backend=...), as a user's program under
+# torchrun would. Every rank writes a JSON report into a temporary directory
+# (rank 0 also its solution), and any rank's failure fails the phase.
+
+FULL_SIZES = {"mesh_elliptic": (20000, 2500), "darcy_past_wall": 3000, "nccl": (7800, 600)}
+
+
+def _rank_entry(rank, fn, world, port, args):
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    try:
+        fn(rank, world, *args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world, *args):
+    """``fn(rank, world, *args)`` on ``world`` spawned processes; returns when
+    all have ended, and raises if any failed (the others are stopped)."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_rank_entry, args=(fn, world, port, args), nprocs=world, join=True)
+
+
+def _write(tmp, name, obj):
+    with open(os.path.join(tmp, name), "w") as fh:
+        json.dump(obj, fh)
+
+
+def _read(tmp, name):
+    with open(os.path.join(tmp, name)) as fh:
+        return json.load(fh)
+
+
+def mesh_ranks_rank(rank, world, tmp, device, sizes):
+    """One rank of phase ``mesh_ranks``: ``world`` ranks over gloo, all on
+    ``device`` (one card shared; the collectives go through host memory).
+
+    1. its K2 windows of ``mesh_elliptic``'s fused factorization, each checked
+       against its plain version and timed, one rank at a time;
+    2. ``mesh_elliptic`` through ``w.solve(mesh)``, routed to ``'cg'``: a cold
+       solve, then a counted warm one (K1 and K2 launches, peak memory);
+    3. ``darcy_past_wall`` with ``'woodbury'``, one solve;
+    4. ``mesh_steps``' five step solvers in f64 against the dense ``'direct'``.
+    """
+    import torch
+    import torch.distributed as dist
+
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    check(initialize_distributed(backend="gloo"), "the gloo group did not start")
+    mesh = make_mesh(world, device=device)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    out = {"rank": rank, "ranks": mesh.size, "backend": mesh.backend, "device": str(dev)}
+    n, nb = sizes["mesh_elliptic"]
+    w = tpt.workloads.mesh_elliptic(device=dev, n_domain=n, n_boundary=nb)
+    if on_card:
+        for r in range(world):
+            if r == rank:
+                cases = window_cases(w.problem.blocks[0], w.problem.points, w.nugget,
+                                     ranks=world, rank=rank)
+                out["k2_windows"], out["k2_total"] = time_k2(cases, 5, 1)
+            dist.barrier()
+    cold = mesh_run(w, mesh=mesh)[2]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, metrics, timing = mesh_run(w, mesh=mesh)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    rep = mesh_report(res, metrics, timing, counts(), peak)
+    rep.update(cold=cold, step_solver=res.state.step_solver, failures=w.failures(metrics),
+               local_rows={b: int(f.local.shape[0] * f.block) for b, f in
+                           res.posterior.fp.factors.items()})
+    out["mesh_elliptic"] = rep
+    if rank == 0:
+        torch.save(res.z.cpu(), os.path.join(tmp, "z_mesh_elliptic.pt"))
+    del res, w
+    wd = tpt.workloads.darcy_past_wall(device=dev, n_domain=sizes["darcy_past_wall"])
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, metrics, timing = mesh_run(wd, mesh=mesh)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    rep = mesh_report(res, metrics, timing, counts(), peak)
+    rep.update(step_solver=res.state.step_solver, deflation_rank=res.state.deflation_rank,
+               failures=wd.failures(metrics))
+    out["darcy_past_wall"] = rep
+    del res, wd
+    t0 = time.perf_counter()
+    out["mesh_steps"] = mesh_steps(tpt, dev, mesh, (torch.float64,))
+    out["mesh_steps_seconds"] = time.perf_counter() - t0
+    _write(tmp, f"rank{rank}.json", out)
+
+
+def mesh_nccl_rank(rank, world, tmp, backend, sizes, device=None):
+    """One rank of phase ``mesh_nccl``: one rank per card over ``backend``
+    (NCCL on the card), the 16,200-row elliptic problem of phase 4 on the
+    mesh path, cold then warm, with its L2 and its solution."""
+    import torch
+
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    check(initialize_distributed(backend=backend), f"the {backend} group did not start")
+    mesh = make_mesh(world, device=device)
+    dev = mesh.device
+    n, nb = sizes["nccl"]
+    Xd, Xb = tpt.utils.sample_random(torch.Generator(device=dev).manual_seed(0), n, nb)
+    prob = tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
+                                         tpt.workloads.elliptic_rhs(), tpt.workloads.u_elliptic,
+                                         seed=1)
+    Xt = tpt.utils.test_grid(60, 60, device=dev)
+    truth = torch.func.vmap(tpt.workloads.u_elliptic)(Xt)
+
+    def run():
+        t0 = time.perf_counter()
+        res = tpt.GPSolver(prob, nugget=1e-5, mesh=mesh).solve(max_iter=4)
+        err = tpt.GPSolver.errors(res.posterior.extend(Xt), truth)
+        sync(dev)
+        return res, err, time.perf_counter() - t0
+
+    cold = run()[2]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, err, secs = run()
+    k1, k2 = counts()
+    out = {"rank": rank, "ranks": mesh.size, "backend": mesh.backend, "device": str(dev),
+           "group_of_one": mesh.size == 1, "gram_rows": 2 * n + nb, "cold_seconds": cold,
+           "e2e_seconds": secs, "phase_seconds": res.timers, "test_l2": err.l2,
+           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                    if dev.type == "cuda" else None),
+           "rungs": res.posterior.fp.rungs, "cg_iters": res.state.cg_iters.tolist(),
+           "step_solver": res.state.step_solver, "k1_launches": k1, "k2_launches": k2,
+           "converged_finite": bool(res.state.converged_finite)}
+    if rank == 0:
+        torch.save(res.z.cpu(), os.path.join(tmp, "z_nccl.pt"))
+    _write(tmp, f"rank{rank}.json", out)
+
+
+def _z_diff(tmp, name, z1):
+    import torch
+
+    z = torch.load(os.path.join(tmp, name))
+    return float((z - z1.cpu()).abs().max() / z1.abs().max())
+
+
+def mesh_ranks(dev, p1, sizes=FULL_SIZES, world=2):
+    """Phase ``mesh_ranks``: ``world`` ranks sharing one card over gloo
+    (:func:`mesh_ranks_rank`), beside the one-device runs ``p1`` of the same
+    call (``mesh_solve``'s report and solution, ``mesh_darcy``'s report):
+    every gate, test L2 within 10% of the one-device run's, z within
+    ``Z_REL_GATE`` of its scale from it, and the steps within 1e-6 of
+    ``'direct'``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(mesh_ranks_rank, world, tmp, str(dev), sizes)
+        ranks = [_read(tmp, f"rank{r}.json") for r in range(world)]
+        z_rel = _z_diff(tmp, "z_mesh_elliptic.pt", p1["z"])
+    ell = [r["mesh_elliptic"] for r in ranks]
+    dar = [r["darcy_past_wall"] for r in ranks]
+    for rep, name in ((ell[0], "mesh_elliptic"), (dar[0], "darcy_past_wall")):
+        check(not rep["failures"], f"{name} at {world} ranks: " + "; ".join(rep["failures"]))
+        check(rep["converged_finite"], f"{name} at {world} ranks: a GN step had no finite trial")
+    # 'auto' past the panel cap of 4,096 latent columns a rank (at full size)
+    wide = lambda m: -(-m // world) > 4096  # noqa: E731
+    for rep, m, past in ((ell[0], sizes["mesh_elliptic"][0], "cg"),
+                         (dar[0], 6 * sizes["darcy_past_wall"], "woodbury")):
+        want = past if wide(m) else "structured"
+        check(rep["step_solver"] == want, f"{m} latents at {world} ranks took {rep['step_solver']}")
+    for rep, one, key in ((ell[0], p1["mesh_solve"], "test_l2"),
+                          (dar[0], p1["mesh_darcy"], "test_l2"),
+                          (dar[0], p1["mesh_darcy"], "a_rel_l2")):
+        a, b = rep["metrics"][key], one["metrics"][key]
+        check(abs(a - b) <= 0.1 * b, f"{key} {a:.4e} at {world} ranks, {b:.4e} on one device")
+    check(z_rel <= Z_REL_GATE, f"mesh_elliptic z at {world} ranks {z_rel:.3e} of its scale "
+          "from one device")
+    for r in ranks:
+        check(dev.type != "cuda" or (r["mesh_elliptic"]["k1_launches"] > 0
+                                     and r["mesh_elliptic"]["k2_launches"] > 0),
+              f"rank {r['rank']} launched K1/K2 {r['mesh_elliptic']['k1_launches']}/"
+              f"{r['mesh_elliptic']['k2_launches']} times")
+        for name, case in r["mesh_steps"].items():
+            check(case["z_rel_diff"] <= 1e-6,
+                  f"rank {r['rank']} steps {name}: {case['z_rel_diff']:.3e}")
+    return {"ranks": ranks, "z_rel_diff_to_one_device": z_rel}
+
+
+def mesh_nccl(dev, z1, sizes=FULL_SIZES, backend="nccl", world=None):
+    """Phase ``mesh_nccl``: one rank per visible card over ``backend``
+    (:func:`mesh_nccl_rank`): the 16,200-row problem's gate, and its
+    solution within ``Z_REL_GATE`` of the one-device run's ``z1`` of the
+    same call. On the CPU (a rehearsal) ``world`` ranks, 1 by default."""
+    import torch
+
+    if world is None:
+        world = torch.cuda.device_count() if dev.type == "cuda" else 1
+    device = None if dev.type == "cuda" else str(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(mesh_nccl_rank, world, tmp, backend, sizes, device)
+        ranks = [_read(tmp, f"rank{r}.json") for r in range(world)]
+        z_rel = _z_diff(tmp, "z_nccl.pt", z1)
+    for r in ranks:
+        check(r["test_l2"] <= GATE_L2, f"mesh_nccl rank {r['rank']}: test L2 {r['test_l2']:.4e}")
+        check(dev.type != "cuda" or (r["k1_launches"] > 0 and r["k2_launches"] > 0),
+              f"mesh_nccl rank {r['rank']} launched K1/K2 {r['k1_launches']}/{r['k2_launches']}")
+        check(r["converged_finite"], f"mesh_nccl rank {r['rank']}: a GN step had no finite trial")
+        check(r["backend"] == backend, f"mesh_nccl ran over {r['backend']}")
+    check(z_rel <= Z_REL_GATE, f"mesh_nccl z {z_rel:.3e} of its scale from one device")
+    return {"ranks": ranks, "z_rel_diff_to_one_device": z_rel}
 
 
 def main():
@@ -933,7 +1205,8 @@ def main():
     t_phase = time.perf_counter()
     w = tpt.workloads.mesh_elliptic(device=dev)
     check(largest_gram_rows(w.problem) >= _AUTO_MESH_GRAM_ROWS, "mesh_elliptic is below the crossover")
-    mesh_solve = mesh_phase(w, 2, auto=True)
+    p1 = {}  # the one-device runs that mesh_ranks is held to
+    mesh_solve = mesh_phase(w, 2, auto=True, keep=p1)
     check(mesh_solve["routed_to_mesh"], "auto_mesh did not route mesh_elliptic to the mesh path")
     blk = w.problem.blocks[0]
     k2_rows, k2_total = time_k2(window_cases(blk, w.problem.points, w.nugget), 5, 1)
@@ -979,6 +1252,7 @@ def main():
          k2_windows=mvd_k2_rows, k2_total=mvd_k2_total, k1_launches_timed=mvd_k1_rows,
          k1_total=mvd_k1_total)
     check(err.l2 <= GATE_L2, f"16,200 rows on the mesh path: test L2 {err.l2:.4e} > {GATE_L2}")
+    z_mvd, l2_mvd = res.z.clone(), err.l2
     del res, big
     torch.cuda.empty_cache()
 
@@ -1004,7 +1278,26 @@ def main():
     steps = mesh_steps(tpt, dev)
     emit("mesh_steps", seconds=time.perf_counter() - t_phase, card=card, **steps)
 
-    # -- 12. summary ------------------------------------------------------------
+    # -- 12. the mesh path on two ranks that share the card, over gloo -------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    p1.update(mesh_solve=mesh_solve, mesh_darcy=mesh_darcy)
+    ranks = mesh_ranks(dev, p1)
+    emit("mesh_ranks", seconds=time.perf_counter() - t_phase, card=card, backend="gloo",
+         shared_card=True, collectives="staged through host memory: not NVLink or NCCL times",
+         one_device={k: {"metrics": p1[k]["metrics"], "phase_seconds": p1[k]["phase_seconds"],
+                         "max_memory_allocated": p1[k]["max_memory_allocated"]}
+                     for k in ("mesh_solve", "mesh_darcy")}, **ranks)
+
+    # -- 13. one rank per card over NCCL ------------------------------------------
+    t_phase = time.perf_counter()
+    nccl = mesh_nccl(dev, z_mvd)
+    emit("mesh_nccl", seconds=time.perf_counter() - t_phase, card=card, backend="nccl",
+         world_size=len(nccl["ranks"]), one_device_test_l2=l2_mvd,
+         note=("a group of one rank: one card is visible" if len(nccl["ranks"]) == 1
+               else "one rank per visible card"), **nccl)
+
+    # -- 14. summary ------------------------------------------------------------
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": [{
         "name": "gram_tile",
@@ -1034,6 +1327,8 @@ def main():
                 f"mesh_darcy_{k}": v for k, v in darcy_k1_total.items()},
             "mesh_vs_dense_launches": mvd_launches[0], **{
                 f"mesh_vs_dense_{k}": v for k, v in mvd_k1_total.items()},
+            "mesh_ranks_launches": [r["mesh_elliptic"]["k1_launches"] for r in ranks["ranks"]],
+            "mesh_nccl_launches": [r["k1_launches"] for r in nccl["ranks"]],
         },
     }, {
         "name": "gram_tile_k2",
@@ -1056,6 +1351,14 @@ def main():
         **{f"mesh_darcy_{k}": v for k, v in darcy_k2_total.items()},
         "mesh_vs_dense_launches": mvd_launches[1],
         **{f"mesh_vs_dense_{k}": v for k, v in mvd_k2_total.items()},
+        "rank_mapped": {
+            "per": "mesh_elliptic's windows on each of 2 ranks sharing the card (one rank-mapped "
+                   "K2 launch each), summed per rank, f32; and k2_vs_plain's P = 2 windows",
+            "mesh_ranks_launches": [r["mesh_elliptic"]["k2_launches"] for r in ranks["ranks"]],
+            **{f"mesh_ranks_{k}": [r["k2_total"][k] for r in ranks["ranks"]]
+               for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+            **{f"k2_vs_plain_{k}": v for k, v in k2["rank_mapped_total"].items()},
+        },
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

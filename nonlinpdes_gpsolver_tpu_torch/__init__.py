@@ -7,8 +7,9 @@ JAX. Entry points run on the CUDA card unless given ``device="cpu"``; the
 working dtype is f32 on the card and f64 on the CPU. The derivative-kernel
 Gram blocks go through a CUDA C++ kernel for ``sm_90a``
 (``csrc/gram_tile.cu``), built at first use. Past 16,384 Gram rows (or
-with ``GPSolver(..., mesh=parallel.make_mesh(1))``) the solve takes the
-JAX package's mesh path at P = 1 (``parallel/``, ``solvers/distributed.py``).
+with ``GPSolver(..., mesh=parallel.make_mesh(P))``) the solve takes the
+JAX package's mesh path (``parallel/``, ``solvers/distributed.py``), on one
+device or across P ranks of ``torch.distributed``.
 
 Importing the package turns TF32 off for float32 matmuls and convolutions:
 the factorizations and whitening need full f32 products, the hazard that

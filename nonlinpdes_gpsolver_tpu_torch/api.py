@@ -14,9 +14,11 @@ problem built with the defaults). A problem whose largest Gram block has
 16,384 rows or more, or any problem given ``mesh=parallel.make_mesh(1)``,
 takes the mesh path on its device: the fused assemble-and-factorize, the
 distributed Gauss-Newton steps and :class:`~.solvers.distributed.
-DistributedPosterior` (``solvers/distributed.py``). Factorization checks
-its quality eagerly, so there is no deferred verdict and no re-run of a
-solve.
+DistributedPosterior` (``solvers/distributed.py``). A mesh of P ranks
+(``parallel.make_mesh(P)`` in a process group of P ranks, each rank
+running the same program) spreads that path over them. Factorization
+checks its quality eagerly, so there is no deferred verdict and no re-run
+of a solve.
 """
 
 from __future__ import annotations
@@ -72,8 +74,9 @@ class GPSolver:
     """Factorizes once, then supports repeated solves / posterior queries.
 
     ``mesh`` (a :class:`~.parallel.mesh.Mesh` from ``parallel.make_mesh``)
-    runs the mesh path with ``mesh_block``-row blocks; a mesh of one device
-    is the only one ported. ``auto_mesh`` (default on): with no ``mesh``,
+    runs the mesh path with ``mesh_block``-row blocks, on one device or
+    across the mesh's ranks (every rank builds the same problem on its own
+    device and calls this). ``auto_mesh`` (default on): with no ``mesh``,
     a problem whose largest Gram block has at least ``_AUTO_MESH_GRAM_ROWS``
     rows takes the mesh path on the problem's device, where the dense path
     would hold the Gram matrix, its f64 copy, the factor and the whitening

@@ -68,6 +68,24 @@
 // by the same bytes written as K1; the epilogue adds two scale loads a row
 // and a column per thread (cached) and one multiply per output.
 //
+// K2 on a rank's block-cyclic rows. Across P ranks, rank p holds the global
+// row blocks g = j * P + p of the factor (B rows each) as its slots j, so a
+// superblock window's rows on that rank are every P-th block of the window,
+// and each observable's segment falls into up to nbl pieces. A rank-mapped
+// plan keeps the window's segments in global coordinates and describes each
+// block's rows by their run of local rows: the rows a rank owns of any
+// global interval are one contiguous run of its local rows. The kernel
+// walks, evaluates and stores in local rows (the out view is the rank's
+// column panel) and maps a local row v back to its window row
+//
+//     w(v) = ((L0 + v) / B) * P * B + (L0 + v) % B + shift,
+//
+// (L0 the view's first local row, shift = p * B - c0), which picks the
+// row's point (x_row0 is the window row of the block's first point) and its
+// scale d_r[w], and places the unit diagonal where w equals the window
+// column. The map is a third instantiation (template flag kMap): K1 and the
+// unmapped K2 compile as before, w(v) = v.
+//
 // Measurement switches, for scripts/torch_k1_split.py only (the library is
 // never built with them): K1_SPLIT_NO_EVAL replaces the evaluation by a
 // coordinate difference, K1_SPLIT_NO_STORE drops the global stores.
@@ -105,7 +123,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = kTile / kThreadsY;  // rows per thread (8)
 constexpr int kCols = kTile / kThreadsX;  // columns per thread (2)
 
-constexpr int kBlockInts = 9;  // ints per block descriptor from the host
+constexpr int kBlockInts = 10;  // ints per block descriptor from the host
 constexpr int kMirror = 1;     // also write the transposed tile
 constexpr int kSymmetric = 2;  // same operator, same points: upper tiles only
 constexpr int kAligned = 4;    // set by the launcher: 16-byte vector stores fit
@@ -122,6 +140,7 @@ struct BlockDesc {
   int tile_start;        // first flat tile index of the block
   int tiles_n;           // tiles along the columns
   float inv_tiles_n;     // 1 / tiles_n
+  int x_row0;            // window row of the row points' first point (K2)
   unsigned char x_set, y_set, table, flags;
 };
 
@@ -141,6 +160,7 @@ struct Params {
   unsigned char term_start[kMaxTables + 1];
   int dim, n_sets, n_blocks;
   int n_tiles;  // tiles of all blocks together
+  int map_P, map_B, map_L0, map_shift;  // K2 on a rank's rows; map_P = 0: no map
   BlockDesc blk[kMaxBlocks];
 };
 
@@ -166,6 +186,15 @@ __device__ __forceinline__ float exp_neg(float q) {
 }
 
 __device__ __forceinline__ double exp_neg(double q) { return exp(-q); }
+
+// The window row of row v of the out view: v itself unless the plan is
+// mapped to a rank's block-cyclic rows (see the note at the top).
+template <bool kMap, typename T>
+__device__ __forceinline__ int window_row(const Params<T>& p, int v) {
+  if (!kMap) return v;
+  const int l = p.map_L0 + v;
+  return (l / p.map_B) * p.map_P * p.map_B + l % p.map_B + p.map_shift;
+}
 
 // Where one tile of the flat tile list lies.
 struct TileLoc {
@@ -218,7 +247,7 @@ using Coords = T[2][DIM][kTile];
 
 // Start the asynchronous copy (cp.async, no registers held) of a tile's
 // coordinates; the caller waits with cp_async_wait() and a barrier.
-template <typename T, int DIM>
+template <typename T, int DIM, bool kMap>
 __device__ __forceinline__ void fetch_coords(const Params<T>& p, const TileLoc& t,
                                              Coords<T, DIM>& c, int tid) {
   const BlockDesc& d = p.blk[t.blk];
@@ -227,8 +256,9 @@ __device__ __forceinline__ void fetch_coords(const Params<T>& p, const TileLoc& 
     const int side = e / (DIM * kTile), rem = e % (DIM * kTile);
     const int r = rem / DIM, k = rem % DIM;
     const T* src = p.pts[side ? d.y_set : d.x_set];
-    const int row = (side ? t.c0 : t.r0) + r;
+    int row = (side ? t.c0 : t.r0) + r;
     const bool valid = !t.fill && row < (side ? d.m : d.n);  // a fill block has no points
+    if (kMap && !side) row = window_row<kMap>(p, d.row_off + row) - d.x_row0;  // its point
     const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(&c[side][k][r]));
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
                  "l"(valid ? src + static_cast<int64_t>(row) * DIM + k : src),
@@ -352,8 +382,9 @@ __device__ __forceinline__ void eval_tile(const Params<T>& p, int table, const C
 
 // K2's epilogue on the thread's 16 outputs: scale by d_r[i] d_c[j], in the
 // order of the JAX package (the product of the scales first), and put an
-// exact 1 where i == j. Entries past the tile's edge are never stored.
-template <typename T>
+// exact 1 where i == j (i the row's window row). Entries past the tile's
+// edge are never stored.
+template <bool kMap, typename T>
 __device__ __forceinline__ void equilibrate(const Params<T>& p, const TileLoc& t,
                                             T (&val)[kRows][kCols]) {
   const BlockDesc& d = p.blk[t.blk];
@@ -367,10 +398,11 @@ __device__ __forceinline__ void equilibrate(const Params<T>& p, const TileLoc& t
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = threadIdx.y + i * kThreadsY;
-    const T dr = r < t.rows ? p.d_r[r0 + r] : T(0);
+    const int w = window_row<kMap>(p, r0 + r);
+    const T dr = r < t.rows ? p.d_r[w] : T(0);
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      val[i][j] = (r0 + r == c0 + static_cast<int>(threadIdx.x) + j * kThreadsX)
+      val[i][j] = (w == c0 + static_cast<int>(threadIdx.x) + j * kThreadsX)
                       ? T(1) : val[i][j] * (dr * dc[j]);
   }
 }
@@ -448,7 +480,8 @@ __device__ __forceinline__ void store_tile(const Params<T>& p, const TileLoc& t,
 // In f32 two CTAs fit on an SM (at most 128 registers a thread); in f64
 // the doubled registers would spill, so one. kEpi selects K2 (the
 // equilibrating epilogue and fill tiles); K1 is the instantiation without.
-template <typename T, int DIM, bool kEpi>
+// kMap (K2 only) maps the out view's rows to a rank's block-cyclic rows.
+template <typename T, int DIM, bool kEpi, bool kMap>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 gram_plan_kernel(const __grid_constant__ Params<T> p) {
   __shared__ T stage[kTile][kTile + 1];
@@ -458,7 +491,7 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
 
   int tile = static_cast<int>(blockIdx.x), buf = 0;
   TileLoc cur = locate(p, tile);
-  fetch_coords<T, DIM>(p, cur, coords[0], tid);
+  fetch_coords<T, DIM, kMap>(p, cur, coords[0], tid);
   for (;;) {
     // The barrier also orders the previous tile's stores (reads of the
     // stage) before this tile's writes to it.
@@ -469,7 +502,7 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
     TileLoc nxt = cur;
     if (more) {
       nxt = locate(p, next, cur.blk);
-      fetch_coords<T, DIM>(p, nxt, coords[buf ^ 1], tid);
+      fetch_coords<T, DIM, kMap>(p, nxt, coords[buf ^ 1], tid);
     }
     T val[kRows][kCols];
 #ifdef K1_SPLIT_NO_EVAL
@@ -489,7 +522,7 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
       eval_tile<T, DIM>(p, cur.table, coords[buf], val);
     }
 #endif
-    if (kEpi) equilibrate(p, cur, val);
+    if (kEpi) equilibrate<kMap>(p, cur, val);
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -507,16 +540,17 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
   }
 }
 
-// CTAs of gram_plan_kernel<T, DIM, kEpi> resident on one SM, times the SMs
-// of the current device: the persistent grid (queried once per process).
-template <typename T, int DIM, bool kEpi>
+// CTAs of gram_plan_kernel<T, DIM, kEpi, kMap> resident on one SM, times the
+// SMs of the current device: the persistent grid (queried once per process).
+template <typename T, int DIM, bool kEpi, bool kMap>
 int resident_ctas() {
   static int n = 0;
   if (n == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_plan_kernel<T, DIM, kEpi>,
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                      gram_plan_kernel<T, DIM, kEpi, kMap>,
                                                       kThreads, 0) != cudaSuccess)
       return 0;
     n = sms * per_sm;
@@ -524,21 +558,22 @@ int resident_ctas() {
   return n;
 }
 
-template <typename T, int DIM, bool kEpi>
+template <typename T, int DIM, bool kEpi, bool kMap>
 cudaError_t launch_dim(const Params<T>& p, cudaStream_t stream) {
-  const int ctas = resident_ctas<T, DIM, kEpi>();
+  const int ctas = resident_ctas<T, DIM, kEpi, kMap>();
   if (ctas <= 0) return cudaErrorInvalidConfiguration;
   const dim3 block(kThreadsX, kThreadsY);
-  gram_plan_kernel<T, DIM, kEpi><<<ctas < p.n_tiles ? ctas : p.n_tiles, block, 0, stream>>>(p);
+  gram_plan_kernel<T, DIM, kEpi, kMap>
+      <<<ctas < p.n_tiles ? ctas : p.n_tiles, block, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, bool kEpi>
+template <typename T, bool kEpi, bool kMap>
 cudaError_t launch_epi(const Params<T>& p, cudaStream_t stream) {
   switch (p.dim) {
-    case 1: return launch_dim<T, 1, kEpi>(p, stream);
-    case 2: return launch_dim<T, 2, kEpi>(p, stream);
-    case 3: return launch_dim<T, 3, kEpi>(p, stream);
+    case 1: return launch_dim<T, 1, kEpi, kMap>(p, stream);
+    case 2: return launch_dim<T, 2, kEpi, kMap>(p, stream);
+    case 3: return launch_dim<T, 3, kEpi, kMap>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -548,10 +583,17 @@ cudaError_t launch_epi(const Params<T>& p, cudaStream_t stream) {
 template <typename T>
 int pack(int dim, int n_sets, const int* blocks, int n_blocks, const double* inv_sq,
          const double* poly, const double* coef, const int* degs, const int* term_start,
-         int n_tables, Params<T>* out) {
+         int n_tables, const int* row_map, Params<T>* out) {
   Params<T> p = {};
   p.dim = dim;
   p.n_sets = n_sets;
+  // row_map: P, B, L0, shift of a rank-mapped K2 plan, all 0 without a map
+  if (row_map[0] < 0 || (row_map[0] > 0 && (row_map[1] < 1 || row_map[2] < 0)))
+    return cudaErrorInvalidValue;
+  p.map_P = row_map[0];
+  p.map_B = row_map[1];
+  p.map_L0 = row_map[2];
+  p.map_shift = row_map[3];
   for (int k = 0; k < dim; ++k) {
     p.inv_sq[k] = static_cast<T>(inv_sq[k]);
     for (int i = 0; i < kPolyLen; ++i)
@@ -577,7 +619,7 @@ int pack(int dim, int n_sets, const int* blocks, int n_blocks, const double* inv
   // The tile prefix sums are recomputed here and must match the plan's.
   long long tiles = 0;
   for (int b = 0; b < n_blocks; ++b) {
-    // row_off, col_off, n, m, x_set, y_set, table, flags, tile_start
+    // row_off, col_off, n, m, x_set, y_set, table, flags, x_row0, tile_start
     const int* e = blocks + kBlockInts * b;
     const int n = e[2], m = e[3], flags = e[7];
     const bool fill = flags & kFill;  // evaluates nothing: its sets and table are unused
@@ -585,7 +627,8 @@ int pack(int dim, int n_sets, const int* blocks, int n_blocks, const double* inv
         (!fill && (e[4] < 0 || e[4] >= n_sets || e[5] < 0 || e[5] >= n_sets ||
                    e[6] < 0 || e[6] >= n_tables)) ||
         (flags & ~(kMirror | kSymmetric | kFill)) || (fill && (flags & ~kFill)) ||
-        ((flags & kSymmetric) && n != m) || e[8] != tiles)
+        ((flags & kSymmetric) && n != m) || e[9] != tiles || e[8] < 0 ||
+        (p.map_P == 0 && e[8] != e[0]) || (p.map_P > 0 && (flags & kMirror)))
       return cudaErrorInvalidValue;
     BlockDesc& d = p.blk[b];
     d.row_off = e[0];
@@ -596,6 +639,7 @@ int pack(int dim, int n_sets, const int* blocks, int n_blocks, const double* inv
     d.y_set = static_cast<unsigned char>(e[5]);
     d.table = static_cast<unsigned char>(e[6]);
     d.flags = static_cast<unsigned char>(flags);
+    d.x_row0 = e[8];
     d.tile_start = static_cast<int>(tiles);
     const long long tm = (n + kTile - 1) / kTile, tn = (m + kTile - 1) / kTile;
     d.tiles_n = static_cast<int>(tn);
@@ -613,8 +657,9 @@ template <typename T>
 cudaError_t launch(const Params<T>& packed, void* out, long long ldo, const void* d_r,
                    const void* d_c, const void* const* pts, int n_sets, cudaStream_t stream) {
   if (n_sets != packed.n_sets || (d_r == nullptr) != (d_c == nullptr)) return cudaErrorInvalidValue;
-  if (packed.n_tiles == 0) return cudaSuccess;
   const bool epi = d_r != nullptr;
+  if (!epi && packed.map_P) return cudaErrorInvalidValue;  // the row map is K2's
+  if (packed.n_tiles == 0) return cudaSuccess;
   Params<T> p = packed;
   p.out = static_cast<T*>(out);
   p.ldo = ldo;
@@ -629,7 +674,8 @@ cudaError_t launch(const Params<T>& packed, void* out, long long ldo, const void
     if (epi ? (d.flags & (kMirror | kSymmetric)) : (d.flags & kFill)) return cudaErrorInvalidValue;
     if (aligned && d.row_off % kVec == 0 && d.col_off % kVec == 0) d.flags |= kAligned;
   }
-  return epi ? launch_epi<T, true>(p, stream) : launch_epi<T, false>(p, stream);
+  if (!epi) return launch_epi<T, false, false>(p, stream);
+  return p.map_P ? launch_epi<T, true, true>(p, stream) : launch_epi<T, true, false>(p, stream);
 }
 
 }  // namespace
@@ -637,10 +683,12 @@ cudaError_t launch(const Params<T>& packed, void* out, long long ldo, const void
 // C interface bound with ctypes by ops/gram_tile.py.
 //
 // gram_plan_pack fills the parameters of one plan (gram_plan_params_size()
-// bytes at `params`, kept by the caller) from: blocks, 9 ints per block
-// (row_off, col_off, n, m, x_set, y_set, table, flags, tile_start), none of
-// them empty, flags a mix of 1 (mirror), 2 (symmetric) and 8 (fill, alone:
-// a K2 block of padding, whose sets and table are not read); the term
+// bytes at `params`, kept by the caller) from: blocks, 10 ints per block
+// (row_off, col_off, n, m, x_set, y_set, table, flags, x_row0, tile_start),
+// none of them empty, flags a mix of 1 (mirror), 2 (symmetric) and 8 (fill,
+// alone: a K2 block of padding, whose sets and table are not read), x_row0
+// equal to row_off unless the plan is mapped; row_map, 4 ints (P, B, L0,
+// shift) of a K2 plan on a rank's block-cyclic rows, or 4 zeros; the term
 // tables, table i owning terms term_start[i] ..
 // term_start[i + 1] - 1, each with its coefficient coef[t] and dim degrees
 // degs[t * dim + k]; inv_sq; and poly, dim x 45 Horner coefficients (see
@@ -653,15 +701,17 @@ extern "C" int gram_plan_params_size(int is_double) {
 extern "C" int gram_plan_pack(int is_double, int dim, int n_sets, const int* blocks,
                               int n_blocks, const double* inv_sq, const double* poly,
                               const double* coef, const int* degs, const int* term_start,
-                              int n_tables, void* params) {
+                              int n_tables, const int* row_map, void* params) {
   if (dim < 1 || dim > kMaxDim || n_sets < 1 || n_sets > kMaxSets || n_blocks < 0 ||
       n_blocks > kMaxBlocks || n_tables < 1 || n_tables > kMaxTables ||
       term_start[n_tables] > kMaxPlanTerms)
     return static_cast<int>(cudaErrorInvalidValue);
   return is_double ? pack<double>(dim, n_sets, blocks, n_blocks, inv_sq, poly, coef, degs,
-                                  term_start, n_tables, static_cast<Params<double>*>(params))
+                                  term_start, n_tables, row_map,
+                                  static_cast<Params<double>*>(params))
                    : pack<float>(dim, n_sets, blocks, n_blocks, inv_sq, poly, coef, degs,
-                                 term_start, n_tables, static_cast<Params<float>*>(params));
+                                 term_start, n_tables, row_map,
+                                 static_cast<Params<float>*>(params));
 }
 
 // gram_plan_launch makes one launch of a packed plan: each point set pts[s]

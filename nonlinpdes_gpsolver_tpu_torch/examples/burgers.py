@@ -16,7 +16,7 @@ from .. import GPSolver, models
 from ..utils.classical import burgers_cole_hopf_truth
 from ..utils.config import SolverConfig, add_config_args, build_kernel, config_from_args, runtime
 from ..workloads import BURGERS_DOMAIN, burgers_g, burgers_test
-from ._cli import add_solve_args, sample_points, solver_mesh_args
+from ._cli import add_solve_args, mesh_setup, sample_points
 
 
 def main(argv=None):
@@ -33,6 +33,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     device, dtype = runtime(cfg)
+    device, mesh_kw = mesh_setup(args, device)
 
     Xd, Xb = sample_points(cfg, device, dtype, BURGERS_DOMAIN, time_dependent=True)
     prob = models.burgers(
@@ -40,7 +41,7 @@ def main(argv=None):
         init=cfg.initial, seed=cfg.seed,
     )
     solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
-                      **solver_mesh_args(args, device))
+                      **mesh_kw)
     res = solver.solve(max_iter=cfg.GNsteps, step_size=cfg.step_size,
                        step_solver=args.step_solver, tol=args.tol)
     print(f"[GN] losses: {res.losses}")

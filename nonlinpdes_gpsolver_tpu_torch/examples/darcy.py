@@ -18,7 +18,7 @@ import torch
 from .. import GPSolver, models
 from ..utils.config import SolverConfig, add_config_args, build_kernel, config_from_args, runtime
 from ..workloads import darcy_observations, darcy_test, darcy_truth
-from ._cli import add_solve_args, sample_points, solver_mesh_args
+from ._cli import add_solve_args, mesh_setup, sample_points
 
 
 def main(argv=None):
@@ -33,6 +33,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     device, dtype = runtime(cfg)
+    device, mesh_kw = mesh_setup(args, device)
 
     truth = darcy_truth()  # the FD solve on the 80x80 grid (boundary ring included)
     Xd, Xb = sample_points(cfg, device, dtype)
@@ -44,7 +45,7 @@ def main(argv=None):
         noise_level=args.noise_level, init=cfg.initial, seed=cfg.seed,
     )
     solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
-                      **solver_mesh_args(args, device))
+                      **mesh_kw)
     res = solver.solve(max_iter=cfg.GNsteps, step_size=cfg.step_size,
                        step_solver=args.step_solver, tol=args.tol)
     print(f"[GN] losses: {res.losses}")

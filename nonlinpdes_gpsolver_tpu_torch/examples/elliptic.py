@@ -15,7 +15,7 @@ from .. import GPSolver, models
 from ..utils.config import SolverConfig, add_config_args, build_kernel, config_from_args, runtime
 from ..utils.sampling import test_grid
 from ..workloads import elliptic_rhs, u_elliptic
-from ._cli import add_solve_args, sample_points, solver_mesh_args
+from ._cli import add_solve_args, mesh_setup, sample_points
 
 
 def main(argv=None):
@@ -29,6 +29,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     device, dtype = runtime(cfg)
+    device, mesh_kw = mesh_setup(args, device)
 
     Xd, Xb = sample_points(cfg, device, dtype)
     relaxed = cfg.method == "relaxation"
@@ -39,7 +40,7 @@ def main(argv=None):
         alpha=args.alpha, m=args.m, init=cfg.initial, seed=cfg.seed, **extra,
     )
     solver = GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
-                      **solver_mesh_args(args, device))
+                      **mesh_kw)
     res = solver.solve(max_iter=cfg.GNsteps, step_size=cfg.step_size,
                        step_solver=args.step_solver, tol=args.tol)
     print(f"[GN] losses: {res.losses}")

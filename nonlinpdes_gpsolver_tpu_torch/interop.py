@@ -27,8 +27,9 @@ package; the tests hold the saved files to a fresh draw.
 
 A factorization is state too: :func:`factor_from_numpy` takes the JAX
 package's mesh-path factor (a ``BlockCyclicFactor``'s arrays as numpy, and
-its column scales) and returns the port's, so that the port's Gauss-Newton
-steps and posterior can run on a factor the JAX package computed.
+its column scales) and returns the port's, dealt to the ranks of the
+port's mesh, so that the port's Gauss-Newton steps and posterior can run on
+a factor the JAX package computed.
 """
 
 from __future__ import annotations
@@ -136,15 +137,18 @@ def eikonal_from_numpy(X_domain, X_boundary, f, g, z0, inv_sq, eps=0.1,
 def factor_from_numpy(local: np.ndarray, diag_inv: np.ndarray, block: int, n: int, n_pad: int,
                       d_isqrt: np.ndarray, n_devices: int = 1, mesh: Mesh | None = None,
                       dtype: torch.dtype | None = None):
-    """``(factor, col_scales)``: the port's :class:`~.parallel.cholesky.
+    """``(factor, col_scales)``: this rank's :class:`~.parallel.cholesky.
     BlockCyclicFactor` and ``d^{-1/2}`` from the JAX package's factor.
 
-    ``local`` is the JAX factor's ``(nb, B, n_pad)`` array as numpy, in the
-    block-cyclic order of the ``n_devices``-device mesh it was computed on
-    (put back in natural row order here), ``diag_inv`` its ``(nb, B, B)``
-    diagonal-block inverses and ``d_isqrt`` the column scales returned with
-    it. The factor lands on ``mesh`` (default: a one-device mesh on the
-    card) in ``dtype`` (the device's default).
+    ``local`` is the JAX factor's global ``(nb, B, n_pad)`` array as numpy,
+    in the block-cyclic order of the ``n_devices``-device mesh it was
+    computed on (device p's slots at ``p nbl .. (p + 1) nbl``), put back in
+    natural row order here and dealt to the ranks of ``mesh``: rank p takes
+    global blocks ``p, p + P, ...`` (the same slots, when the two meshes have
+    the same size). ``diag_inv`` holds its ``(nb, B, B)`` diagonal-block
+    inverses and ``d_isqrt`` the column scales returned with it, both
+    replicated. The factor lands on ``mesh`` (default: a one-device mesh on
+    the card) in ``dtype`` (the device's default).
     """
     mesh = make_mesh(1) if mesh is None else mesh
     t = _converter(mesh.device, dtype)
@@ -152,8 +156,11 @@ def factor_from_numpy(local: np.ndarray, diag_inv: np.ndarray, block: int, n: in
     if local.shape != (nb, block, n_pad) or nb * block != n_pad or diag_inv.shape != (nb, block, block):
         raise ValueError(f"local {local.shape} and diag_inv {diag_inv.shape} do not match "
                          f"block {block}, n_pad {n_pad}")
+    if nb % mesh.size:
+        raise ValueError(f"{nb} blocks do not deal to {mesh.size} ranks")
     natural = np.asarray(local)[np.argsort(_block_perm(nb, n_devices))]
-    factor = BlockCyclicFactor(t(natural), mesh, mesh.axis, int(block), int(n), int(n_pad),
+    mine = natural[mesh.rank :: mesh.size]
+    factor = BlockCyclicFactor(t(mine), mesh, mesh.axis, int(block), int(n), int(n_pad),
                                t(diag_inv))
     return factor, t(d_isqrt)
 

@@ -23,7 +23,10 @@ an *equilibrated* plan (``equilibrated=True``, built by
 fill blocks for the padding, and runs through
 :meth:`GramPlan.run_equilibrated`, which writes
 ``1 if i == j else d_r[i] d_c[j] K[i, j]`` into an output view that starts
-on the matrix's diagonal.
+on the matrix's diagonal. A *rank-mapped* K2 plan (``row_map``) writes only
+the rows that one rank of a P-rank mesh owns in the block-cyclic layout,
+into that rank's local rows (``csrc/gram_tile.cu``, "K2 on a rank's
+block-cyclic rows").
 
 Which version runs depends only on where the tensors lie: for CPU tensors
 :meth:`GramPlan.run` walks the blocks with the plain version
@@ -53,7 +56,7 @@ from .operators import LinearOp
 # against the built library when it is loaded.
 _LIMITS = dict(
     dim=3, degree=8, terms=64, plan_terms=128, sets=8, blocks=36, tables=36,
-    tile=64, block_ints=9,
+    tile=64, block_ints=10,
 )
 MAX_DIM = _LIMITS["dim"]
 MAX_DEGREE = _LIMITS["degree"]
@@ -143,6 +146,7 @@ class PlanBlock:
     symmetric: bool  # same operator and points on the diagonal: upper tiles only
     tile_start: int  # first flat tile index of the block in the launch grid
     fill: bool = False  # K2 padding: zeros (and the unit diagonal), no points
+    x_row0: int = 0  # window row of the row set's first point (row_off unless row-mapped)
 
     @property
     def tiles(self) -> int:
@@ -160,10 +164,17 @@ class GramPlan:
     ``equilibrated=True`` makes it a K2 plan: no block is mirrored or
     computed as symmetric, ``fills`` lists ``(row_off, col_off, n, m)``
     blocks of padding, and it runs through :meth:`run_equilibrated`.
+
+    ``row_map = (P, B, L0, shift, d_rows)`` makes a K2 plan rank-mapped: its
+    rows are local rows of one rank's shard, local row ``v`` of the output
+    is window row ``((L0 + v) // B) * P * B + (L0 + v) % B + shift``
+    (:meth:`window_rows`), and each entry carries two more fields, its row
+    count and ``x_row0``, the window row of its row set's first point; the
+    row scales ``d_r`` hold one scale per window row (``d_rows`` of them).
     """
 
     def __init__(self, kernel: SquaredExponential, entries, set_sizes, shape, set_keys=(),
-                 fills=(), equilibrated: bool = False):
+                 fills=(), equilibrated: bool = False, row_map=None):
         self.kernel = kernel
         self.set_keys = tuple(set_keys)  # the points dict's key of each training set
         self.set_sizes = tuple(int(s) for s in set_sizes)
@@ -174,9 +185,16 @@ class GramPlan:
             raise ValueError(f"a plan takes at most {_LIMITS['sets']} point sets")
         if fills and not self.equilibrated:
             raise ValueError("fill blocks belong to equilibrated (K2) plans")
+        if row_map is not None and not self.equilibrated:
+            raise ValueError("a row map belongs to equilibrated (K2) plans")
+        self.row_map = None if row_map is None else tuple(int(v) for v in row_map[:4])
+        self.d_rows = self.shape[0] if row_map is None else int(row_map[4])
         table_of, self.pairs, blocks, tiles = {}, [], [], 0
-        for op_x, op_y, xs, ys, row_off, col_off, mirror in entries:
+        for op_x, op_y, xs, ys, row_off, col_off, mirror, *mapped in entries:
             n, m = self.set_sizes[xs], self.set_sizes[ys]
+            x_row0 = row_off
+            if self.row_map is not None:
+                n, x_row0 = mapped
             key = (op_x.terms, op_y.terms)
             if key not in table_of:
                 table_of[key] = len(self.pairs)
@@ -193,13 +211,14 @@ class GramPlan:
                     or (mirror and (col_off + m > self.shape[0] or row_off + n > self.shape[1]))):
                 raise ValueError(f"block at ({row_off}, {col_off}) lies outside {self.shape}")
             blk = PlanBlock(row_off, col_off, n, m, xs, ys, table_of[key], bool(mirror),
-                            symmetric, tiles)
+                            symmetric, tiles, x_row0=x_row0)
             blocks.append(blk)
             tiles += blk.tiles
         for row_off, col_off, n, m in fills:
             if n < 1 or m < 1 or row_off + n > self.shape[0] or col_off + m > self.shape[1]:
                 raise ValueError(f"fill block ({row_off}, {col_off}, {n}, {m}) outside {self.shape}")
-            blk = PlanBlock(row_off, col_off, n, m, 0, 0, 0, False, False, tiles, fill=True)
+            blk = PlanBlock(row_off, col_off, n, m, 0, 0, 0, False, False, tiles, fill=True,
+                            x_row0=row_off)
             blocks.append(blk)
             tiles += blk.tiles
         self.blocks = tuple(blocks)
@@ -245,10 +264,12 @@ class GramPlan:
             term_start=np.asarray(term_start, np.int32),
             blocks=np.asarray(
                 [[b.row_off, b.col_off, b.n, b.m, b.x_set, b.y_set, b.table,
-                  _MIRROR * b.mirror + _SYMMETRIC * b.symmetric + _FILL * b.fill, b.tile_start]
+                  _MIRROR * b.mirror + _SYMMETRIC * b.symmetric + _FILL * b.fill, b.x_row0,
+                  b.tile_start]
                  for b in self.blocks] or np.zeros((0, _LIMITS["block_ints"])),
                 np.int32,
             ),
+            row_map=np.asarray(self.row_map or (0, 0, 0, 0), np.int32),
         )
         self._params = {}  # the kernel's packed parameters, per dtype
 
@@ -261,7 +282,7 @@ class GramPlan:
             err = lib.gram_plan_pack(
                 is_double, self.kernel.dim, len(self.set_sizes), a["blocks"], len(self.blocks),
                 a["inv_sq"], a["poly"], a["coef"], a["degs"], a["term_start"],
-                len(self.tables), params,
+                len(self.tables), a["row_map"], params,
             )
             if err != 0:
                 raise RuntimeError(f"gram_tile kernel refused the plan: CUDA error {err}")
@@ -335,7 +356,7 @@ class GramPlan:
             raise ValueError("run_equilibrated needs an equilibrated (K2) plan")
         out = self._checked_out(sets, out)
         ref = sets[0]
-        for v, size in ((d_r, self.shape[0]), (d_c, self.shape[1])):
+        for v, size in ((d_r, self.d_rows), (d_c, self.shape[1])):
             if (v.shape != (size,) or v.dtype != ref.dtype or v.get_device() != ref.get_device()
                     or not v.is_contiguous()):
                 raise ValueError(
@@ -350,11 +371,30 @@ class GramPlan:
             raise ValueError(f"no Gram tile implementation for device {ref.device}")
         return out
 
+    def window_rows(self, device=None) -> torch.Tensor:
+        """The window row of each output row: the output's rows unless the
+        plan is rank-mapped."""
+        v = torch.arange(self.shape[0], device=device)
+        if self.row_map is None:
+            return v
+        P, B, L0, shift = self.row_map
+        return ((L0 + v) // B) * P * B + (L0 + v) % B + shift
+
     def _plain_equilibrated(self, sets, d_r, d_c, out):
-        """K2's plain version: :meth:`_plain`, the scaling, the unit diagonal."""
-        self._plain(sets, out)
-        out.mul_(d_r[:, None] * d_c[None, :])
-        out.diagonal().fill_(1.0)
+        """K2's plain version: the blocks one by one (each row's point picked
+        by its window row), the scaling, the unit diagonal."""
+        w = self.window_rows(out.device)
+        for b in self.blocks:
+            rows, cols = slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m)
+            if b.fill:
+                out[rows, cols] = 0.0
+                continue
+            op_x, op_y = self.pairs[b.table]
+            out[rows, cols] = self.kernel.pair_fn(op_x, op_y)(sets[b.x_set][w[rows] - b.x_row0],
+                                                              sets[b.y_set])
+        out.mul_(d_r[w][:, None] * d_c[None, :])
+        on = w < self.shape[1]
+        out[torch.nonzero(on)[:, 0], w[on]] = 1.0
 
     def _plain(self, sets, out):
         """The kernel's plain version: the blocks one by one."""
@@ -458,7 +498,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.gram_plan_pack.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.gram_plan_pack.restype = ctypes.c_int
     lib.gram_plan_launch.argtypes = [

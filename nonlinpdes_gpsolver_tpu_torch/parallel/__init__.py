@@ -1,4 +1,5 @@
-from .mesh import Mesh, make_mesh, device_count
+from . import comm
+from .mesh import Mesh, make_mesh, device_count, initialize_distributed
 from .cholesky import (
     BlockCyclicFactor,
     cholesky_blockcyclic,
@@ -16,6 +17,8 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "device_count",
+    "initialize_distributed",
+    "comm",
     "BlockCyclicFactor",
     "cholesky_blockcyclic",
     "trsm_blockcyclic",

@@ -1,4 +1,4 @@
-"""The equilibrated Gram matrix of the mesh path, assembled in one K2 launch.
+"""The equilibrated Gram matrix of the mesh path, assembled by one K2 launch a rank.
 
 Counterpart of ``nonlinpdes_gpsolver_tpu/parallel/gram.py``. Two facts of a
 stationary kernel make the mesh path's equilibration cheap: the diagonal of
@@ -9,10 +9,12 @@ column segments of a strip are contiguous per observable.
 
 :func:`assemble_gram_sharded` is the two-pass path's assembly, kept as the
 reference of the fused factorization (``tests/test_torch_fused.py``, as
-``tests/test_fused.py`` holds the JAX package's): the whole padded,
-equilibrated, regularized matrix ``D^{-1/2} (Theta + s nug) D^{-1/2}``, unit
-diagonal and identity tail included, in one K2 launch over the
-``(n_pad, n_pad)`` window.
+``tests/test_fused.py`` holds the JAX package's): the padded, equilibrated,
+regularized matrix ``D^{-1/2} (Theta + s nug) D^{-1/2}``, unit diagonal and
+identity tail included, in one K2 launch over the ``(n_pad, n_pad)``
+window; across ranks each rank's launch writes only its own block-cyclic
+rows (a rank-mapped plan), as the JAX package's ``shard_map`` body does
+(``:56-123``).
 """
 
 from __future__ import annotations
@@ -89,10 +91,10 @@ def window_sets(plan, points):
 def assemble_gram_sharded(kernel, observables, points, mesh: Mesh, axis: str = "p",
                           block: int = 256, nugget: float = 1e-10,
                           nugget_type: str = "adaptive", nugget_scale: float = 1.0):
-    """The equilibrated regularized Gram matrix in the ``(nb, B, n_pad)``
-    layout, and ``d^{-1/2}`` (``:248``): one K2 launch writes
-    ``1 if i == j else d_i d_j Theta_ij`` over the whole padded matrix,
-    the identity tail included."""
+    """This rank's ``(nbl, B, n_pad)`` shard of the equilibrated regularized
+    Gram matrix, and ``d^{-1/2}`` (``:248``): one K2 launch writes
+    ``1 if i == j else d_i d_j Theta_ij`` over the rank's rows of the padded
+    matrix, the identity tail included."""
     from .fused import window_plan
 
     observables = tuple(observables)
@@ -104,7 +106,7 @@ def assemble_gram_sharded(kernel, observables, points, mesh: Mesh, axis: str = "
     n_pad = pad_to_blocks(n, block, mesh.size)
     d_pad = torch.cat([d_isqrt, d_isqrt.new_ones(n_pad - n)])
     plan = window_plan(kernel, observables, observable_sizes(observables, points), 0, n_pad,
-                       n_pad)
-    out = torch.empty((n_pad, n_pad), dtype=ref.dtype, device=mesh.device)
+                       n_pad, mesh.size, mesh.rank, block)
+    out = torch.empty(plan.shape, dtype=ref.dtype, device=mesh.device)
     plan.run_equilibrated(window_sets(plan, points), d_pad, d_pad, out=out)
-    return out.view(n_pad // block, block, n_pad), d_isqrt
+    return out.view(-1, block, n_pad), d_isqrt

@@ -1,4 +1,4 @@
-"""The mesh path at P = 1: fused factorization, Gauss-Newton and posterior.
+"""The mesh path across P ranks: fused factorization, Gauss-Newton and posterior.
 
 Counterpart of ``nonlinpdes_gpsolver_tpu/solvers/distributed.py``, the path
 past the dense wall. Per GP block, :func:`factorize_distributed` builds the
@@ -10,14 +10,22 @@ whitened Gauss-Newton loop with the mesh path's five step solvers and its
 guards, and :class:`DistributedPosterior` extends the solution.
 
 The JAX package runs the whole loop as one ``shard_map``'d ``lax.scan``;
-here it is a Python loop over eager tensor ops on the one device, and the
-triangular solves against the ``(n_pad, n_pad)`` factor are
-``torch.linalg.solve_triangular`` (``parallel/cholesky.py``). The steps
-(``:516-1008``):
+here every rank runs the same Python loop over eager tensor ops, on its own
+device with its own rows of each factor. Latent-sized quantities (``z``,
+the gradient, the Krylov vectors) are replicated and computed on every rank;
+the factor's solves (``parallel/cholesky.py``: ``solve_triangular`` at
+P = 1, the panel loops across ranks) and the panels that are sharded by
+column bring the ranks together. Every host read that decides control flow
+(the CG exit test, the damped update's loss tests, the GN loop's guards,
+the routing and the probes) is agreed across the ranks first
+(``parallel/comm.py::agree``), so that no rank leaves a loop another stays
+in. The steps (``:516-1008``):
 
-* ``'structured'``/``'direct'``: the whitened Jacobian panel (raw columns
-  from per-slice residual diagonals, or the full ``jacfwd``), ``J^T J`` and
-  one SPD solve;
+* ``'structured'``/``'direct'``: the whitened Jacobian panel, sharded by
+  column (each rank its ``ceil(m/P)`` raw columns, from per-slice residual
+  diagonals or JVPs of its basis vectors, whitened by the column-sharded
+  solve), ``J^T J`` accumulated around the ``ppermute`` ring and gathered,
+  and one SPD solve;
 * ``'cg'``: matrix-free CG on ``J^T J`` (one batched JVP, kernel solve and
   VJP an iteration), with the misfit Jacobi preconditioner, or the
   spectral deflation where it is on;
@@ -26,7 +34,8 @@ triangular solves against the ``(n_pad, n_pad)`` factor are
   deflation preconditioner (or a Levenberg floor without it) and the warm
   start from the previous step's solutions;
 * ``'normal'``: the exact normal matrix from the interior block of the
-  kernel inverse, computed once per factorization.
+  kernel inverse, computed once per factorization by column-sharded kernel
+  solves and one ``all_gather``.
 
 Every step goes through the damped update (``:898-944``): a step that is
 non-finite or more than doubles the loss is halved up to four times and the
@@ -45,17 +54,17 @@ import torch
 
 from ..models.spec import CollocationProblem
 from ..ops.linalg import spd_inverse, spd_solve
+from ..parallel import comm
 from ..parallel.cholesky import (
     BlockCyclicFactor,
     _chol_sharded,
-    _padded,
     kernel_solve_blockcyclic,
     matvec_blockcyclic,
     trsm_blockcyclic,
 )
 from ..parallel.fused import assemble_factor_fused, sampled_row_quality
 from ..parallel.gram import assemble_gram_sharded
-from ..parallel.mesh import Mesh, check_one_device
+from ..parallel.mesh import Mesh
 from .gn import (
     QUALITY_TOL,
     GNState,
@@ -94,24 +103,36 @@ class DistributedFactoredProblem:
     quality: Dict[str, float]
     stats: Dict[str, dict]
 
+    @property
+    def mesh(self) -> Mesh:
+        return next(iter(self.factors.values())).mesh
+
+    def agree(self, value, op: str):
+        """A host read made the same on every rank (``comm.agree``)."""
+        return comm.agree(self.mesh, value, op)
+
     def _scale(self, name: str, v: torch.Tensor) -> torch.Tensor:
         s = self.col_scales[name]
         return v * (s if v.dim() == 1 else s[:, None])
 
-    def whiten(self, name: str, v: torch.Tensor) -> torch.Tensor:
-        """``L~^{-1} D^{-1/2} v`` (a vector or columns)."""
-        return trsm_blockcyclic(self.factors[name], self._scale(name, v))
+    def whiten(self, name: str, v: torch.Tensor, shard_cols: bool = False) -> torch.Tensor:
+        """``L~^{-1} D^{-1/2} v`` (a vector or columns; with ``shard_cols``,
+        this rank's own columns)."""
+        return trsm_blockcyclic(self.factors[name], self._scale(name, v), shard_cols=shard_cols)
 
-    def kernel_solve(self, name: str, v: torch.Tensor) -> torch.Tensor:
+    def kernel_solve(self, name: str, v: torch.Tensor, shard_cols: bool = False) -> torch.Tensor:
         """``Theta^{-1} v`` through the equilibrated factor."""
-        return self._scale(name, kernel_solve_blockcyclic(self.factors[name], self._scale(name, v)))
+        return self._scale(name, kernel_solve_blockcyclic(self.factors[name], self._scale(name, v),
+                                                          shard_cols=shard_cols))
 
     def theta_apply(self, name: str, V: torch.Tensor) -> torch.Tensor:
         """``Theta_reg V = D^{1/2} L~ L~^T D^{1/2} V`` by two triangular
-        products (``_theta_apply_mat``, ``:474``)."""
+        products (``_theta_apply_mat``, ``:474``): across ranks a ``psum``
+        and the re-interleaving ``all_gather``."""
         fac, s = self.factors[name], self.col_scales[name][:, None]
-        L = fac.matrix
-        return (L @ (L.T @ _padded(V / s, fac.n_pad)))[: fac.n] / s
+        layout = (fac.local, fac.mesh, fac.axis, fac.block)
+        LtV = matvec_blockcyclic(*layout, V / s, trans=True)
+        return matvec_blockcyclic(*layout, LtV, n=fac.n) / s
 
     def whitened_residual(self, z: torch.Tensor, misfits: bool = True) -> torch.Tensor:
         """``r(z)``: the whitened block residuals, then (with ``misfits``)
@@ -154,7 +175,6 @@ def factorize_distributed(
     (``guard=False``: one attempt, no probe). The escalation starts at
     ``max(1, 4 eps / nugget)`` or the block's ``start_scales`` entry.
     """
-    check_one_device(mesh)
     if problem.device != mesh.device:
         raise ValueError(f"the problem lies on {problem.device}, the mesh on {mesh.device}")
     quality_tol = QUALITY_TOL if quality_tol is None else quality_tol
@@ -190,7 +210,7 @@ def factorize_distributed(
                     nugget=nugget, nugget_type=nugget_type, nugget_scale=s,
                 )
                 attempts += 1
-                n_pad = arranged.shape[0] * block
+                n_pad = arranged.shape[2]
                 if guard:  # against the matrix, before the factorization overwrites it
                     v = _probe_vec(n_pad, arranged.dtype, arranged.device)
                     y = matvec_blockcyclic(arranged, mesh, axis, block, v, n=n_pad)
@@ -203,7 +223,8 @@ def factorize_distributed(
                     lower, mesh, axis, block,
                     matvec_blockcyclic(lower, mesh, axis, block, v, trans=True, n=n_pad), n=n_pad,
                 )
-                q = float(torch.max(torch.abs(w - y)) / torch.max(torch.abs(y)))
+                q = comm.agree(mesh, float(torch.max(torch.abs(w - y)) / torch.max(torch.abs(y))),
+                               "max")
             if math.isfinite(q) and q < quality_tol:
                 break
             s *= 10.0  # finite but corrupt: escalate anyway
@@ -322,7 +343,7 @@ def _deflated_precond(op, g, V):
     return M
 
 
-def _cg_delta(fp, z, V_defl, hessian_jitter, cg_tol, cg_maxiter):
+def _cg_delta(fp, z, V_defl, hessian_jitter, cg_tol, cg_maxiter, exit_agree):
     """The ``'cg'`` step (``:660``): matrix-free CG on ``J^T J``;
     preconditioned by the deflation when ``V_defl`` is given, else by the
     misfits' Jacobi diagonal (none without misfits)."""
@@ -346,11 +367,11 @@ def _cg_delta(fp, z, V_defl, hessian_jitter, cg_tol, cg_maxiter):
     M = _deflated_precond(normal_op, g, V_defl) if V_defl is not None else (
         _misfit_jacobi_precond(p, z)
     )
-    X, iters = _batched_cg(normal_op, g[:, None], cg_tol, cg_maxiter, M=M)
+    X, iters = _batched_cg(normal_op, g[:, None], cg_tol, cg_maxiter, M=M, exit_agree=exit_agree)
     return X[:, 0], iters
 
 
-def _woodbury_delta(fp, z, X0, V_defl, hessian_jitter, cg_tol, cg_maxiter):
+def _woodbury_delta(fp, z, X0, V_defl, hessian_jitter, cg_tol, cg_maxiter, exit_agree):
     """The ``'woodbury'`` step (``:712``): batched CG on the misfit-free
     operator ``H0`` against ``[g, U]``, warm-started from ``X0`` (the
     previous step's solutions, or zero), then the rank-K correction.
@@ -379,7 +400,8 @@ def _woodbury_delta(fp, z, X0, V_defl, hessian_jitter, cg_tol, cg_maxiter):
             return H0(V) + lam * V
 
     U, wvec, _ = _woodbury_pieces(fp.problem, z)
-    X, iters = _batched_cg(Hop, torch.cat([g[:, None], U], dim=1), cg_tol, cg_maxiter, M=M, X0=X0)
+    X, iters = _batched_cg(Hop, torch.cat([g[:, None], U], dim=1), cg_tol, cg_maxiter, M=M, X0=X0,
+                           exit_agree=exit_agree)
     X = torch.where(torch.isfinite(X).all(), X, torch.zeros_like(X))
     return _woodbury_correct(X, U, wvec, hessian_jitter), iters, X
 
@@ -387,16 +409,23 @@ def _woodbury_delta(fp, z, X0, V_defl, hessian_jitter, cg_tol, cg_maxiter):
 def _normal_state(fp: DistributedFactoredProblem, structure):
     """Per block the ``(s, N, s, N)`` interior block of the regularized
     kernel inverse, ``Theta^{-1}[int, int]`` (``_kernel_inverse_int``,
-    ``:415``), by kernel solves on its identity columns; computed once."""
+    ``:415``), by kernel solves on its identity columns, each rank solving
+    its ``ceil(sN/P)`` of them (column-sharded), then one ``all_gather``;
+    computed once."""
     _, N, seginfo = structure
+    mesh, dev = fp.mesh, fp.problem.device
     ainvs = []
     for b, segs in zip(fp.problem.blocks, seginfo):
         live = [off for off, sz in segs if sz == N]
-        dev = fp.problem.device
         rows = torch.cat([off + torch.arange(N, device=dev) for off in live])
-        E = torch.zeros((fp.factors[b.name].n, len(live) * N), dtype=fp.problem.dtype, device=dev)
-        E[rows, torch.arange(rows.shape[0], device=dev)] = 1.0
-        A = fp.kernel_solve(b.name, E)[rows]
+        width = rows.shape[0]
+        wloc = -(-width // mesh.size)
+        cols = mesh.rank * wloc + torch.arange(wloc, device=dev)
+        mine = cols < width
+        E = torch.zeros((fp.factors[b.name].n, wloc), dtype=fp.problem.dtype, device=dev)
+        E[rows[cols[mine]], torch.nonzero(mine)[:, 0]] = 1.0
+        A = fp.kernel_solve(b.name, E, shard_cols=True)[rows]  # (sN, wloc): my columns
+        A = comm.all_gather(mesh, A).permute(1, 0, 2).reshape(width, -1)[:, :width]
         ainvs.append(A.reshape(len(live), N, len(live), N))
     return ainvs
 
@@ -427,43 +456,77 @@ def _normal_delta(fp, z, structure, ainvs, hessian_jitter):
 
 def _panel_delta(fp, z, structure, hessian_jitter):
     """The ``'direct'`` (``structure=None``) and ``'structured'`` steps
-    (``_panel_kernel``, ``:321``): the whitened Jacobian panel from the raw
-    Jacobian columns (``jacfwd``, or per-slice diagonals), ``J^T J`` and one
-    SPD solve. The ring of ``ppermute``s is trivial at P = 1."""
-    p = fp.problem
+    (``_panel_kernel``, ``:321``). Each rank builds the whitened Jacobian
+    panel of its ``mloc = ceil(m/P)`` latent columns (raw columns from JVPs
+    of its basis vectors, or from per-slice diagonals; zero past ``m``),
+    whitened by the column-sharded solve, and its slice of ``J^T r``. A
+    ``ppermute`` ring passes the panels around, each rank filling its
+    ``(P mloc, mloc)`` column block of ``J^T J``: the ``n x m`` panel is
+    never whole on one rank. One ``all_gather`` makes ``J^T J`` and the
+    gradient whole, and every rank does the same SPD solve."""
+    p, mesh = fp.problem, fp.mesh
+    P_, rank = mesh.size, mesh.rank
+    m = p.latent_dim
+    mloc = -(-m // P_)
+    c0 = rank * mloc  # this rank's live columns are c0 .. c0 + w - 1
+    w = max(0, min(mloc, m - c0))
+    own = torch.arange(w, device=z.device)
+    if structure is None:  # the JVPs' directions: this rank's unit latent vectors
+        basis = torch.zeros((mloc, m), dtype=z.dtype, device=z.device)
+        basis[own, c0 + own] = 1.0
     J, r = [], []
     for i, b in enumerate(p.blocks):
         F = b.residual(z, p.data)
         if structure is None:
-            Jcols = torch.func.jacfwd(lambda zz, _b=b: _b.residual(zz, p.data))(z)
+            def jvp(v, _b=b):
+                return torch.func.jvp(lambda zz: _b.residual(zz, p.data), (z,), (v,))[1]
+            Jcols = torch.func.vmap(jvp, in_dims=0, out_dims=1)(basis)
         else:
             s, N, seginfo = structure
             D = _block_diagonals(b.residual, p.data, z, s, N)
-            Jcols = torch.zeros((F.shape[0], p.latent_dim), dtype=z.dtype, device=z.device)
-            q = torch.arange(N, device=z.device)
+            Jcols = torch.zeros((F.shape[0], mloc), dtype=z.dtype, device=z.device)
             for off, sz in seginfo[i]:
                 if sz != N:
                     continue  # boundary rows do not depend on z
-                for j in range(s):
-                    Jcols[off + q, j * N + q] = D[j][off : off + N]
-        J.append(fp.whiten(b.name, Jcols))
+                for j in range(s):  # slice j's columns j N .. (j + 1) N - 1, where owned
+                    lo, hi = max(j * N, c0), min((j + 1) * N, c0 + w)
+                    if lo < hi:
+                        q = torch.arange(lo - j * N, hi - j * N, device=z.device)
+                        Jcols[off + q, q + (j * N - c0)] = D[j][off + q]
+        J.append(fp.whiten(b.name, Jcols, shard_cols=True))
         r.append(fp.whiten(b.name, F))
-    J += _misfit_jacobians(p, z)
-    r += [math.sqrt(m.weight) * m.residual(z, p.data) for m in p.misfits]
+    J += [torch.nn.functional.pad(Jm[:, c0 : c0 + w], (0, mloc - w))
+          for Jm in _misfit_jacobians(p, z)]
+    r += [math.sqrt(m_.weight) * m_.residual(z, p.data) for m_ in p.misfits]
     J, r = torch.cat(J), torch.cat(r)
-    return spd_solve(J.T @ J, J.T @ r, jitter=hessian_jitter)
+    Hcol = J.new_zeros((P_ * mloc, mloc))
+    R = J
+    for t in range(P_):  # after t hops this rank holds the panel of rank p - t
+        src = (rank - t) % P_
+        Hcol[src * mloc : (src + 1) * mloc] = R.T @ J
+        if t + 1 < P_:
+            R = comm.ppermute(mesh, R)
+    H = comm.all_gather(mesh, Hcol).permute(1, 0, 2).reshape(P_ * mloc, P_ * mloc)
+    g = comm.all_gather(mesh, J.T @ r).reshape(-1)
+    pad = torch.arange(m, P_ * mloc, device=z.device)
+    H[pad, pad] += 1.0  # the padded latent tail: zero columns, a unit diagonal
+    return spd_solve(H, g, jitter=hessian_jitter)[:m]
 
 
 def _damped_update(fp, z, delta, loss_in, step_size):
     """The guarded update (``:911``): the full step unless it is non-finite
     or more than doubles ``loss_in``; then halved up to four times, keeping
     the best finite trial. Returns ``(z, loss, finite)``; a step with no
-    finite trial keeps ``z`` and ``loss_in``."""
+    finite trial keeps ``z`` and ``loss_in``. Every test reads the values
+    the ranks agree on (rank 0's losses)."""
     big = torch.tensor(torch.finfo(z.dtype).max, dtype=z.dtype, device=z.device)
+
+    def value(t):
+        return fp.agree(float(t), "first")
 
     def trial(s):
         z_t = z - (s * step_size) * delta
-        if not bool(torch.isfinite(z_t).all()):
+        if not fp.agree(bool(torch.isfinite(z_t).all()), "all"):
             return z, big, False
         r = fp.whitened_residual(z_t)
         return z_t, torch.dot(r, r), True
@@ -471,11 +534,11 @@ def _damped_update(fp, z, delta, loss_in, step_size):
     s = 1.0
     z_b, l_b, f_b = trial(s)
     for _ in range(4):
-        if not float(l_b) > 2.0 * float(loss_in):
+        if not value(l_b) > 2.0 * value(loss_in):
             break
         s *= 0.5
         z2, l2, f2 = trial(s)
-        if float(l2) < float(l_b):
+        if value(l2) < value(l_b):
             z_b, l_b, f_b = z2, l2, f_b or f2
     if not f_b:
         return z, loss_in, False
@@ -489,13 +552,14 @@ def _any_anisotropic(p: CollocationProblem) -> bool:
 def _auto_normal_budget(fp: DistributedFactoredProblem) -> int:
     """Bytes the ``'normal'`` step's replicated state may take (``:1011``):
     three quarters of the card's free memory (``torch.cuda.mem_get_info``,
-    which already counts the factors); 10 GiB on the CPU, the JAX
-    package's default without memory statistics."""
+    which already counts the factors), the least over the ranks (ranks that
+    share a card see it differently); 10 GiB on the CPU, the JAX package's
+    default without memory statistics."""
     dev = fp.problem.device
     if dev.type != "cuda":
         return 10 << 30
     free, _ = torch.cuda.mem_get_info(dev)
-    return max(0, int(0.75 * free))
+    return int(fp.agree(max(0, int(0.75 * free)), "min"))
 
 
 def _normal_state_bytes(fp: DistributedFactoredProblem, structure, dtype) -> int:
@@ -532,7 +596,7 @@ def route_step_solver(fp: DistributedFactoredProblem, step_solver: str = "auto",
             "misfit terms (use 'cg' or 'direct')"
         )
     cand = _slice_structure(p)
-    valid = cand is not None and validate_slice_structure(p, cand)
+    valid = fp.agree(cand is not None and validate_slice_structure(p, cand), "all")
     if step_solver in ("structured", "normal"):
         if not valid:
             raise ValueError(
@@ -542,7 +606,7 @@ def route_step_solver(fp: DistributedFactoredProblem, step_solver: str = "auto",
         return step_solver, cand, cand, valid
     if step_solver != "auto":
         return step_solver, None, cand, valid
-    mloc = -(-p.latent_dim // next(iter(fp.factors.values())).mesh.size)
+    mloc = -(-p.latent_dim // fp.mesh.size)
     if mloc <= direct_panel_limit:
         return ("structured", cand, cand, valid) if valid else ("direct", None, cand, valid)
     aniso = _any_anisotropic(p)
@@ -601,14 +665,15 @@ def gn_solve_distributed(
     )
     if wants and valid and deflation_rank != 0:
         id_rows = identity_slice_rows(p, cand)
-        if id_rows is not None:
+        if fp.agree(id_rows is not None, "all"):
             rank = default_deflation_rank(m) if deflation_rank is None else int(deflation_rank)
             V_defl = _deflation_basis(fp, cand, id_rows, rank)
     if cg_tol is None:
         cg_tol = 1e-10 if torch.finfo(p.dtype).eps < 1e-10 else 1e-6
     cg_maxiter = 500 if cg_maxiter is None else int(cg_maxiter)
     ainvs = _normal_state(fp, structure) if step_solver == "normal" else None
-    kw = dict(hessian_jitter=hessian_jitter, cg_tol=cg_tol, cg_maxiter=cg_maxiter)
+    kw = dict(hessian_jitter=hessian_jitter, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
+              exit_agree=lambda stop: fp.agree(stop, "all"))
 
     Xw = None  # the woodbury warm start: the previous step's inner solutions
     loss = fp.loss(z)
@@ -633,7 +698,7 @@ def gn_solve_distributed(
         ok = ok and finite
         losses.append(loss)
         cg_iters.append(iters)
-        prev, cur = cur, float(loss)
+        prev, cur = cur, fp.agree(float(loss), "first")
     losses = torch.stack(losses) if losses else torch.zeros(0, dtype=p.dtype, device=p.device)
     if losses.shape[0] < max_iter:
         losses = torch.cat([losses, losses[-1:].expand(int(max_iter) - losses.shape[0])])
@@ -647,12 +712,37 @@ class DistributedPosterior(Posterior):
     """Posterior means and variances on the mesh path (``:1442``).
 
     The representer weights ``Theta^{-1} F(z*)`` come from the factor's
-    triangular solves (``_block_weights_dist``, ``:1314``); ``extend`` is
-    row-chunked, one K1 cross-Gram launch a chunk (``_dist_extend``,
-    ``:1340``); ``variance`` whitens each chunk's cross-Gram with the
-    factor (``_dist_variance``, ``:1385``). Its prior term is the
-    *unregularized* ``(op (x) op) kappa(x, x)``, the value the JAX package
-    computes, whose docstring says "nugget-regularized" (fault R5). At P = 1
-    these are the dense :class:`~.posterior.Posterior`'s methods, run
-    against the mesh path's factored problem.
+    triangular solves (``_block_weights_dist``, ``:1314``), on every rank.
+    ``extend`` and ``variance`` are the dense :class:`~.posterior.Posterior`'s
+    on sharded test points (``_dist_extend``, ``:1340``; ``_dist_variance``,
+    ``:1385``): each rank takes ``ceil(t/P)`` of them (the last point
+    repeated to fill), extends them chunk by chunk, one K1 cross-Gram launch a
+    chunk (``variance``: whitens each chunk's cross-Gram by the column-sharded
+    solve), and one ``all_gather`` gives every rank the whole result. At
+    P = 1 the one rank's share is every point, and the gather is the
+    identity. The prior term of ``variance`` is the *unregularized*
+    ``(op (x) op) kappa(x, x)``, the value the JAX package computes, whose
+    docstring says "nugget-regularized" (fault R5).
     """
+
+    def _my_points(self, X_test):
+        mesh = self.fp.mesh
+        X_test = X_test.to(device=self.fp.problem.device, dtype=self.fp.problem.dtype)
+        t = int(X_test.shape[0])
+        tloc = -(-t // mesh.size)
+        idx = torch.clamp(mesh.rank * tloc + torch.arange(tloc, device=X_test.device), max=t - 1)
+        return X_test[idx].contiguous(), t
+
+    def _gathered(self, y, t):
+        return comm.all_gather(self.fp.mesh, y).reshape(-1)[:t]
+
+    def _whiten(self, name, C):
+        return self.fp.whiten(name, C, shard_cols=True)
+
+    def extend(self, X_test, block=None, op=None):
+        mine, t = self._my_points(X_test)
+        return self._gathered(super().extend(mine, block, op), t)
+
+    def variance(self, X_test, block=None, op=None):
+        mine, t = self._my_points(X_test)
+        return self._gathered(super().variance(mine, block, op), t)

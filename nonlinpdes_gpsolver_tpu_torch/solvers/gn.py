@@ -323,7 +323,7 @@ def _misfit_jacobians(p: CollocationProblem, z):
     return [math.sqrt(m.weight) * _misfit_jacobian(m, p.data, z)[1] for m in p.misfits]
 
 
-def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None):
+def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None, exit_agree=None):
     """Conjugate gradients on a matrix of right-hand sides sharing one SPD
     operator: the inner solve of the ``'cg'`` and ``'woodbury'`` steps.
 
@@ -337,7 +337,8 @@ def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None):
 
     The exit test reads one boolean on the host per iteration (a device
     sync on the card), where the JAX package's ``while_loop`` decides on
-    the device.
+    the device; ``exit_agree`` maps it to the decision every rank of a mesh
+    takes.
     """
     tol2 = float(tol) ** 2 * torch.sum(B * B, dim=0)
     prec = M if M is not None else (lambda R: R)
@@ -350,7 +351,10 @@ def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None):
     iters = 0
     while iters < maxiter:
         active = torch.sum(R * R, dim=0) > tol2
-        if not bool(active.any()):
+        stop = not bool(active.any())
+        if exit_agree is not None:
+            stop = exit_agree(stop)
+        if stop:
             break
         Q = normal_op(P)
         denom = torch.sum(P * Q, dim=0)

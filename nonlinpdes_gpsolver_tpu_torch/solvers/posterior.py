@@ -56,6 +56,9 @@ class Posterior:
         b = p.block(block) if block is not None else p.blocks[0]
         return b, (identity(b.kernel.dim) if op is None else op)
 
+    def _whiten(self, name: str, C: torch.Tensor) -> torch.Tensor:
+        return self.fp.whiten(name, C)
+
     def extend(
         self,
         X_test: torch.Tensor,
@@ -95,7 +98,7 @@ class Posterior:
         chunk = _serving_chunk(int(X_test.shape[0]), n_train)
         parts = []
         for xs in _row_chunks(X_test, chunk):
-            V = fp.whiten(b.name, cross_gram(b.kernel, op, xs, b.observables, p.points).T)
+            V = self._whiten(b.name, cross_gram(b.kernel, op, xs, b.observables, p.points).T)
             parts.append(torch.sum(V * V, dim=0))
         qv = torch.cat(parts)
         # kappa is stationary: the prior term is the closed form at u = 0,

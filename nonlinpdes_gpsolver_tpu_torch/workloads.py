@@ -47,7 +47,7 @@ from .models.elliptic import nonlinear_elliptic
 from .models.spec import CollocationProblem
 from .ops.backend import default_dtype, resolve_device
 from .ops.kernels import SquaredExponential
-from .parallel.mesh import make_mesh
+from .parallel.mesh import Mesh, make_mesh
 from .utils.classical import burgers_cole_hopf_truth, darcy_fd_solve, eikonal_cole_hopf_solve
 from .utils.metrics import error_stats
 from .utils.sampling import sample_random, test_grid
@@ -131,7 +131,8 @@ class Workload:
     ``gates`` maps a metric of :meth:`metrics` to its upper limit.
     ``a_truth`` (Darcy) is the coefficient ``a`` at ``X_test``, held
     against ``exp`` of block ``a``'s posterior mean. ``mesh``: solve on the
-    mesh path (a one-device mesh), at any size.
+    mesh path (a one-device mesh, unless :meth:`solve` is given one), at
+    any size.
     """
 
     name: str
@@ -144,9 +145,11 @@ class Workload:
     a_truth: Optional[torch.Tensor] = None
     mesh: bool = False
 
-    def solve(self) -> SolveResult:
-        """``GPSolver(problem, nugget, mesh).solve(max_iter)``."""
-        mesh = make_mesh(1, device=self.problem.device) if self.mesh else None
+    def solve(self, mesh: Optional[Mesh] = None) -> SolveResult:
+        """``GPSolver(problem, nugget, mesh).solve(max_iter)``, on ``mesh``
+        (a P-rank mesh, say) when one is given."""
+        if mesh is None and self.mesh:
+            mesh = make_mesh(1, device=self.problem.device)
         return GPSolver(self.problem, nugget=self.nugget, mesh=mesh).solve(max_iter=self.max_iter)
 
     def metrics(self, result: SolveResult) -> Dict[str, float]:

@@ -2,6 +2,7 @@
 """Rehearse the card's solve path on the CPU, before a run on the card.
 
     python3 scripts/torch_cpu_rehearsal.py [--workloads burgers eikonal darcy] [--krylov]
+    python3 scripts/torch_cpu_rehearsal.py --workloads --ranks
 
 The port picks its numerics by device (``ops/backend.py::is_accelerator``):
 on the card, ``solve_mode='inverse'`` with the Newton step, the
@@ -13,6 +14,12 @@ line with its metrics, gate failures, rungs and losses; with ``--krylov``
 it runs ``chip_smoke.krylov_steps`` on the CPU. The Gram kernel's plain
 version stands in for the kernel, so the results predict the card's to
 rounding only, and its seconds are CPU seconds, not device times.
+
+``--ranks`` runs ``chip_smoke.py``'s phases ``mesh_ranks`` and ``mesh_nccl``
+on the CPU in f64 at small sizes (``mesh_elliptic`` 500/100,
+``darcy_past_wall`` 300, the NCCL phase's problem 400/100): two gloo ranks
+beside the one-device runs, and the NCCL phase's code over gloo on one
+rank (there is no NCCL on the CPU).
 """
 
 import argparse
@@ -29,6 +36,7 @@ def main():
     ap.add_argument("--workloads", nargs="*", default=["burgers", "eikonal", "darcy"],
                     choices=["elliptic", "burgers", "eikonal", "darcy"])
     ap.add_argument("--krylov", action="store_true")
+    ap.add_argument("--ranks", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -52,6 +60,40 @@ def main():
 
             steps = chip_smoke.krylov_steps(tpt, torch.device("cpu"))
             print(json.dumps({"krylov_steps_cpu": steps}), flush=True)
+    if args.ranks:
+        rehearse_ranks(tpt)
+
+
+def rehearse_ranks(tpt):
+    import torch
+
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    sizes = {"mesh_elliptic": (500, 100), "darcy_past_wall": 300, "nccl": (400, 100)}
+    p1 = {}
+    for key, w in (("mesh_solve", tpt.workloads.mesh_elliptic(device=cpu, n_domain=500,
+                                                               n_boundary=100)),
+                   ("mesh_darcy", tpt.workloads.darcy_past_wall(device=cpu, n_domain=300))):
+        res, metrics, timing = chip_smoke.mesh_run(w)
+        p1[key] = {"metrics": metrics, **timing}
+        if key == "mesh_solve":
+            p1["z"] = res.z
+    t0 = time.perf_counter()
+    ranks = chip_smoke.mesh_ranks(cpu, p1, sizes)
+    print(json.dumps({"mesh_ranks_cpu": ranks, "one_device": {k: p1[k]["metrics"] for k in
+                                                               ("mesh_solve", "mesh_darcy")},
+                      "cpu_seconds": time.perf_counter() - t0}), flush=True)
+    n, nb = sizes["nccl"]
+    Xd, Xb = tpt.utils.sample_random(torch.Generator().manual_seed(0), n, nb)
+    prob = tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
+                                         tpt.workloads.elliptic_rhs(), tpt.workloads.u_elliptic,
+                                         seed=1)
+    z1 = tpt.GPSolver(prob, nugget=1e-5, mesh=tpt.parallel.make_mesh(1, device=cpu)).solve(4).z
+    t0 = time.perf_counter()
+    nccl = chip_smoke.mesh_nccl(cpu, z1, sizes, backend="gloo")
+    print(json.dumps({"mesh_nccl_cpu_over_gloo": nccl, "cpu_seconds": time.perf_counter() - t0}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -361,3 +361,103 @@ def test_small_mesh_solve_on_card(cuda):
     assert isinstance(res.posterior, tpt.solvers.DistributedPosterior)
     assert gram_tile.K2_LAUNCHES - before == fp.stats["u"]["superblocks"] >= 2
     assert not w.failures(metrics), metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("ranks,rank", [(2, 0), (2, 1), (4, 3)])
+def test_k2_rank_mapped_windows_match_plain(cuda, dtype, limit, ranks, rank):
+    """K2 on a rank's block-cyclic rows: every window of the Darcy u layout
+    at N_d 700 (128-row blocks, 512-wide superblocks) on rank ``rank`` of
+    ``ranks``, one launch each, against the rank-mapped plain version:
+    every block within ``limit``, the unit diagonal exactly 1 where the
+    rank's rows meet it, the fill blocks exact, nothing outside the slot."""
+    from nonlinpdes_gpsolver_tpu_torch.parallel import fused, gram, pad_to_blocks
+
+    blk, pts = _darcy_u(700, cuda, dtype)
+    sizes = tpt.ops.observable_sizes(blk.observables, pts)
+    block = 128
+    n_pad = pad_to_blocks(sum(sizes), block, ranks)
+    d = torch.linspace(0.5, 1.5, n_pad, dtype=dtype, device=cuda)
+    launched = 0
+    for kb0, F in fused._superblocks(n_pad // block, 512 // block):
+        c0, c1 = kb0 * block, (kb0 + F) * block
+        plan = fused.window_plan(blk.kernel, blk.observables, sizes, c0, c1, n_pad, ranks, rank,
+                                 block)
+        h, S = plan.shape
+        if h == 0:
+            continue
+        sets = gram.window_sets(plan, pts)
+        big = torch.full((h + 5, S + 9), 7.0, dtype=dtype, device=cuda)
+        before = gram_tile.K2_LAUNCHES
+        plan.run_equilibrated(sets, d[c0:], d[c0:c1], out=big[2 : 2 + h, 4 : 4 + S])
+        torch.cuda.synchronize()
+        assert gram_tile.K2_LAUNCHES == before + 1
+        launched += 1
+        got = big[2 : 2 + h, 4 : 4 + S]
+        ref = torch.empty_like(got)
+        plan._plain_equilibrated(sets, d[c0:], d[c0:c1], ref)
+        _assert_blocks_close(plan, got, ref, limit)
+        w = plan.window_rows(cuda)
+        on = w < S
+        assert bool((got[torch.nonzero(on)[:, 0], w[on]] == 1.0).all())
+        for b in plan.blocks:
+            if b.fill:
+                rs, cs = slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m)
+                assert bool(torch.equal(got[rs, cs], ref[rs, cs]))
+        got.fill_(7.0)
+        assert bool((big == 7.0).all())
+    assert launched >= 2
+
+
+def _two_rank_solve(rank, world, port, out_dir):
+    """One of two ranks sharing card 0 over gloo: the 3,000-row mesh solve."""
+    import os
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from nonlinpdes_gpsolver_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    assert initialize_distributed(backend="gloo")
+    try:
+        mesh = make_mesh(world, device="cuda:0")
+        w = tpt.workloads.mesh_elliptic(device=mesh.device, n_domain=1300, n_boundary=400)
+        before = gram_tile.K2_LAUNCHES
+        res = tpt.GPSolver(w.problem, nugget=1e-5, mesh=mesh, mesh_block=256).solve(max_iter=4)
+        metrics = w.metrics(res)
+        torch.cuda.synchronize()
+        torch.save({"z": res.z.cpu(), "l2": metrics["test_l2"],
+                    "failures": w.failures(metrics),
+                    "k2": gram_tile.K2_LAUNCHES - before,
+                    "superblocks": res.posterior.fp.stats["u"]["superblocks"]},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two spawned ranks on card 0 over gloo (host-staged collectives) run
+    the 3,000-row mesh solve: each rank's K2 launches one per superblock,
+    the same z on both ranks, within 1e-4 of its scale of the one-device
+    solve (f32: the triangular solves round differently), and the gate."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_two_rank_solve, args=(2, port, str(tmp_path)), nprocs=2, join=True)
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    w = tpt.workloads.mesh_elliptic(device=cuda, n_domain=1300, n_boundary=400)
+    one = tpt.GPSolver(w.problem, nugget=1e-5, mesh=tpt.parallel.make_mesh(1, device=cuda),
+                       mesh_block=256).solve(max_iter=4)
+    z1 = one.z.cpu()
+    assert torch.equal(got[0]["z"], got[1]["z"])
+    assert float((got[0]["z"] - z1).abs().max() / z1.abs().max()) <= 1e-4
+    for g in got:
+        assert not g["failures"], g["l2"]
+        assert g["k2"] == g["superblocks"] >= 2

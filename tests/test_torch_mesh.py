@@ -22,12 +22,15 @@ MESH = make_mesh(1, device="cpu")
 
 
 def test_mesh_is_one_device():
+    """Outside a process group a mesh is one device with no group; a mesh of
+    more ranks says how to start one (the ranks themselves are
+    tests/test_torch_ranks.py)."""
     assert MESH.size == 1 and MESH.device == torch.device("cpu") and MESH.axis == "p"
+    assert MESH.rank == 0 and MESH.group is None and MESH.backend is None
     assert make_mesh(device="cpu") == MESH
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        Mesh((torch.device("cpu"),) * 2).device
+    assert not tpt.parallel.initialize_distributed()
     with pytest.raises(ValueError):
         make_mesh(0, device="cpu")
 
@@ -104,8 +107,7 @@ def test_facade_mesh_path_matches_dense():
 def test_auto_mesh_routes_by_the_threshold(monkeypatch):
     """auto_mesh sends a problem to the mesh path on its own device from
     _AUTO_MESH_GRAM_ROWS Gram rows (lowered here); below it, or with
-    auto_mesh=False, the dense path; a mesh on another device or of two
-    devices is refused."""
+    auto_mesh=False, the dense path; a mesh on another device is refused."""
     prob = _elliptic(20, 8)
     assert api.largest_gram_rows(prob) == 48
     monkeypatch.setattr(api, "_AUTO_MESH_GRAM_ROWS", 48)
@@ -115,10 +117,8 @@ def test_auto_mesh_routes_by_the_threshold(monkeypatch):
     assert tpt.GPSolver(prob, nugget=1e-8, auto_mesh=False).mesh is None
     monkeypatch.setattr(api, "_AUTO_MESH_GRAM_ROWS", 49)
     assert tpt.GPSolver(prob, nugget=1e-8).mesh is None
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tpt.GPSolver(prob, nugget=1e-8, mesh=Mesh((torch.device("cpu"),) * 2))
     with pytest.raises(ValueError, match="lies on"):
-        tpt.GPSolver(prob, nugget=1e-8, mesh=Mesh((torch.device("meta"),)))
+        tpt.GPSolver(prob, nugget=1e-8, mesh=Mesh(torch.device("meta")))
 
 
 @pytest.mark.parametrize("name,kw", [

@@ -174,10 +174,10 @@ def test_example_script_runs_on_cpu(name, argv, capsys):
     assert all(np.isfinite(e.l2) for e in errors.values() if hasattr(e, "l2"))
     out = capsys.readouterr().out
     assert "[GN] losses" in out and "[Timers]" in out
-    # the mesh path on one device runs; across devices it is slice 4
+    # the mesh path on one device runs; across ranks it needs a process group
     errors = script.main(["--device", "cpu", "--mesh", "1", "--mesh_block", "16", *argv])
     assert all(np.isfinite(e.l2) for e in errors.values() if hasattr(e, "l2"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="torchrun"):
         script.main(["--device", "cpu", "--mesh", "2", *argv])
 
 
