@@ -74,9 +74,27 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 13. ``mesh_nccl``: one rank per visible card over NCCL (:func:`mesh_nccl`),
     phase 9's 16,200-row problem under its gate, z beside phase 9's; on a
     machine with one card, a group of one, and it says so;
-14. the script's seconds so far (the build included), the kernel summary
-    line (K1 with its mesh-path launches, K2 with its rank-mapped ones),
-    then the card's name and power limit, and last
+14. ``checkpoint``: (a) phase 3's canonical factor and 4-step state
+    through ``utils/checkpoint.py`` (the JAX package's file format): the
+    factor, inverse and z bitwise, 2 GN steps resumed from the loaded z
+    to at most 1.01 times the saved last loss, the extension through the
+    reloaded factor equal to the original's in one K1 launch, under the
+    gate; (b) phase 9's 16,200-row mesh factor and state saved, then
+    reloaded in a child process that imports the port only
+    (:func:`checkpoint_child`): the factor bitwise, the whitened residual
+    within 1e-6 of its scale, 2 resumed steps, the extension (K1 launches
+    counted) under the gate; the file's bytes and the save and load seconds
+    beside phase 9's factorize seconds;
+15. ``compat``: the reference-API ``solver_GP`` flow on the card
+    (:func:`compat_phase`): 2 K1 launches, under the gate;
+16. ``perf_report``: the port's ``examples/perf_report.py`` as a
+    subprocess, elliptic at 900 and 7,800 and ``--mesh 1`` at 7,800, warm:
+    its table rows. Phases 4, 8 and 9 carry each phase's TFLOP/s by the
+    JAX package's FLOP model (``flop_model_tflops``: the model's count,
+    not a roofline share);
+17. the script's seconds so far (the build included), the kernel summary
+    line (K1 with its mesh-path, checkpoint and compat launches, K2 with
+    its rank-mapped ones), then the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s in f32
@@ -865,6 +883,278 @@ def mesh_nccl(dev, z1, sizes=FULL_SIZES, backend="nccl", world=None):
     return {"ranks": ranks, "z_rel_diff_to_one_device": z_rel}
 
 
+# -- checkpoint, the reference-API facade and perf_report -----------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FLOP_MODEL_NOTE = ("TFLOP/s by the JAX package's FLOP model (utils/profiling.py::flop_model: "
+                   "n^3/3 a Cholesky over the factorize seconds, the dense GN count over the "
+                   "gauss_newton seconds): the model's count, not the port's work, and not a "
+                   "roofline share")
+BLOCKED = ("jax", "jaxlib", "nonlinpdes_gpsolver_tpu")
+
+
+def model_tflops(problem, phase_seconds, gn_steps):
+    """Each phase's TFLOP/s by the JAX package's FLOP model (:data:`FLOP_MODEL_NOTE`)."""
+    from nonlinpdes_gpsolver_tpu_torch.utils.profiling import flop_model, tflops
+
+    fm = flop_model(problem, gn_iters=gn_steps)
+    return {"model": FLOP_MODEL_NOTE, "flops": fm,
+            "factorize": tflops(fm["cholesky"], phase_seconds["factorize"]),
+            "gauss_newton": tflops(fm["gn_total"], phase_seconds["gauss_newton"])}
+
+
+def large_problem(tpt, dev, sizes=(7800, 600)):
+    """Phase 4's problem, 16,200 Gram rows: N_domain 7800 and N_boundary 600
+    from the port's sampler (seed 0), sigma 0.2, the seed-1 latent
+    (``sizes``: smaller, for a rehearsal on the CPU)."""
+    import torch
+
+    Xd, Xb = tpt.utils.sample_random(torch.Generator(device=dev).manual_seed(0), *sizes)
+    return tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
+                                         tpt.workloads.elliptic_rhs(), tpt.workloads.u_elliptic,
+                                         seed=1)
+
+
+def sha256_of(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def checkpoint_dense(tpt, fp, state, Xt, truth):
+    """Phase checkpoint (a): the canonical solve's factor and 4-step state
+    through ``save_solver_state`` and ``load_solver_state``: the factor and z
+    bitwise, 2 GN steps resumed from the loaded z to a loss at most 1.01
+    times the saved last loss, and the extension to the 60x60 grid through
+    the reloaded factor equal to the original's, in one K1 launch, under
+    the gate."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.utils import checkpoint
+
+    dev = fp.problem.device
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "canonical.npz")
+        sync(dev)
+        t0 = time.perf_counter()
+        checkpoint.save_solver_state(path, fp, state)
+        out["save_seconds"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        fp2, st2 = checkpoint.load_solver_state(path, fp.problem)
+        sync(dev)
+        out["load_seconds"] = time.perf_counter() - t0
+    out["factor_bitwise"] = all(torch.equal(fp2.factors[k], fp.factors[k]) for k in fp.factors)
+    out["inv_factor_bitwise"] = all(torch.equal(fp2.inv_factors[k], fp.inv_factors[k])
+                                    for k in fp.inv_factors)
+    out["z_bitwise"] = torch.equal(st2.z, state.z)
+    check(out["factor_bitwise"] and out["inv_factor_bitwise"] and out["z_bitwise"],
+          "checkpoint: the dense round trip is not bitwise")
+    resumed = tpt.gn_solve(fp2, z0=st2.z, max_iter=2)
+    out["saved_last_loss"] = float(st2.losses[-1])
+    out["resumed_losses"] = resumed.losses.tolist()
+    check(out["resumed_losses"][-1] <= 1.01 * out["saved_last_loss"],
+          f"checkpoint: resumed loss {out['resumed_losses'][-1]:.4e} > 1.01 x "
+          f"{out['saved_last_loss']:.4e}")
+    original = tpt.Posterior(fp, state.z).extend(Xt)
+    sync(dev)
+    zero_counts()
+    pred = tpt.Posterior(fp2, st2.z).extend(Xt)
+    sync(dev)
+    out["k1_launches"] = counts()[0]
+    out["extension_equal"] = torch.equal(pred, original)
+    out["test_l2"] = tpt.GPSolver.errors(pred, truth).l2
+    check(dev.type != "cuda" or out["k1_launches"] == 1,
+          f"checkpoint: the extension launched K1 {out['k1_launches']} times")
+    check(out["extension_equal"], "checkpoint: the reloaded extension differs from the original's")
+    check(out["test_l2"] <= GATE_L2, f"checkpoint: test L2 {out['test_l2']:.4e} > {GATE_L2}")
+    return out
+
+
+def checkpoint_child(path, aux, out_path):
+    """Phase checkpoint (b), in a child process that imports the port only
+    (jax and the JAX package blocked): reload the 16,200-row mesh factor and
+    state saved by the parent, check the factor bitwise (its sha256) and the
+    whitened residual within 1e-6 of its scale of the saved run's (the
+    diagonal-block inverses rebuilt), resume 2 GN steps, and extend to the
+    60x60 grid with K1's launches counted, under the gate."""
+    import importlib.abc
+    import sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked in the checkpoint child: " + name)
+
+    sys.meta_path.insert(0, Block())
+    t_start = time.perf_counter()
+    import torch
+
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.parallel import make_mesh
+    from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import (
+        DistributedPosterior, gn_solve_distributed,
+    )
+
+    saved = torch.load(aux)
+    dev = torch.device(saved["device"])
+    prob = large_problem(tpt, dev, saved["sizes"])
+    Xt = tpt.utils.test_grid(60, 60, device=dev)
+    truth = torch.func.vmap(tpt.workloads.u_elliptic)(Xt)
+    sync(dev)
+    t0 = time.perf_counter()
+    dfp, st = tpt.utils.load_distributed_state(path, prob, make_mesh(1, device=dev))
+    sync(dev)
+    out = {"load_seconds": time.perf_counter() - t0}
+    fac = dfp.factors["u"]
+    out["factor_bitwise"] = sha256_of(fac.local) == saved["sha256"]
+    out["z_bitwise"] = torch.equal(st.z.cpu(), saved["z"])
+    r = dfp.whitened_residual(st.z).cpu()
+    out["residual_rel_diff"] = float((r - saved["r"]).abs().max() / saved["r"].abs().max())
+    out["diag_inv_rel_diff"] = float((fac.diag_inv.cpu() - saved["diag_inv"]).abs().max()
+                                     / saved["diag_inv"].abs().max())
+    out["saved_last_loss"] = float(st.losses[-1])
+    t0 = time.perf_counter()
+    resumed = gn_solve_distributed(dfp, z0=st.z, max_iter=2)
+    sync(dev)
+    out["resume_seconds"] = time.perf_counter() - t0
+    out["resumed_losses"] = resumed.losses.tolist()
+    out["step_solver"] = resumed.step_solver
+    out["cg_iters"] = resumed.cg_iters.tolist()
+    zero_counts()
+    t0 = time.perf_counter()
+    pred = DistributedPosterior(dfp, resumed.z).extend(Xt)
+    sync(dev)
+    out["extension_seconds"] = time.perf_counter() - t0
+    out["k1_launches"] = counts()[0]
+    out["test_l2"] = tpt.GPSolver.errors(pred, truth).l2
+    out["child_seconds"] = time.perf_counter() - t_start
+    out["jax_imported"] = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    _write(os.path.dirname(out_path), os.path.basename(out_path), out)
+
+
+def checkpoint_mesh(dfp, state, factorize_seconds, sizes=(7800, 600)):
+    """Phase checkpoint (b): ``mesh_vs_dense``'s 16,200-row mesh factor and
+    4-step state (of :func:`large_problem` at ``sizes``) saved, then
+    reloaded in a child process (:func:`checkpoint_child`); the file's bytes
+    and the save and load seconds beside phase 9's factorize seconds."""
+    import sys
+
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.utils import checkpoint
+
+    fac = dfp.factors["u"]
+    dev = fac.local.device
+    out = {"gram_rows": fac.n, "n_pad": fac.n_pad, "block": fac.block,
+           "factorize_seconds_phase_9": factorize_seconds}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.npz")
+        sync(dev)
+        t0 = time.perf_counter()
+        checkpoint.save_distributed_state(path, dfp, state)
+        out["save_seconds"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+        out["factor_bytes"] = fac.local.numel() * fac.local.element_size()
+        aux = os.path.join(tmp, "saved.pt")
+        torch.save({"sha256": sha256_of(fac.local), "z": state.z.cpu(),
+                    "r": dfp.whitened_residual(state.z).cpu(), "diag_inv": fac.diag_inv.cpu(),
+                    "device": str(dev), "sizes": tuple(sizes)}, aux)
+        child_out = os.path.join(tmp, "child.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--checkpoint-child",
+                               path, aux, child_out], capture_output=True, text=True, timeout=600)
+        out["child_process_seconds"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"checkpoint child failed:\n{proc.stderr[-4000:]}")
+        child = _read(tmp, "child.json")
+    out["child"] = child
+    out["reload_faster_than_refactorize"] = child["load_seconds"] < factorize_seconds
+    check(not child["jax_imported"], f"checkpoint child imported {child['jax_imported']}")
+    check(child["factor_bitwise"] and child["z_bitwise"], "checkpoint: mesh factor or z not bitwise")
+    check(child["residual_rel_diff"] <= 1e-6,
+          f"checkpoint: whitened residual {child['residual_rel_diff']:.3e} of its scale apart")
+    check(child["resumed_losses"][-1] <= 1.01 * child["saved_last_loss"],
+          f"checkpoint: mesh resumed loss {child['resumed_losses'][-1]:.4e} > 1.01 x "
+          f"{child['saved_last_loss']:.4e}")
+    check(dev.type != "cuda" or child["k1_launches"] > 0,
+          "checkpoint: the mesh extension launched no K1")
+    check(child["test_l2"] <= GATE_L2, f"checkpoint: mesh test L2 {child['test_l2']:.4e}")
+    return out
+
+
+def compat_phase(tpt, inp, Xt, truth, device=None):
+    """Phase compat: the reference-API flow of ``solver_GP`` on the card
+    (no ``cfg.device``: the card, f32; ``device``: there, for a rehearsal):
+    ``set_equation``, ``get_sample`` on the canonical draw's points,
+    ``solve(method="elimination")`` (nugget 1e-5, 4 GN steps from the
+    facade's seed-1 random start), ``test`` on the 60x60 grid and
+    ``get_test_error``: 2 K1 launches, under the gate."""
+    import argparse
+
+    from nonlinpdes_gpsolver_tpu_torch.compat import solver_GP
+
+    cfg = argparse.Namespace(kernel="Gaussian", kernel_parameter=0.2, nugget=1e-5, GNsteps=4,
+                             initial_sol="rdm", randomseed=1, print_hist=False)
+    if device is not None:
+        cfg.device = device
+    solver = solver_GP(cfg, PDE_type="Nonlinear_elliptic")
+    solver.set_equation(bdy=tpt.workloads.u_elliptic, rhs=tpt.workloads.elliptic_rhs())
+    solver.get_sample(inp["X_domain"], inp["X_boundary"])
+    dev = solver._X_domain.device
+    sync(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    solver.solve(method="elimination")
+    pred = solver.test(Xt)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = counts()[0]
+    stats = solver.get_test_error(truth, print_option=False)
+    out = {"device": str(pred.device), "dtype": str(pred.dtype).split(".")[1],
+           "solve_and_test_seconds": seconds, "k1_launches": launches, "test_l2": stats.l2,
+           "test_max": stats.max, "losses": [float(v) for v in solver.loss_hist],
+           "timers": solver._result.timers}
+    check(device is not None or pred.is_cuda, "compat: the facade did not run on the card")
+    check(not pred.is_cuda or launches == 2, f"compat: K1 launched {launches} times, expected 2")
+    check(stats.l2 <= GATE_L2, f"compat: test L2 {stats.l2:.4e} > {GATE_L2}")
+    return out
+
+
+PERF_REPORT_RUNS = (["--workload", "elliptic", "--sizes", "900", "7800", "--warm"],
+                    ["--workload", "elliptic", "--mesh", "1", "--sizes", "7800", "--warm"])
+
+
+def perf_report_phase(runs_argv=PERF_REPORT_RUNS, extra=()):
+    """Phase perf_report: the port's driver
+    (``python -m nonlinpdes_gpsolver_tpu_torch.examples.perf_report``) as a
+    subprocess on the card, once per :data:`PERF_REPORT_RUNS` (``extra``
+    arguments appended: ``--device cpu`` for a rehearsal); its table rows,
+    each with a finite test L2."""
+    import sys
+
+    runs = []
+    for argv in runs_argv:
+        argv = [*argv, *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "nonlinpdes_gpsolver_tpu_torch.examples."
+                               "perf_report", *argv], cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0, f"perf_report {argv} failed:\n{proc.stderr[-4000:]}")
+        lines = proc.stdout.splitlines()
+        head = next(i for i, ln in enumerate(lines) if ln.split()[:2] == ["N", "factor_s"])
+        rows = lines[head + 1 :]
+        cols = lines[head].split()
+        parsed = [dict(zip(cols, map(float, ln.split()[: len(cols)]))) for ln in rows]
+        after = argv[argv.index("--sizes") + 1 :]
+        sizes = next((j for j, a in enumerate(after) if a.startswith("--")), len(after))
+        check(len(parsed) == sizes and all(math.isfinite(r["test_L2"]) for r in parsed),
+              f"perf_report {argv}: rows {rows}")
+        runs.append({"argv": argv, "process_seconds": time.perf_counter() - t0,
+                     "lines": lines[: head + 1] + rows, "rows": parsed})
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1019,6 +1309,7 @@ def main():
     check(launches == 2, f"canonical solve launched K1 {launches} times, expected 2")
     check(err.l2 <= GATE_L2, f"canonical test L2 {err.l2:.4e} > {GATE_L2}")
     check(bool(res.state.converged_finite), "canonical GN rejected a step")
+    canon_fp, canon_state = res.posterior.fp, res.state  # phase checkpoint's dense case
 
     def main_path_assemblies(problem, X_test, dtype=None, extended=("u",)):
         """(name, plan, point sets) of the K1 launches of a solve: each
@@ -1069,11 +1360,9 @@ def main():
 
     # -- 4. largest dense solve ------------------------------------------------
     del prob, res
-    gen = torch.Generator(device=dev).manual_seed(0)
-    Xd, Xb = tpt.utils.sample_random(gen, 7800, 600)
     kernel = tpt.SquaredExponential.gaussian(0.2)
     t0 = time.perf_counter()
-    big = tpt.models.nonlinear_elliptic(kernel, Xd, Xb, rhs_f, u_truth, seed=1)
+    big = large_problem(tpt, dev)
     torch.cuda.synchronize()
     problem_s = time.perf_counter() - t0
 
@@ -1107,7 +1396,8 @@ def main():
          e2e_seconds=big_s, phase_seconds=big_res.timers, repeats=big_repeats,
          max_memory_allocated=peak, test_l2=big_err.l2, test_max=big_err.max, finite=finite,
          nugget_scales=big_res.posterior.fp.nugget_scales, rungs=big_res.posterior.fp.rungs,
-         losses=big_res.state.losses.tolist(), k1_launches=big_launches, card=card)
+         losses=big_res.state.losses.tolist(), k1_launches=big_launches, card=card,
+         flop_model_tflops=model_tflops(big, big_res.timers, 4))
     check(finite, "large solve produced non-finite values")
     check(big_err.l2 <= GATE_L2, f"large test L2 {big_err.l2:.4e} > {GATE_L2}")
     check(big_launches == 2, f"large solve launched K1 {big_launches} times, expected 2")
@@ -1208,6 +1498,8 @@ def main():
     p1 = {}  # the one-device runs that mesh_ranks is held to
     mesh_solve = mesh_phase(w, 2, auto=True, keep=p1)
     check(mesh_solve["routed_to_mesh"], "auto_mesh did not route mesh_elliptic to the mesh path")
+    mesh_solve["flop_model_tflops"] = model_tflops(w.problem, mesh_solve["phase_seconds"],
+                                                   w.max_iter)
     blk = w.problem.blocks[0]
     k2_rows, k2_total = time_k2(window_cases(blk, w.problem.points, w.nugget), 5, 1)
     mesh_k1_rows, mesh_k1_total = time_k1(mesh_k1_cases(tpt, w.problem, w.X_test), 5, 1)
@@ -1222,9 +1514,7 @@ def main():
 
     # -- 9. the 16,200-row problem of phase 4 on the mesh path ------------------
     t_phase = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    Xd, Xb = tpt.utils.sample_random(gen, 7800, 600)
-    big = tpt.models.nonlinear_elliptic(kernel, Xd, Xb, rhs_f, u_truth, seed=1)
+    big = large_problem(tpt, dev)
     mesh1 = make_mesh(1, device=dev)
 
     def large_mesh():
@@ -1250,9 +1540,11 @@ def main():
          k2_launches=mvd_launches[1], max_memory_allocated=mvd_peak,
          dense_max_memory_allocated=peak, auto_mesh_gram_rows=_AUTO_MESH_GRAM_ROWS,
          k2_windows=mvd_k2_rows, k2_total=mvd_k2_total, k1_launches_timed=mvd_k1_rows,
-         k1_total=mvd_k1_total)
+         k1_total=mvd_k1_total, flop_model_tflops=model_tflops(big, res.timers, 4))
     check(err.l2 <= GATE_L2, f"16,200 rows on the mesh path: test L2 {err.l2:.4e} > {GATE_L2}")
     z_mvd, l2_mvd = res.z.clone(), err.l2
+    # phase checkpoint's mesh case: this factor and state
+    mvd_fp, mvd_state, mvd_factorize_s = res.posterior.fp, res.state, res.timers["factorize"]
     del res, big
     torch.cuda.empty_cache()
 
@@ -1297,7 +1589,29 @@ def main():
          note=("a group of one rank: one card is visible" if len(nccl["ranks"]) == 1
                else "one rank per visible card"), **nccl)
 
-    # -- 14. summary ------------------------------------------------------------
+    # -- 14. checkpoint: save and resume, dense and mesh ------------------------------
+    t_phase = time.perf_counter()
+    ck_dense = checkpoint_dense(tpt, canon_fp, canon_state, Xt, truth_t)
+    torch.cuda.empty_cache()
+    ck_mesh = checkpoint_mesh(mvd_fp, mvd_state, mvd_factorize_s)
+    del mvd_fp, mvd_state
+    torch.cuda.empty_cache()
+    emit("checkpoint", seconds=time.perf_counter() - t_phase, card=card, dtype="float32",
+         format="np.savez_compressed, the JAX package's keys and meta_json",
+         dense=ck_dense, mesh=ck_mesh)
+
+    # -- 15. the reference-API facade ------------------------------------------------
+    t_phase = time.perf_counter()
+    compat = compat_phase(tpt, inp, Xt, truth_t)
+    emit("compat", seconds=time.perf_counter() - t_phase, card=card, gate_l2=GATE_L2, **compat)
+
+    # -- 16. the perf_report driver ---------------------------------------------------
+    t_phase = time.perf_counter()
+    report = perf_report_phase()
+    emit("perf_report", seconds=time.perf_counter() - t_phase, card=card,
+         tflops_note=FLOP_MODEL_NOTE, runs=report)
+
+    # -- 17. summary ------------------------------------------------------------
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": [{
         "name": "gram_tile",
@@ -1330,6 +1644,9 @@ def main():
             "mesh_ranks_launches": [r["mesh_elliptic"]["k1_launches"] for r in ranks["ranks"]],
             "mesh_nccl_launches": [r["k1_launches"] for r in nccl["ranks"]],
         },
+        "checkpoint_launches": {"dense_extension": ck_dense["k1_launches"],
+                                "mesh_extension_in_child": ck_mesh["child"]["k1_launches"]},
+        "compat_launches": compat["k1_launches"],
     }, {
         "name": "gram_tile_k2",
         "route": "cuda",
@@ -1367,4 +1684,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--checkpoint-child"]:
+        checkpoint_child(*sys.argv[2:5])
+    else:
+        main()

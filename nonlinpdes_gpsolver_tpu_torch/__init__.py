@@ -22,7 +22,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from . import interop, models, ops, parallel, solvers, utils, workloads  # noqa: E402
+from . import compat, interop, models, ops, parallel, solvers, utils, workloads  # noqa: E402
 from .api import GPSolver, SolveResult  # noqa: E402
 from .ops import SquaredExponential  # noqa: E402
 from .solvers import Posterior, factorize, gn_solve  # noqa: E402
@@ -34,6 +34,7 @@ __all__ = [
     "Posterior",
     "factorize",
     "gn_solve",
+    "compat",
     "interop",
     "models",
     "ops",

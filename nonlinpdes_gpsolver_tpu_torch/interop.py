@@ -20,7 +20,14 @@ holds the model's scalars as 0-d arrays):
   zero latent;
 * ``darcy_n400_inputs.npz``: 400/100 from ``PRNGKey(5)``, the 60 noisy
   observations (80x80 FD solve, ``default_rng(9999)`` noise of 1e-3) and
-  the ``seed=7`` latent.
+  the ``seed=7`` latent;
+* ``{burgers,eikonal,darcy}_notebook_*_inputs.npz``: the draws of the JAX
+  package's demo notebooks (``notebooks/``), which the port's notebooks
+  solve: Burgers 1000/200 from ``PRNGKey(2)`` with the precision-convention
+  kernel [3, 20] and the ``seed=0`` latent; Eikonal 1000/200 from
+  ``PRNGKey(0)``; Darcy 400/100 from ``PRNGKey(9999)``, 60 observations
+  with ``default_rng(9999)`` noise and the ``seed=9999`` latent. The
+  elliptic notebook's draw is ``elliptic_n900_inputs.npz``.
 
 ``PYTHONPATH=. python tests/test_torch_workloads.py`` writes them again from the JAX
 package; the tests hold the saved files to a fresh draw.
@@ -48,7 +55,7 @@ from .models.elliptic import nonlinear_elliptic
 from .models.spec import CollocationProblem
 from .ops.backend import default_dtype, resolve_device
 from .ops.kernels import SquaredExponential
-from .parallel.cholesky import BlockCyclicFactor, _block_perm
+from .parallel.cholesky import BlockCyclicFactor, deal_saved_blocks
 from .parallel.mesh import Mesh, make_mesh
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -57,6 +64,9 @@ INPUT_FILES = {
     "burgers": DATA / "burgers_n1000_inputs.npz",
     "eikonal": DATA / "eikonal_n1000_inputs.npz",
     "darcy": DATA / "darcy_n400_inputs.npz",
+    "burgers_notebook": DATA / "burgers_notebook_n1000_inputs.npz",
+    "eikonal_notebook": DATA / "eikonal_notebook_n1000_inputs.npz",
+    "darcy_notebook": DATA / "darcy_notebook_n400_inputs.npz",
 }
 
 
@@ -156,10 +166,7 @@ def factor_from_numpy(local: np.ndarray, diag_inv: np.ndarray, block: int, n: in
     if local.shape != (nb, block, n_pad) or nb * block != n_pad or diag_inv.shape != (nb, block, block):
         raise ValueError(f"local {local.shape} and diag_inv {diag_inv.shape} do not match "
                          f"block {block}, n_pad {n_pad}")
-    if nb % mesh.size:
-        raise ValueError(f"{nb} blocks do not deal to {mesh.size} ranks")
-    natural = np.asarray(local)[np.argsort(_block_perm(nb, n_devices))]
-    mine = natural[mesh.rank :: mesh.size]
+    mine = deal_saved_blocks(local, n_devices, mesh)
     factor = BlockCyclicFactor(t(mine), mesh, mesh.axis, int(block), int(n), int(n_pad),
                                t(diag_inv))
     return factor, t(d_isqrt)

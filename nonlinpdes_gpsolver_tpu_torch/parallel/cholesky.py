@@ -59,6 +59,21 @@ def _block_perm(nb: int, P_: int) -> np.ndarray:
     return perm
 
 
+def deal_saved_blocks(saved: np.ndarray, saved_size: int, mesh: Mesh) -> np.ndarray:
+    """This rank's ``(nb / P, B, n_pad)`` shard of a factor kept as its global
+    ``(nb, B, n_pad)`` array in the slot order of a ``saved_size``-rank mesh
+    (rank q's slots at ``q nbl .. (q + 1) nbl``, the JAX package's sharded
+    layout and its checkpoint's): the blocks go back to natural row order and
+    rank p of ``mesh`` takes global blocks ``p, p + P, ...`` (the same slots
+    when the two meshes have the same size). Only this rank's blocks are
+    copied. ``nb`` must divide by ``mesh.size``."""
+    nb = saved.shape[0]
+    if nb % mesh.size:
+        raise ValueError(f"{nb} block rows do not deal to {mesh.size} ranks (nb % P != 0)")
+    natural = np.argsort(_block_perm(nb, saved_size))  # global block g sits at slot natural[g]
+    return np.asarray(saved)[natural[mesh.rank :: mesh.size]]
+
+
 def first_slot(g: int, P_: int, p: int) -> int:
     """The first slot of rank ``p`` whose global block is at least ``g``."""
     return max(0, -(-(g - p) // P_))

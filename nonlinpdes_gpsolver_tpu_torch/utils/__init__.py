@@ -1,6 +1,13 @@
 from . import classical, config
 from .sampling import sample_random, sample_grid, test_grid
 from .metrics import ErrorStats, PhaseTimers, error_stats
+from .checkpoint import (
+    save_solver_state,
+    load_solver_state,
+    save_distributed_state,
+    load_distributed_state,
+)
+from .profiling import flop_model, tflops
 
 __all__ = [
     "classical",
@@ -11,4 +18,10 @@ __all__ = [
     "ErrorStats",
     "PhaseTimers",
     "error_stats",
+    "save_solver_state",
+    "save_distributed_state",
+    "load_distributed_state",
+    "load_solver_state",
+    "flop_model",
+    "tflops",
 ]

@@ -461,3 +461,59 @@ def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
     for g in got:
         assert not g["failures"], g["l2"]
         assert g["k2"] == g["superblocks"] >= 2
+
+
+@pytest.mark.cuda
+def test_checkpoint_f64_file_resumes_on_card(cuda, tmp_path):
+    """A checkpoint in the JAX package's format saved in f64 (the canonical
+    problem solved on the CPU, nugget 1e-5, 4 GN steps) loads into the
+    problem on the card in f32: the factor and z are the f64 arrays cast,
+    one more GN step and the extension run on the card (one K1 launch, the
+    cross-Gram), and the test L2 passes the gate."""
+    inp = tpt.interop.load_canonical_inputs()
+    cpu = tpt.interop.problem_from_numpy(**inp, device="cpu")
+    fp64 = tpt.factorize(cpu, 1e-5)
+    st64 = tpt.gn_solve(fp64, max_iter=4)
+    tpt.utils.save_solver_state(tmp_path / "f64.npz", fp64, st64)
+    prob = tpt.interop.problem_from_numpy(**inp, device=cuda)
+    fp, st = tpt.utils.load_solver_state(tmp_path / "f64.npz", prob)
+    assert fp.factors["u"].dtype == torch.float32 and fp.factors["u"].is_cuda
+    assert torch.equal(fp.factors["u"].cpu(), fp64.factors["u"].float())
+    assert torch.equal(st.z.cpu(), st64.z.float()) and st.cg_iters.tolist() == [0] * 4
+    resumed = tpt.gn_solve(fp, z0=st.z, max_iter=1)
+    assert bool(resumed.converged_finite)
+    Xt = tpt.utils.test_grid(60, 60, device=cuda)
+    before = gram_tile.LAUNCHES
+    pred = tpt.Posterior(fp, resumed.z).extend(Xt)
+    torch.cuda.synchronize()
+    assert gram_tile.LAUNCHES - before == 1
+    err = tpt.GPSolver.errors(pred, torch.func.vmap(tpt.workloads.u_elliptic)(Xt))
+    assert err.l2 <= GATE_L2, err
+
+
+@pytest.mark.cuda
+def test_solver_gp_on_card(cuda):
+    """The reference-API facade with no ``cfg.device``: the card, f32, the
+    canonical draw's points, 4 GN steps at nugget 1e-5, the 60x60 test grid
+    under the gate with two K1 launches."""
+    import argparse
+
+    from nonlinpdes_gpsolver_tpu_torch.compat import solver_GP
+
+    inp = tpt.interop.load_canonical_inputs()
+    cfg = argparse.Namespace(kernel="Gaussian", kernel_parameter=0.2, nugget=1e-5, GNsteps=4,
+                             initial_sol="rdm", randomseed=1, print_hist=False)
+    u = tpt.workloads.u_elliptic
+    f = tpt.workloads.elliptic_rhs()
+    solver = solver_GP(cfg, PDE_type="Nonlinear_elliptic")
+    solver.set_equation(bdy=u, rhs=f)
+    solver.get_sample(inp["X_domain"], inp["X_boundary"])
+    before = gram_tile.LAUNCHES
+    solver.solve(method="elimination")
+    Xt = tpt.utils.test_grid(60, 60, device=cuda)
+    pred = solver.test(Xt)
+    torch.cuda.synchronize()
+    assert gram_tile.LAUNCHES - before == 2
+    assert pred.is_cuda and pred.dtype == torch.float32
+    stats = solver.get_test_error(torch.func.vmap(u)(Xt), print_option=False)
+    assert stats.l2 <= GATE_L2, stats

@@ -274,3 +274,41 @@ def test_jax_factor_carries_across(factored, n_devices):
     st = tdist.gn_solve_distributed(fp, max_iter=1, step_solver="direct")
     zj = np.asarray(sj.z)
     np.testing.assert_allclose(st.z.numpy(), zj, rtol=0, atol=1e-9 * np.abs(zj).max())
+
+
+def test_direct_step_traces_the_residual_once(monkeypatch):
+    """Fault P4: the mesh path's ``'direct'`` step at P = 1 takes its
+    Jacobian by one ``vmap`` of ``jvp`` over the basis, not by
+    ``torch.func.linearize``, which retraced the residual on every call (3
+    steps took 0.27-0.53 s on the card against 0.010-0.018 s). With
+    ``linearize`` raising, 3 steps call the block residual 3 times a step
+    (the residual, the batched JVP, the damped update's loss), after 4
+    calls to set up (the slice structure, its validation, the first loss)."""
+    import dataclasses
+
+    _, pt = elliptic_pair()
+    calls = [0]
+    b = pt.blocks[0]
+
+    def counted(z, data, _r=b.residual):
+        calls[0] += 1
+        return _r(z, data)
+
+    pt = dataclasses.replace(pt, blocks=(dataclasses.replace(b, residual=counted),))
+    dfp = tdist.factorize_distributed(pt, MESH, nugget=NUGGET["elliptic"], **FACTOR_KW)
+    step_starts = []
+    panel_delta = tdist._panel_delta
+
+    def marked(*args, **kw):
+        step_starts.append(calls[0])
+        return panel_delta(*args, **kw)
+
+    def no_linearize(*args, **kw):
+        raise AssertionError("the 'direct' step called torch.func.linearize")
+
+    monkeypatch.setattr(tdist, "_panel_delta", marked)
+    monkeypatch.setattr(torch.func, "linearize", no_linearize)
+    calls[0] = 0
+    st = tdist.gn_solve_distributed(dfp, max_iter=3, step_solver="direct")
+    assert st.step_solver == "direct" and bool(st.converged_finite)
+    assert step_starts == [4, 7, 10] and calls[0] == 13

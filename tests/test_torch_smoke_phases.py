@@ -1,0 +1,51 @@
+"""``chip_smoke.py``'s slice-5 phases rehearsed on the CPU in f64 at small
+sizes, so that a fault in them shows here before a call on the card:
+``checkpoint`` (the dense round trip on the canonical solve; the mesh case
+on phase 4's problem cut to 300/60, reloaded in the child process that
+blocks jax), ``compat`` and ``perf_report`` (the driver as a subprocess,
+its sizes cut). Each phase's own checks run; the K1 launch counts are the
+card's and are not asserted here, where the plain version stands in."""
+
+import torch
+
+import chip_smoke
+import nonlinpdes_gpsolver_tpu_torch as tpt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+
+CPU = torch.device("cpu")
+
+
+def _canonical():
+    inp = tpt.interop.load_canonical_inputs()
+    Xt = tpt.utils.test_grid(20, 20, device=CPU)
+    return inp, Xt, torch.func.vmap(tpt.workloads.u_elliptic)(Xt)
+
+
+def test_checkpoint_phase_on_cpu():
+    inp, Xt, truth = _canonical()
+    res = tpt.GPSolver(tpt.interop.problem_from_numpy(**inp, device="cpu"), nugget=1e-5).solve(4)
+    dense = chip_smoke.checkpoint_dense(tpt, res.posterior.fp, res.state, Xt, truth)
+    assert dense["factor_bitwise"] and dense["z_bitwise"] and dense["extension_equal"]
+    sizes = (300, 60)
+    big = chip_smoke.large_problem(tpt, CPU, sizes)
+    mres = tpt.GPSolver(big, nugget=1e-5, mesh=tpt.parallel.make_mesh(1, device=CPU),
+                        mesh_block=64).solve(4)
+    mesh = chip_smoke.checkpoint_mesh(mres.posterior.fp, mres.state, mres.timers["factorize"],
+                                      sizes)
+    child = mesh["child"]
+    assert child["factor_bitwise"] and child["residual_rel_diff"] == 0.0
+    assert mesh["gram_rows"] == 660 and mesh["file_bytes"] > 0 and child["jax_imported"] == []
+
+
+def test_compat_phase_on_cpu():
+    inp, Xt, truth = _canonical()
+    out = chip_smoke.compat_phase(tpt, inp, Xt, truth, device="cpu")
+    assert out["device"] == "cpu" and out["dtype"] == "float64" and len(out["losses"]) == 4
+
+
+def test_perf_report_phase_on_cpu():
+    runs = [[a.replace("7800", "200").replace("900", "100") for a in argv]
+            for argv in chip_smoke.PERF_REPORT_RUNS]
+    report = chip_smoke.perf_report_phase(runs, ["--device", "cpu", "--gn_steps", "2"])
+    assert [len(r["rows"]) for r in report] == [2, 1]
+    assert [r["N"] for r in report[0]["rows"]] == [100.0, 200.0]

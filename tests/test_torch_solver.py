@@ -294,7 +294,9 @@ def test_tf32_is_off():
 def test_port_imports_no_jax():
     """The port, imported with jax and the JAX package blocked, runs a CPU
     elliptic solve and a 'woodbury' step of a small Darcy problem built from
-    its saved inputs, and leaves neither in sys.modules."""
+    its saved inputs, and leaves neither in sys.modules. Importing it
+    (``compat`` and ``utils.checkpoint`` included) imports no matplotlib,
+    which the card's machine does not have."""
     code = textwrap.dedent(
         """
         import importlib.abc, sys
@@ -306,6 +308,10 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, Block())
         import torch
         import nonlinpdes_gpsolver_tpu_torch as tpt
+        from nonlinpdes_gpsolver_tpu_torch import compat
+        from nonlinpdes_gpsolver_tpu_torch.utils import checkpoint, plotting
+        assert compat.solver_GP and checkpoint.load_solver_state and plotting.loss_history
+        assert "matplotlib" not in sys.modules
         torch.set_num_threads(1)  # beside other test processes
         inp = tpt.interop.load_canonical_inputs()
         small = {k: v[:40] if k != "inv_sq" else v for k, v in inp.items()}

@@ -71,7 +71,48 @@ def jax_darcy_draw():
     return {**_inputs(prob, k, noise_level=1e-3), "obs": noisy}
 
 
-DRAWS = {"burgers": jax_burgers_draw, "eikonal": jax_eikonal_draw, "darcy": jax_darcy_draw}
+def jax_burgers_notebook_draw():
+    """``notebooks/burgers_demo.ipynb``'s inputs: PRNGKey(2), 1000/200, the
+    precision-convention kernel [3, 20], the seed-0 latent."""
+    Xd, Xb = gpt.utils.sample_random(
+        jax.random.PRNGKey(2), 1000, 200, domain=((0.0, 1.0), (-1.0, 1.0)), time_dependent=True,
+    )
+    k = gpt.SquaredExponential.anisotropic([3.0, 20.0], "precision")
+
+    def g(x):
+        return jnp.where(x[0] == 0.0, -jnp.sin(jnp.pi * x[1]), 0.0)
+
+    prob = gpt.models.burgers(k, Xd, Xb, g, alpha=1.0, nu=0.02, seed=0)
+    return _inputs(prob, k, alpha=1.0, nu=0.02)
+
+
+def jax_eikonal_notebook_draw():
+    """``notebooks/eikonal_demo.ipynb``'s inputs: PRNGKey(0), 1000/200, zero latent."""
+    Xd, Xb = gpt.utils.sample_random(jax.random.PRNGKey(0), 1000, 200)
+    k = gpt.SquaredExponential.gaussian(0.2)
+    prob = gpt.models.eikonal(k, Xd, Xb, rhs_f=lambda x: 1.0, eps=0.1, init="zero", seed=0)
+    return _inputs(prob, k, eps=0.1)
+
+
+def jax_darcy_notebook_draw():
+    """``notebooks/darcy_inverse_demo.ipynb``'s inputs: PRNGKey(9999), 400/100,
+    60 observations with ``default_rng(9999)`` noise of 1e-3, the seed-9999 latent."""
+    xs, ys, U = jc.darcy_fd_solve(78, workloads.darcy_a, lambda x1, x2: np.ones_like(x1))
+    Xd, Xb = gpt.utils.sample_random(jax.random.PRNGKey(9999), 400, 100)
+    Xdata = np.asarray(Xd[:60])
+    clean = RegularGridInterpolator((ys, xs), U)(np.stack([Xdata[:, 1], Xdata[:, 0]], axis=1))
+    noisy = clean + 1e-3 * np.random.default_rng(9999).standard_normal(60)
+    k = gpt.SquaredExponential.gaussian(0.2)
+    prob = gpt.models.darcy_flow(
+        k, k, Xd, Xb, jnp.asarray(noisy), rhs_f=lambda x: 1.0, noise_level=1e-3, seed=9999,
+    )
+    return {**_inputs(prob, k, noise_level=1e-3), "obs": noisy}
+
+
+DRAWS = {"burgers": jax_burgers_draw, "eikonal": jax_eikonal_draw, "darcy": jax_darcy_draw,
+         "burgers_notebook": jax_burgers_notebook_draw,
+         "eikonal_notebook": jax_eikonal_notebook_draw,
+         "darcy_notebook": jax_darcy_notebook_draw}
 
 
 @pytest.mark.parametrize("name", list(DRAWS))

@@ -1,12 +1,14 @@
 """Worker of ``tests/test_torch_ranks.py``: the port's mesh path on P gloo ranks.
 
-    python tests/torch_rank_worker.py DIR 2,4
+    python tests/torch_rank_worker.py DIR 2,4 [GROUP]
 
 for each mesh size P in turn, reads ``DIR/inputs.npz`` (numpy arrays:
 matrices and right-hand sides from numpy seeds, the points and data of the
 JAX package's draws), spawns P ranks on the CPU with ``torch.multiprocessing``, joined by gloo over
-``tcp://127.0.0.1``, and on every rank runs each case of :data:`CASES` (the
-P = 4 run takes those marked for it), in f64 with one torch thread. Rank r
+``tcp://127.0.0.1``, and on every rank runs each case of :data:`CASES` in
+``GROUP`` (default ``mesh``, ``tests/test_torch_ranks.py``'s; ``checkpoint``
+is ``tests/test_torch_checkpoint.py``'s) marked for P, in f64 with one
+torch thread. A case may read and write files in ``DIR`` (``c.dir``). Rank r
 writes ``DIR/out_P{P}_rank{r}.npz``, one key per case and result. The
 worker imports torch and the port only: ``jax`` and the JAX package are
 blocked from its import system, and it fails if either was imported. Any
@@ -45,17 +47,17 @@ import torch.multiprocessing as mp  # noqa: E402
 CASES = {}
 
 
-def case(*sizes):
-    """Register a case for the mesh sizes ``sizes`` (default: P = 2)."""
+def case(*sizes, group="mesh"):
+    """Register a case of ``group`` for the mesh sizes ``sizes`` (default: P = 2)."""
     def put(fn):
-        CASES[fn.__name__] = (fn, sizes or (2,))
+        CASES[fn.__name__] = (fn, sizes or (2,), group)
         return fn
     return put
 
 
 class Ctx:
-    def __init__(self, mesh, one, inp):
-        self.mesh, self.one, self.inp = mesh, one, inp
+    def __init__(self, mesh, one, inp, directory):
+        self.mesh, self.one, self.inp, self.dir = mesh, one, inp, directory
         self.rank, self.P = mesh.rank, mesh.size
 
     def t(self, key):
@@ -352,10 +354,46 @@ def interop(c):
     return {"r": np_(fp.whitened_residual(c.t("jf_z"))), "local": np_(fac.local)}
 
 
+# -- utils/checkpoint.py across ranks: tests/test_torch_checkpoint.py -----------------
+
+@case(4, group="checkpoint")
+def checkpoint_save(c):
+    """The mesh path at P = 4 (nugget 1e-9, 8-row blocks, 2 GN steps) saved
+    to ``DIR/port_P4.npz``."""
+    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
+    from nonlinpdes_gpsolver_tpu_torch.utils.checkpoint import save_distributed_state
+
+    dfp = td.factorize_distributed(elliptic(c, "k"), c.mesh, nugget=1e-9, block=8)
+    st = td.gn_solve_distributed(dfp, max_iter=2)
+    save_distributed_state(os.path.join(c.dir, "port_P4.npz"), dfp, st)
+    return {"z": np_(st.z), "r": np_(dfp.whitened_residual(st.z)),
+            "local": np_(dfp.factors["u"].local), "diag_inv": np_(dfp.factors["u"].diag_inv)}
+
+
+@case(2, group="checkpoint")
+def checkpoint_load(c):
+    """The P = 4 file and the JAX package's 8-device file (``DIR/jax_P8.npz``)
+    reloaded at P = 2: z, the whitened residual at it, this rank's shard and
+    the rebuilt diagonal-block inverses; one more GN step from the P = 4 state."""
+    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
+    from nonlinpdes_gpsolver_tpu_torch.utils.checkpoint import load_distributed_state
+
+    prob = elliptic(c, "k")
+    out = {}
+    for name in ("port_P4", "jax_P8"):
+        dfp, st = load_distributed_state(os.path.join(c.dir, f"{name}.npz"), prob, c.mesh)
+        out.update({f"{name}/z": np_(st.z), f"{name}/r": np_(dfp.whitened_residual(st.z)),
+                    f"{name}/local": np_(dfp.factors["u"].local),
+                    f"{name}/diag_inv": np_(dfp.factors["u"].diag_inv)})
+        if name == "port_P4":
+            out["resume/losses"] = np_(td.gn_solve_distributed(dfp, z0=st.z, max_iter=1).losses)
+    return out
+
+
 # -- the ranks ---------------------------------------------------------------------
 
 
-def rank_main(rank, P, port, directory):
+def rank_main(rank, P, port, directory, group):
     _block_jax()
     torch.set_num_threads(1)
     from nonlinpdes_gpsolver_tpu_torch.parallel import initialize_distributed, make_mesh
@@ -366,10 +404,10 @@ def rank_main(rank, P, port, directory):
         assert (mesh.size, mesh.rank, mesh.backend) == (P, rank, "gloo")
         with np.load(os.path.join(directory, "inputs.npz")) as npz:
             inp = {k: npz[k] for k in npz.files}
-        c = Ctx(mesh, one, inp)
+        c = Ctx(mesh, one, inp, directory)
         out = {}
-        for name, (fn, sizes) in CASES.items():
-            if P in sizes:
+        for name, (fn, sizes, in_group) in CASES.items():
+            if P in sizes and in_group == group:
                 out.update({f"{name}/{k}": v for k, v in fn(c).items()})
         leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         if leaked:
@@ -382,14 +420,14 @@ def rank_main(rank, P, port, directory):
         dist.destroy_process_group()
 
 
-def main(directory, sizes):
+def main(directory, sizes, group="mesh"):
     _block_jax()
     for P in sizes:
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        mp.spawn(rank_main, args=(P, port, directory), nprocs=P, join=True)
+        mp.spawn(rank_main, args=(P, port, directory, group), nprocs=P, join=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], [int(P) for P in sys.argv[2].split(",")])
+    main(sys.argv[1], [int(P) for P in sys.argv[2].split(",")], *sys.argv[3:4])
