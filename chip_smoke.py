@@ -7,7 +7,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. build of every CUDA kernel of the path from ``csrc/`` (seconds, ptxas log:
-   registers, shared memory, spills);
+   registers, shared memory, spills; K2's instantiations apart);
 2. the Gram kernel K1 against its plain PyTorch version on the card, one
    block per launch: 10 kernel x operator-pair cases at 1500 x 700 plus a
    ragged 33 x 17 case, in f32 (limit 1e-5 of the block's scale) and f64
@@ -41,7 +41,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 6. the Krylov steps: ``'cg'`` and ``'woodbury'`` against ``'direct'`` on the
    JAX package's Krylov test fixtures, gated in f64, reported in f32, and
    woodbury's inner iterations warm-started (:func:`krylov_steps`);
-7. ``k2_vs_plain``: K2 (K1 with the equilibrating epilogue) against its
+7. ``k2_vs_plain``: K2 (the equilibrated strip kernel) against its
    plain version on every superblock window of a 5,000-row elliptic layout
    and on Darcy u layouts, f32 and f64, one launch each, exact unit
    diagonal, nothing written outside the slot; timed; and K2 on a rank's
@@ -53,7 +53,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    more solves, phase seconds, superblocks and attempts, rungs, probe
    quality, CG iterations and the device ms of one kernel solve, gate
    3.402e-3; then each of its 21 K2 windows and its K1 launches checked
-   against their plain versions and timed;
+   against their plain versions and timed (K2: the sum's share of the
+   bound and each window's, least and most, as in phase 7);
 9. ``mesh_vs_dense``: phase 4's 16,200-row problem through
    ``mesh=make_mesh(1)``, cold and warm, beside the dense path's seconds
    (the card's datum on ``_AUTO_MESH_GRAM_ROWS``), same gate, its K2
@@ -107,6 +108,7 @@ timed apart.
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import tempfile
@@ -198,6 +200,20 @@ def k1_bound_ms(plan, dtype_name):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_ptxas(ptxas):
+    """K2's instantiations in the ptxas lines, as ``{"K2<float, dim 2,
+    mapped>": "registers ...; spills ..."}``."""
+    out, name = {}, None
+    for ln in ptxas:
+        m = re.search(r"gram_equilibrated_kernelI([fd])Li(\d)ELb([01])", ln)
+        if "entry function" in ln:
+            name = m and (f"K2<{'float' if m[1] == 'f' else 'double'}, dim {m[2]}"
+                          f"{', mapped' if m[3] == '1' else ''}>")
+        elif name:
+            out[name] = "; ".join(filter(None, [out.get(name), ln.split(": ", 1)[-1]]))
+    return out
 
 
 def blockwise_rel_err(plan, got, ref):
@@ -495,6 +511,9 @@ def time_k2(cases, reps, plain_reps):
         del buf
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
     total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    total["share_of_bound"] = total["bound_ms"] / total["ms"]
+    shares = [r["share_of_bound"] for r in rows]
+    total["window_share_min_max"] = [min(shares), max(shares)]
     return rows, total
 
 
@@ -1181,7 +1200,7 @@ def main():
     with open(log_path) as fh:
         ptxas = [ln.strip() for ln in fh
                  if "entry function" in ln or "registers" in ln or "spill" in ln]
-    emit("build", kernel="gram_tile", seconds=build_s, ptxas=ptxas)
+    emit("build", kernel="gram_tile", seconds=build_s, ptxas=ptxas, k2_ptxas=k2_ptxas(ptxas))
 
     # -- 2. K1 against its plain version --------------------------------------
     kernels = {

@@ -48,25 +48,66 @@
 //   host-to-device copy and no sync per launch. It fits the classic 4 KB
 //   parameter limit (static_assert below).
 //
-// K2: K1 with an equilibrating epilogue. It replaces the XLA strips of the
-// JAX package's mesh path, nonlinpdes_gpsolver_tpu/parallel/fused.py:188
-// (_fused_chol_kernel, the superblock column strip) and parallel/gram.py:109
-// (_assembly_kernel, the two-pass strip), which evaluate the closed form on
-// a strip, scale it by d_r[i] d_c[j] and write an exact unit diagonal. Here
-// the same plan walk runs with a second template instantiation whose tiles,
-// still in registers, become
+// K2: the equilibrated Gram strip kernel, gram_equilibrated_kernel. It
+// replaces the XLA strips of the JAX package's mesh path,
+// nonlinpdes_gpsolver_tpu/parallel/fused.py:188 (_fused_chol_kernel, the
+// superblock column strip) and parallel/gram.py:109 (_assembly_kernel, the
+// two-pass strip), which evaluate the closed form on a strip, scale it by
+// d_r[i] d_c[j] and write an exact unit diagonal:
 //
 //     out[i, j] = 1 if i == j else d_r[i] * d_c[j] * K[i, j]
 //
-// before they are staged and stored: the view `out` starts on the matrix's
-// diagonal (a factor's column panel L[c0:, c0:c0+S], or the whole padded
-// matrix), so its row i and column j are the same global index exactly when
-// i == j. Fill blocks (flag kFill) evaluate nothing: they cover the padding
-// rows and columns, which come out 0 off the diagonal and 1 on it. A K2
-// plan has no mirrored or symmetric blocks (a strip below its top S x S is
-// not symmetric), so every entry is computed and written once. It is bound
-// by the same bytes written as K1; the epilogue adds two scale loads a row
-// and a column per thread (cached) and one multiply per output.
+// The view `out` starts on the matrix's diagonal (a factor's column panel
+// L[c0:, c0:c0+S], or the whole padded matrix), so its row i and column j
+// are the same global index exactly when i == j. K2 walks the same plans as
+// K1 and shares eval_tile and exp_neg with it. Fill blocks (flag kFill)
+// evaluate nothing: they cover the padding rows and columns, 0 off the
+// diagonal and 1 on it. A K2 plan has no mirrored or symmetric blocks (a
+// strip below its top S x S is not symmetric), so every entry is computed
+// and written once; the epilogue multiplies by d_r[i] * d_c[j] formed
+// first, as the JAX package does.
+//
+// What bounds it on the H100. The bytes are K1's (each output written
+// once: 3.7 GB over mesh_solve's 21 f32 windows, 1.16 ms at 3.35 TB/s), but
+// it spends twice K1's instructions a byte, since it evaluates every entry
+// it writes. scripts/torch_k2_split.py on those windows (NVIDIA H100 80GB
+// HBM3, 700 W): K2 as a second instantiation of K1's loop took 2.85 ms,
+// 2.37 ms without its global stores and 1.70 ms without its evaluation.
+// The stores ran after the evaluation, not beside it, and the evaluation
+// alone (with an epilogue that loaded its scales from global memory and
+// mapped every row again for each entry) was below half the bound.
+//
+// What the design does about it.
+// - Stores beside evaluation. A tile is staged in one of two dense 64 x 64
+//   stages in shared memory and written by one TMA store
+//   (cp.async.bulk.tensor.2d, its own bulk async-group) through a
+//   CUtensorMap of the out view, while the CTA evaluates the next tile into
+//   the other stage. The map is encoded per launch with
+//   cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (the
+//   library does not link libcuda), and rides in the kernel parameter
+//   (K2Args, 4,032 bytes in f64: the classic 4 KB limit holds). TMA rather
+//   than a store warp: the copy costs the compute warps no registers and no
+//   issue slots, and those are what the evaluation is short of.
+// - One barrier a tile (K1 has two). After it, thread 0 issues the last
+//   tile's store; before the next, it waits until that store has read its
+//   stage (cp.async.bulk.wait_group.read), which the tile after next
+//   overwrites. The same barrier publishes the next tile's inputs, so no
+//   mbarrier is needed: there is no producer warp to hand off to.
+// - A box starts on a 16-byte boundary and clips only at the map's edge. A
+//   tile cut short inside the view (a segment end, a fill block) or one
+//   whose first column is no 16-byte multiple (a segment that starts there)
+//   is stored by the threads from their registers, each warp to 32
+//   consecutive entries of a row, and so is every tile of a view whose base
+//   or row stride is no 16-byte multiple.
+// - The epilogue's inputs come with the tile: its rows' window rows (the
+//   row map evaluated once a row), their d_r and the columns' d_c are copied
+//   into shared memory by the cp.async prefetch of its coordinates. The
+//   barrier ORs the rows' diagonal hits, and only a tile that holds the unit
+//   diagonal compares rows with columns entry by entry.
+// - Two CTAs an SM in f32 at 127 registers (one CTA an SM, 255 registers:
+//   2.86 ms); f64 keeps one CTA. The split of the new kernel: 2.14 ms (54%
+//   of the bound), 2.13 ms without its stores, 1.37 ms without its
+//   evaluation. Its outputs are bitwise those of the K1-shaped loop.
 //
 // K2 on a rank's block-cyclic rows. Across P ranks, rank p holds the global
 // row blocks g = j * P + p of the factor (B rows each) as its slots j, so a
@@ -83,12 +124,13 @@
 // (L0 the view's first local row, shift = p * B - c0), which picks the
 // row's point (x_row0 is the window row of the block's first point) and its
 // scale d_r[w], and places the unit diagonal where w equals the window
-// column. The map is a third instantiation (template flag kMap): K1 and the
-// unmapped K2 compile as before, w(v) = v.
+// column. The map is a template flag of K2 (kMap); without it w(v) = v.
 //
-// Measurement switches, for scripts/torch_k1_split.py only (the library is
-// never built with them): K1_SPLIT_NO_EVAL replaces the evaluation by a
-// coordinate difference, K1_SPLIT_NO_STORE drops the global stores.
+// Measurement switches, for scripts/torch_k1_split.py and
+// scripts/torch_k2_split.py only (the library is never built with them):
+// K1_SPLIT_NO_EVAL replaces the evaluation by a coordinate difference and
+// K1_SPLIT_NO_STORE drops the global stores, in both kernels;
+// K2_CTAS_PER_SM sets K2's f32 CTAs an SM.
 //
 // Precision. In f32 the exponential is the same Cody-Waite routine as
 // ops/kernels.py::exp_neg_accurate (rintf, the LN2_HI/LN2_LO split, the
@@ -99,6 +141,7 @@
 // q = sum_k a_k (u_k^2) and the fused multiply-adds round differently from
 // the plain version, within 1e-5 (f32) and 1e-12 (f64) of a block's scale.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -247,7 +290,15 @@ using Coords = T[2][DIM][kTile];
 
 // Start the asynchronous copy (cp.async, no registers held) of a tile's
 // coordinates; the caller waits with cp_async_wait() and a barrier.
-template <typename T, int DIM, bool kMap>
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  // valid: copy *src; else zero-fill dst (src is not read)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(sizeof(T)), "r"(valid ? static_cast<int>(sizeof(T)) : 0));
+}
+
+template <typename T, int DIM>
 __device__ __forceinline__ void fetch_coords(const Params<T>& p, const TileLoc& t,
                                              Coords<T, DIM>& c, int tid) {
   const BlockDesc& d = p.blk[t.blk];
@@ -256,13 +307,9 @@ __device__ __forceinline__ void fetch_coords(const Params<T>& p, const TileLoc& 
     const int side = e / (DIM * kTile), rem = e % (DIM * kTile);
     const int r = rem / DIM, k = rem % DIM;
     const T* src = p.pts[side ? d.y_set : d.x_set];
-    int row = (side ? t.c0 : t.r0) + r;
-    const bool valid = !t.fill && row < (side ? d.m : d.n);  // a fill block has no points
-    if (kMap && !side) row = window_row<kMap>(p, d.row_off + row) - d.x_row0;  // its point
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(&c[side][k][r]));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-                 "l"(valid ? src + static_cast<int64_t>(row) * DIM + k : src),
-                 "n"(sizeof(T)), "r"(valid ? static_cast<int>(sizeof(T)) : 0));
+    const int row = (side ? t.c0 : t.r0) + r;
+    const bool valid = row < (side ? d.m : d.n);
+    cp_async(&c[side][k][r], valid ? src + static_cast<int64_t>(row) * DIM + k : src, valid);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -380,33 +427,6 @@ __device__ __forceinline__ void eval_tile(const Params<T>& p, int table, const C
     }
 }
 
-// K2's epilogue on the thread's 16 outputs: scale by d_r[i] d_c[j], in the
-// order of the JAX package (the product of the scales first), and put an
-// exact 1 where i == j (i the row's window row). Entries past the tile's
-// edge are never stored.
-template <bool kMap, typename T>
-__device__ __forceinline__ void equilibrate(const Params<T>& p, const TileLoc& t,
-                                            T (&val)[kRows][kCols]) {
-  const BlockDesc& d = p.blk[t.blk];
-  const int r0 = d.row_off + t.r0, c0 = d.col_off + t.c0;
-  T dc[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    const int c = threadIdx.x + j * kThreadsX;
-    dc[j] = c < t.cols ? p.d_c[c0 + c] : T(0);
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = threadIdx.y + i * kThreadsY;
-    const int w = window_row<kMap>(p, r0 + r);
-    const T dr = r < t.rows ? p.d_r[w] : T(0);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      val[i][j] = (w == c0 + static_cast<int>(threadIdx.x) + j * kThreadsX)
-                      ? T(1) : val[i][j] * (dr * dc[j]);
-  }
-}
-
 // Store a staged tile row by row (a warp store covers consecutive
 // entries of a row), its lower half from the transpose on a diagonal tile,
 // then its transpose into the mirror block the same way. Full tiles of
@@ -474,14 +494,24 @@ __device__ __forceinline__ void store_tile(const Params<T>& p, const TileLoc& t,
   }
 }
 
-// A persistent CTA walks the tile list with stride gridDim.x; the next
+#ifdef K1_SPLIT_NO_EVAL
+// The measurement builds' stand-in for eval_tile: a coordinate difference.
+template <typename T, int DIM>
+__device__ __forceinline__ void split_no_eval(const Coords<T, DIM>& c, T (&val)[kRows][kCols]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      val[i][j] = c[0][0][threadIdx.y + i * kThreadsY] - c[1][0][threadIdx.x + j * kThreadsX];
+}
+#endif
+
+// K1: a persistent CTA walks the tile list with stride gridDim.x; the next
 // tile's coordinates are copied into the other buffer while the current
 // tile is computed.
 // In f32 two CTAs fit on an SM (at most 128 registers a thread); in f64
-// the doubled registers would spill, so one. kEpi selects K2 (the
-// equilibrating epilogue and fill tiles); K1 is the instantiation without.
-// kMap (K2 only) maps the out view's rows to a rank's block-cyclic rows.
-template <typename T, int DIM, bool kEpi, bool kMap>
+// the doubled registers would spill, so one.
+template <typename T, int DIM>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 gram_plan_kernel(const __grid_constant__ Params<T> p) {
   __shared__ T stage[kTile][kTile + 1];
@@ -491,7 +521,7 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
 
   int tile = static_cast<int>(blockIdx.x), buf = 0;
   TileLoc cur = locate(p, tile);
-  fetch_coords<T, DIM, kMap>(p, cur, coords[0], tid);
+  fetch_coords<T, DIM>(p, cur, coords[0], tid);
   for (;;) {
     // The barrier also orders the previous tile's stores (reads of the
     // stage) before this tile's writes to it.
@@ -502,27 +532,14 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
     TileLoc nxt = cur;
     if (more) {
       nxt = locate(p, next, cur.blk);
-      fetch_coords<T, DIM, kMap>(p, nxt, coords[buf ^ 1], tid);
+      fetch_coords<T, DIM>(p, nxt, coords[buf ^ 1], tid);
     }
     T val[kRows][kCols];
 #ifdef K1_SPLIT_NO_EVAL
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        val[i][j] = coords[buf][0][0][threadIdx.y + i * kThreadsY] -
-                    coords[buf][1][0][threadIdx.x + j * kThreadsX];
+    split_no_eval<T, DIM>(coords[buf], val);
 #else
-    if (kEpi && cur.fill) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) val[i][j] = T(0);
-    } else {
-      eval_tile<T, DIM>(p, cur.table, coords[buf], val);
-    }
+    eval_tile<T, DIM>(p, cur.table, coords[buf], val);
 #endif
-    if (kEpi) equilibrate<kMap>(p, cur, val);
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -540,42 +557,344 @@ gram_plan_kernel(const __grid_constant__ Params<T> p) {
   }
 }
 
-// CTAs of gram_plan_kernel<T, DIM, kEpi, kMap> resident on one SM, times the
-// SMs of the current device: the persistent grid (queried once per process).
-template <typename T, int DIM, bool kEpi, bool kMap>
-int resident_ctas() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
-                                                      gram_plan_kernel<T, DIM, kEpi, kMap>,
-                                                      kThreads, 0) != cudaSuccess)
-      return 0;
-    n = sms * per_sm;
+// ---- K2 ---------------------------------------------------------------------
+
+#ifndef K2_CTAS_PER_SM
+#define K2_CTAS_PER_SM 2  // in f32; f64 takes one (its registers)
+#endif
+
+// K2's shared memory: the ring of two dense output stages (the sources of
+// the TMA stores) and, per buffer, one tile's coordinates, scales and window
+// rows.
+template <typename T, int DIM>
+struct K2Smem {
+  T stage[2][kTile][kTile];
+  Coords<T, DIM> coords[2];
+  T d_r[2][kTile];     // d_r at the tile rows' window rows
+  T d_c[2][kTile];     // d_c at the tile's columns
+  int wrow[2][kTile];  // the tile rows' window rows
+};
+
+// K2's kernel parameter: the plan, and the out view as a TMA tensor map.
+template <typename T>
+struct K2Args {
+  CUtensorMap out_map;  // rows x cols, row stride ldo, 64 x 64 boxes (zero without tma)
+  Params<T> p;
+  int rows, cols;  // the out view: the union of the plan's blocks
+  int tma;         // the view takes TMA stores (16-byte aligned base and row stride)
+};
+
+static_assert(sizeof(K2Args<double>) <= 4096, "K2's parameter exceeds the 4 KB limit");
+
+// Start the cp.async copies of a K2 tile's inputs into buffer b. Thread
+// r < 64 maps tile row r to its window row w (once per row and tile),
+// keeps w and copies the row's point and d_r[w]; thread 64 + c copies
+// column c's point and d_c. Fill tiles, and rows or columns past the
+// block's edge, get zeros. Returns whether the thread's row meets the unit
+// diagonal inside the tile.
+template <typename T, int DIM, bool kMap>
+__device__ __forceinline__ bool fetch_k2(const Params<T>& p, const TileLoc& t, K2Smem<T, DIM>& sm,
+                                         int b, int tid) {
+  const BlockDesc& d = p.blk[t.blk];
+  bool hit = false;
+  if (tid < kTile) {
+    const int r = tid;
+    const int w = window_row<kMap>(p, d.row_off + t.r0 + r);
+    const int col0 = d.col_off + t.c0;
+    sm.wrow[b][r] = w;
+    hit = r < t.rows && w >= col0 && w < col0 + t.cols;
+    const bool valid = !t.fill && r < t.rows;
+    const T* x = p.pts[d.x_set];
+    const T* src = x + static_cast<int64_t>(w - d.x_row0) * DIM;  // the row's point
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) cp_async(&sm.coords[b][0][k][r], valid ? src + k : x, valid);
+    cp_async(&sm.d_r[b][r], valid ? p.d_r + w : p.d_r, valid);
+  } else if (tid < 2 * kTile) {
+    const int c = tid - kTile;
+    const bool valid = !t.fill && c < t.cols;
+    const T* y = p.pts[d.y_set];
+    const T* src = y + static_cast<int64_t>(t.c0 + c) * DIM;
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) cp_async(&sm.coords[b][1][k][c], valid ? src + k : y, valid);
+    cp_async(&sm.d_c[b][c], valid ? p.d_c + d.col_off + t.c0 + c : p.d_c, valid);
   }
-  return n;
+  asm volatile("cp.async.commit_group;\n" ::);
+  return hit;
 }
 
-template <typename T, int DIM, bool kEpi, bool kMap>
-cudaError_t launch_dim(const Params<T>& p, cudaStream_t stream) {
-  const int ctas = resident_ctas<T, DIM, kEpi, kMap>();
+// K2's epilogue on the thread's 16 outputs, from the staged scales: scale
+// by d_r[i] d_c[j] in the order of the JAX package (the product of the
+// scales first); with kDiag, an exact 1 where the row's window row equals
+// the column (col0: the tile's first column in the view). Entries past the
+// tile's edge are never stored.
+template <bool kDiag, typename T, int DIM>
+__device__ __forceinline__ void equilibrate(const K2Smem<T, DIM>& sm, int b, int col0,
+                                            T (&val)[kRows][kCols]) {
+  T dc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) dc[j] = sm.d_c[b][threadIdx.x + j * kThreadsX];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = threadIdx.y + i * kThreadsY;
+    const T dr = sm.d_r[b][r];
+    const int w = kDiag ? sm.wrow[b][r] : 0;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      val[i][j] = (kDiag && w == col0 + static_cast<int>(threadIdx.x) + j * kThreadsX)
+                      ? T(1) : val[i][j] * (dr * dc[j]);
+  }
+}
+
+// A fill tile: 0, and 1 where the row's window row equals the column.
+template <typename T, int DIM>
+__device__ __forceinline__ void fill_tile(const K2Smem<T, DIM>& sm, int b, int col0, bool diag,
+                                          T (&val)[kRows][kCols]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int w = sm.wrow[b][threadIdx.y + i * kThreadsY];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      val[i][j] = (diag && w == col0 + static_cast<int>(threadIdx.x) + j * kThreadsX) ? T(1)
+                                                                                      : T(0);
+  }
+}
+
+// A tile the TMA box cannot take, stored by the threads from their
+// registers, as store_tile stores a ragged tile: a warp writes 32
+// consecutive entries of a row at a time.
+template <typename T>
+__device__ __forceinline__ void store_direct(const Params<T>& p, const TileLoc& t,
+                                             const T (&val)[kRows][kCols]) {
+  const BlockDesc& d = p.blk[t.blk];
+  const int64_t ldo = p.ldo;
+  T* base = p.out + static_cast<int64_t>(d.row_off + t.r0) * ldo + d.col_off + t.c0;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = threadIdx.y + i * kThreadsY;
+    if (r >= t.rows) break;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = threadIdx.x + j * kThreadsX;
+      if (c < t.cols) base[r * ldo + c] = val[i][j];
+    }
+  }
+}
+
+// One TMA store of a staged 64 x 64 tile to (row, col) of the out view,
+// clipped at the view's edge, as its own bulk async-group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* stage, int row,
+                                          int col) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(static_cast<unsigned>(__cvta_generic_to_shared(stage))), "r"(col), "r"(row)
+      : "memory");
+}
+
+// K2: K1's plan walk with the equilibrating epilogue, every entry
+// computed and written once, its stores asynchronous. Tile k is evaluated
+// into stage k % 2; after the barrier that starts tile k + 1, thread 0
+// hands stage k % 2 to the TMA unit, which writes it to global memory while
+// the CTA evaluates tile k + 1 into the other stage. Before the barrier
+// that starts tile k + 2, thread 0 waits until the TMA unit has read the
+// stage out (cp.async.bulk.wait_group.read), so the one barrier a tile
+// orders the inputs, the stages and the scales; it also ORs the rows'
+// diagonal hits, and only a tile that holds a diagonal entry compares
+// window rows with columns entry by entry. Tiles the box cannot take,
+// and every tile of a view without a tensor map, are stored by the threads.
+// kMap maps the view's rows to a rank's block-cyclic rows.
+template <typename T, int DIM, bool kMap>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? K2_CTAS_PER_SM : 1)
+gram_equilibrated_kernel(const __grid_constant__ K2Args<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  K2Smem<T, DIM>& sm = *reinterpret_cast<K2Smem<T, DIM>*>(smem);
+  const Params<T>& p = a.p;
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+
+  int tile = static_cast<int>(blockIdx.x), buf = 0;
+  TileLoc cur = locate(p, tile);
+  bool hit = fetch_k2<T, DIM, kMap>(p, cur, sm, 0, tid);
+  int staged_row = -1, staged_col = 0;  // the last tile's place, if it waits in its stage
+  for (;;) {
+    cp_async_wait();
+    const bool diag = __syncthreads_or(hit);
+    const bool issued = staged_row >= 0;
+#ifdef K1_SPLIT_NO_STORE
+    if (p.ldo < 0)  // never: the stage writes stay, the stores go
+#endif
+      if (tid == 0 && issued)
+        tma_store(&a.out_map, &sm.stage[buf ^ 1][0][0], staged_row, staged_col);
+    const int next = tile + static_cast<int>(gridDim.x);
+    const bool more = next < p.n_tiles;
+    TileLoc nxt = cur;
+    if (more) {
+      nxt = locate(p, next, cur.blk);
+      hit = fetch_k2<T, DIM, kMap>(p, nxt, sm, buf ^ 1, tid);
+    }
+    const BlockDesc& d = p.blk[cur.blk];
+    const int row0 = d.row_off + cur.r0, col0 = d.col_off + cur.c0;
+    T val[kRows][kCols];
+#ifdef K1_SPLIT_NO_EVAL
+    split_no_eval<T, DIM>(sm.coords[buf], val);
+    if (diag) equilibrate<true>(sm, buf, col0, val);
+    else equilibrate<false>(sm, buf, col0, val);
+#else
+    if (cur.fill) {
+      fill_tile(sm, buf, col0, diag, val);
+    } else {
+      eval_tile<T, DIM>(p, cur.table, sm.coords[buf], val);
+      if (diag) equilibrate<true>(sm, buf, col0, val);
+      else equilibrate<false>(sm, buf, col0, val);
+    }
+#endif
+    // The box starts on a 16-byte boundary, and it clips at the view's edge
+    // only: it takes a tile that reaches the box's edge or the view's.
+    const bool by_tma = a.tma && col0 % (16 / sizeof(T)) == 0 &&
+                        (cur.rows == kTile || row0 + cur.rows == a.rows) &&
+                        (cur.cols == kTile || col0 + cur.cols == a.cols);
+    if (by_tma) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          sm.stage[buf][threadIdx.y + i * kThreadsY][threadIdx.x + j * kThreadsX] = val[i][j];
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // seen by the TMA unit
+    } else {
+#ifdef K1_SPLIT_NO_STORE
+      if (p.ldo < 0)
+#endif
+        store_direct(p, cur, val);
+    }
+    // The store issued above has read the stage that the next tile writes.
+    if (tid == 0 && issued) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    staged_row = by_tma ? row0 : -1;
+    staged_col = col0;
+    if (!more) break;
+    tile = next;
+    cur = nxt;
+    buf ^= 1;
+  }
+  if (staged_row >= 0) {
+    __syncthreads();
+#ifdef K1_SPLIT_NO_STORE
+    if (p.ldo < 0)
+#endif
+      if (tid == 0) tma_store(&a.out_map, &sm.stage[buf][0][0], staged_row, staged_col);
+  }
+  // The stage must outlive the last store's read of it; the writes
+  // themselves complete with the grid.
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// CTAs of `kernel` resident on one SM with `smem` bytes of dynamic shared
+// memory, times the SMs of the current device (0 on an error).
+template <typename K>
+int resident_ctas(K kernel, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      (smem > 0 &&
+       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+           cudaSuccess) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+// The persistent grids, queried once per process and instantiation.
+template <typename T, int DIM>
+cudaError_t launch_k1_dim(const Params<T>& p, cudaStream_t stream) {
+  static int ctas = 0;
+  if (ctas == 0) ctas = resident_ctas(gram_plan_kernel<T, DIM>, 0);
   if (ctas <= 0) return cudaErrorInvalidConfiguration;
   const dim3 block(kThreadsX, kThreadsY);
-  gram_plan_kernel<T, DIM, kEpi, kMap>
-      <<<ctas < p.n_tiles ? ctas : p.n_tiles, block, 0, stream>>>(p);
+  gram_plan_kernel<T, DIM><<<ctas < p.n_tiles ? ctas : p.n_tiles, block, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, bool kEpi, bool kMap>
-cudaError_t launch_epi(const Params<T>& p, cudaStream_t stream) {
+template <typename T, int DIM, bool kMap>
+cudaError_t launch_k2_dim(const K2Args<T>& a, cudaStream_t stream) {
+  constexpr int smem = sizeof(K2Smem<T, DIM>);
+  static int ctas = 0;
+  if (ctas == 0) ctas = resident_ctas(gram_equilibrated_kernel<T, DIM, kMap>, smem);
+  if (ctas <= 0) return cudaErrorInvalidConfiguration;
+  const dim3 block(kThreadsX, kThreadsY);
+  gram_equilibrated_kernel<T, DIM, kMap>
+      <<<ctas < a.p.n_tiles ? ctas : a.p.n_tiles, block, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_k1(const Params<T>& p, cudaStream_t stream) {
   switch (p.dim) {
-    case 1: return launch_dim<T, 1, kEpi, kMap>(p, stream);
-    case 2: return launch_dim<T, 2, kEpi, kMap>(p, stream);
-    case 3: return launch_dim<T, 3, kEpi, kMap>(p, stream);
+    case 1: return launch_k1_dim<T, 1>(p, stream);
+    case 2: return launch_k1_dim<T, 2>(p, stream);
+    case 3: return launch_k1_dim<T, 3>(p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T, bool kMap>
+cudaError_t launch_k2_map(const K2Args<T>& a, cudaStream_t stream) {
+  switch (a.p.dim) {
+    case 1: return launch_k2_dim<T, 1, kMap>(a, stream);
+    case 2: return launch_k2_dim<T, 2, kMap>(a, stream);
+    case 3: return launch_k2_dim<T, 3, kMap>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime once per
+// process (the library does not link against libcuda); null if missing.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// K2 on the out view of p: its tensor map where TMA can describe the view.
+template <typename T>
+cudaError_t launch_k2(const Params<T>& p, cudaStream_t stream) {
+  K2Args<T> a = {};
+  a.p = p;
+  for (int b = 0; b < p.n_blocks; ++b) {
+    const BlockDesc& d = p.blk[b];
+    if (d.row_off + d.n > a.rows) a.rows = d.row_off + d.n;
+    if (d.col_off + d.m > a.cols) a.cols = d.col_off + d.m;
+  }
+  const unsigned long long row_bytes = static_cast<unsigned long long>(p.ldo) * sizeof(T);
+  a.tma = reinterpret_cast<uintptr_t>(p.out) % 16 == 0 && row_bytes % 16 == 0;
+  if (a.tma) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.cols), static_cast<cuuint64_t>(a.rows)};
+    const cuuint64_t strides[1] = {row_bytes};
+    const cuuint32_t box[2] = {kTile, kTile}, unit[2] = {1, 1};
+    if (encode(&a.out_map,
+               sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+               2, p.out, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  return p.map_P ? launch_k2_map<T, true>(a, stream) : launch_k2_map<T, false>(a, stream);
 }
 
 // Fill a plan's parameters from the host arrays (once per plan and dtype);
@@ -674,8 +993,7 @@ cudaError_t launch(const Params<T>& packed, void* out, long long ldo, const void
     if (epi ? (d.flags & (kMirror | kSymmetric)) : (d.flags & kFill)) return cudaErrorInvalidValue;
     if (aligned && d.row_off % kVec == 0 && d.col_off % kVec == 0) d.flags |= kAligned;
   }
-  if (!epi) return launch_epi<T, false, false>(p, stream);
-  return p.map_P ? launch_epi<T, true, true>(p, stream) : launch_epi<T, true, false>(p, stream);
+  return epi ? launch_k2(p, stream) : launch_k1(p, stream);
 }
 
 }  // namespace
@@ -718,10 +1036,11 @@ extern "C" int gram_plan_pack(int is_double, int dim, int n_sets, const int* blo
 // is (n_s, dim), row-major and contiguous; out has row stride ldo and unit
 // column stride, and every block lies inside it. With d_r and d_c null it
 // is K1; with both given (one scale per row and per column of out) it is
-// K2, the equilibrating epilogue, for a plan without mirrored or symmetric
-// blocks whose out view starts on the matrix's diagonal. Launches on
-// `stream` and returns cudaGetLastError() (0 on success); it does not
-// synchronise.
+// K2, the equilibrated strip, for a plan without mirrored or symmetric
+// blocks whose out view starts on the matrix's diagonal (TMA stores where
+// out's base and ldo are 16-byte multiples). Launches on `stream` and
+// returns cudaGetLastError() (0 on success, an error if the tensor map
+// cannot be made); it does not synchronise.
 extern "C" int gram_plan_launch(int is_double, const void* params, void* out, long long ldo,
                                 const void* d_r, const void* d_c, const void* const* pts,
                                 int n_sets, void* stream) {

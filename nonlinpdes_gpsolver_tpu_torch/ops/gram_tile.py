@@ -16,17 +16,18 @@ points), so that only its upper tiles are computed. Plans are cached by
 cross-Gram) and :func:`pair_plan` (one block, behind
 :func:`gram_tile_pair_fn`).
 
-K2 is the same kernel with an equilibrating epilogue (the strips of the JAX
-package's mesh path, ``parallel/fused.py:188`` and ``parallel/gram.py:109``):
-an *equilibrated* plan (``equilibrated=True``, built by
-``parallel/fused.py::window_plan``) computes every entry of its blocks, has
-fill blocks for the padding, and runs through
-:meth:`GramPlan.run_equilibrated`, which writes
+K2, a kernel of its own in the same source, walks the same plans with an
+equilibrating epilogue (the strips of the JAX package's mesh path,
+``parallel/fused.py:188`` and ``parallel/gram.py:109``): an *equilibrated*
+plan (``equilibrated=True``, built by ``parallel/fused.py::window_plan``)
+computes every entry of its blocks, has fill blocks for the padding, and
+runs through :meth:`GramPlan.run_equilibrated`, which writes
 ``1 if i == j else d_r[i] d_c[j] K[i, j]`` into an output view that starts
-on the matrix's diagonal. A *rank-mapped* K2 plan (``row_map``) writes only
-the rows that one rank of a P-rank mesh owns in the block-cyclic layout,
-into that rank's local rows (``csrc/gram_tile.cu``, "K2 on a rank's
-block-cyclic rows").
+on the matrix's diagonal. K2 stores its finished tiles by TMA while it
+evaluates the next (:meth:`GramPlan.k2_tiles` lists which tiles go that
+way). A *rank-mapped* K2 plan (``row_map``) writes only the rows that one
+rank of a P-rank mesh owns in the block-cyclic layout, into that rank's
+local rows (``csrc/gram_tile.cu``, "K2 on a rank's block-cyclic rows").
 
 Which version runs depends only on where the tensors lie: for CPU tensors
 :meth:`GramPlan.run` walks the blocks with the plain version
@@ -68,7 +69,7 @@ _MIRROR, _SYMMETRIC, _FILL = 1, 2, 8
 LAUNCHES = 0
 """Number of K1 launches in this process (the wrapper adds one per launch)."""
 K2_LAUNCHES = 0
-"""Number of K2 launches (K1 with the equilibrating epilogue) in this process."""
+"""Number of K2 launches (the equilibrated strip kernel) in this process."""
 
 
 def _combined_terms(inv_sq, terms_x, terms_y):
@@ -379,6 +380,37 @@ class GramPlan:
             return v
         P, B, L0, shift = self.row_map
         return ((L0 + v) // B) * P * B + (L0 + v) % B + shift
+
+    def k2_tiles(self, out: torch.Tensor):
+        """K2's walk into the view ``out``, tile by tile as the kernel makes
+        it: ``(rows, cols, diag, by_tma)``, the tile's row and column slices,
+        whether it holds a unit-diagonal entry (the kernel compares window
+        rows with columns on those tiles only), and whether a TMA box stores
+        it. A box needs a view whose base and row stride are 16-byte
+        multiples; it starts on a 16-byte boundary and clips at the view's
+        edge only, so it takes a tile whose first column lies on one and
+        that reaches the box's edge or the view's. The threads store the
+        others."""
+        if not self.equilibrated:
+            raise ValueError("k2_tiles walks an equilibrated (K2) plan")
+        vec = 16 // out.element_size()  # entries in 16 bytes
+        ldo = max(out.stride(0), self.shape[1])
+        tma = out.data_ptr() % 16 == 0 and ldo % vec == 0
+        h = max(b.row_off + b.n for b in self.blocks)
+        s = max(b.col_off + b.m for b in self.blocks)
+        w = self.window_rows()
+        tiles = []
+        for index in range(self.n_tiles):
+            b, tr, tc = self.tile_coords(index)
+            blk = self.blocks[b]
+            r0, c0 = blk.row_off + tr * TILE, blk.col_off + tc * TILE
+            nr, nc = min(TILE, blk.n - tr * TILE), min(TILE, blk.m - tc * TILE)
+            wt = w[r0 : r0 + nr]
+            tiles.append((slice(r0, r0 + nr), slice(c0, c0 + nc),
+                          bool(((wt >= c0) & (wt < c0 + nc)).any()),
+                          tma and c0 % vec == 0 and (nr == TILE or r0 + nr == h)
+                          and (nc == TILE or c0 + nc == s)))
+        return tiles
 
     def _plain_equilibrated(self, sets, d_r, d_c, out):
         """K2's plain version: the blocks one by one (each row's point picked

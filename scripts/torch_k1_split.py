@@ -30,14 +30,19 @@ from nonlinpdes_gpsolver_tpu_torch.ops.operators import identity, laplacian  # n
 VARIANTS = {"kernel": [], "no_store": ["-DK1_SPLIT_NO_STORE"], "no_eval": ["-DK1_SPLIT_NO_EVAL"]}
 
 
-def build(tag, defines):
+def build(tag, defines, source=_build.CSRC / "gram_tile.cu"):
+    """Compile ``source`` with ``defines`` into ``_build/split/``; returns the
+    library's path and the ptxas lines of the build (registers, spills)."""
     out_dir = _build.BUILD_DIR / "split"
     out_dir.mkdir(parents=True, exist_ok=True)
     out = out_dir / f"libgram_tile_{tag}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(out),
-           str(_build.CSRC / "gram_tile.cu")]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return str(out)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(out), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {source} ({tag}):\n{proc.stderr}")
+    log = (proc.stdout + proc.stderr).splitlines()
+    return str(out), [ln.strip() for ln in log
+                      if "entry function" in ln or "registers" in ln or "spill" in ln]
 
 
 def use(lib_path):
@@ -68,7 +73,7 @@ def main():
         "id x id 7800^2": (gram_tile.pair_plan(k, identity(), identity(), 7800, 7800),
                            [dom, dom]),
     }
-    libs = {tag: build(tag, defs) for tag, defs in VARIANTS.items()}
+    libs = {tag: build(tag, defs)[0] for tag, defs in VARIANTS.items()}
     use(libs["kernel"])
     for name, (plan, sets) in cases.items():
         got = plan.run(sets)

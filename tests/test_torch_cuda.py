@@ -300,6 +300,29 @@ def test_small_darcy_woodbury_step_matches_direct(cuda):
     assert 0 < int(wood.cg_iters[0]) < 2000
 
 
+def _check_k2_launch(plan, sets, d_r, d_c, big, slot, limit):
+    """One K2 launch of ``plan`` into ``slot``, a view of ``big`` (all 7),
+    against its plain version: every block within ``limit`` of its scale,
+    the fill blocks exact, the unit diagonal exactly 1 where the rows' window
+    rows meet it, nothing written outside the slot (``slot`` is refilled)."""
+    before = (gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES)
+    plan.run_equilibrated(sets, d_r, d_c, out=slot)
+    torch.cuda.synchronize()
+    assert (gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES) == (before[0], before[1] + 1)
+    ref = torch.empty_like(slot)
+    plan._plain_equilibrated(sets, d_r, d_c, ref)
+    _assert_blocks_close(plan, slot, ref, limit)
+    w = plan.window_rows(slot.device)
+    on = w < plan.shape[1]
+    assert bool((slot[torch.nonzero(on)[:, 0], w[on]] == 1.0).all())
+    for b in plan.blocks:
+        if b.fill:
+            rs, cs = slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m)
+            assert bool(torch.equal(slot[rs, cs], ref[rs, cs]))
+    slot.fill_(7.0)
+    assert bool((big == 7.0).all())
+
+
 def _darcy_u(n_dom, device, dtype):
     gen = torch.Generator(device=device).manual_seed(0)
     Xd, Xb = tpt.utils.sample_random(gen, n_dom, n_dom // 4, dtype=dtype)
@@ -329,21 +352,7 @@ def test_k2_windows_match_plain(cuda, dtype, limit, n_dom, block, sup):
         sets = gram.window_sets(plan, pts)
         h, S = plan.shape
         big = torch.full((h + 5, S + 9), 7.0, dtype=dtype, device=cuda)
-        before = (gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES)
-        plan.run_equilibrated(sets, d[c0:], d[c0:c1], out=big[2 : 2 + h, 4 : 4 + S])
-        torch.cuda.synchronize()
-        assert (gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES) == (before[0], before[1] + 1)
-        got = big[2 : 2 + h, 4 : 4 + S]
-        ref = torch.empty_like(got)
-        plan._plain_equilibrated(sets, d[c0:], d[c0:c1], ref)
-        _assert_blocks_close(plan, got, ref, limit)
-        assert bool((got.diagonal() == 1.0).all())
-        for b in plan.blocks:
-            if b.fill:
-                rs, cs = slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m)
-                assert bool(torch.equal(got[rs, cs], ref[rs, cs]))
-        got.fill_(7.0)
-        assert bool((big == 7.0).all())
+        _check_k2_launch(plan, sets, d[c0:], d[c0:c1], big, big[2 : 2 + h, 4 : 4 + S], limit)
 
 
 @pytest.mark.cuda
@@ -389,25 +398,72 @@ def test_k2_rank_mapped_windows_match_plain(cuda, dtype, limit, ranks, rank):
             continue
         sets = gram.window_sets(plan, pts)
         big = torch.full((h + 5, S + 9), 7.0, dtype=dtype, device=cuda)
-        before = gram_tile.K2_LAUNCHES
-        plan.run_equilibrated(sets, d[c0:], d[c0:c1], out=big[2 : 2 + h, 4 : 4 + S])
-        torch.cuda.synchronize()
-        assert gram_tile.K2_LAUNCHES == before + 1
+        _check_k2_launch(plan, sets, d[c0:], d[c0:c1], big, big[2 : 2 + h, 4 : 4 + S], limit)
         launched += 1
-        got = big[2 : 2 + h, 4 : 4 + S]
-        ref = torch.empty_like(got)
-        plan._plain_equilibrated(sets, d[c0:], d[c0:c1], ref)
-        _assert_blocks_close(plan, got, ref, limit)
-        w = plan.window_rows(cuda)
-        on = w < S
-        assert bool((got[torch.nonzero(on)[:, 0], w[on]] == 1.0).all())
-        for b in plan.blocks:
-            if b.fill:
-                rs, cs = slice(b.row_off, b.row_off + b.n), slice(b.col_off, b.col_off + b.m)
-                assert bool(torch.equal(got[rs, cs], ref[rs, cs]))
-        got.fill_(7.0)
-        assert bool((big == 7.0).all())
     assert launched >= 2
+
+
+K2_STORE_CASES = {
+    # name: (layout, rows a block, P ranks, rank, window)
+    "tma": ("elliptic", 128, 1, 0, (0, 256)),
+    "ragged": ("darcy", 128, 1, 0, (0, 512)),
+    "column": ("darcy", 512, 1, 0, (0, 1536)),
+    "base": ("darcy", 128, 1, 0, (0, 512)),
+    "ldo": ("darcy", 128, 1, 0, (0, 512)),
+    "rank 3 of 4": ("darcy", 128, 4, 3, (512, 1024)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("case", list(K2_STORE_CASES))
+def test_k2_store_paths(cuda, dtype, limit, case):
+    """Each store path of K2 in one launch, held to the plain version as
+    :func:`_check_k2_launch` holds it (the paths from ``GramPlan.k2_tiles``):
+    ``tma``, the elliptic layout at 256 + 128 points (segments of 256, 256
+    and 128 rows), every tile inside its block and stored by TMA;
+    ``ragged``, the Darcy u layout at N_d 300 (segments of 300 and 75 rows,
+    a fill block), tiles cut by a segment end or a fill block stored by the
+    threads beside full ones by TMA; ``column``, its one window at 512-row
+    blocks, whose fill columns start at column 1,275 (no 16-byte multiple):
+    full tiles there by the threads; ``base`` and ``ldo``, the ``ragged``
+    window in a view whose base, or whose row stride, is no 16-byte
+    multiple: every tile by the threads; ``rank 3 of 4``, a rank-mapped
+    window of the Darcy layout (1,536 padded rows) whose last block lies in
+    the padding."""
+    from nonlinpdes_gpsolver_tpu_torch.parallel import fused, gram, pad_to_blocks
+
+    layout, block, ranks, rank, (c0, c1) = K2_STORE_CASES[case]
+    if layout == "darcy":
+        blk, pts = _darcy_u(300, cuda, dtype)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        Xd, Xb = tpt.utils.sample_random(gen, 256, 128, dtype=dtype)
+        prob = tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb, None,
+                                             None)
+        blk, pts = prob.block("u"), prob.points
+    sizes = tpt.ops.observable_sizes(blk.observables, pts)
+    n_pad = pad_to_blocks(sum(sizes), block, ranks)
+    plan = fused.window_plan(blk.kernel, blk.observables, sizes, c0, c1, n_pad, ranks, rank,
+                             block)
+    h, S = plan.shape
+    vec = 128 // torch.finfo(dtype).bits  # entries in 16 bytes
+    ldo, col = S + 2 * vec + (case == "ldo"), vec + (case == "base")
+    big = torch.full((h + 4, ldo), 7.0, dtype=dtype, device=cuda)
+    slot = big[2 : 2 + h, col : col + S]
+    aligned = slot.data_ptr() % 16 == 0 and ldo * slot.element_size() % 16 == 0
+    assert aligned == (case not in ("base", "ldo"))
+    tiles = plan.k2_tiles(slot)
+    by_tma = sum(t[3] for t in tiles)
+    expect = {"tma": by_tma == len(tiles), "base": by_tma == 0, "ldo": by_tma == 0}
+    assert expect.get(case, 0 < by_tma < len(tiles)), (case, by_tma, len(tiles))
+    full_by_threads = [t for t in tiles if not t[3] and t[0].stop - t[0].start == gram_tile.TILE
+                       and t[1].stop - t[1].start == gram_tile.TILE]
+    assert bool(full_by_threads) == (case in ("column", "base", "ldo")), case
+    assert 0 < sum(t[2] for t in tiles) < len(tiles)  # tiles with and without the diagonal
+    assert any(b.fill for b in plan.blocks) == (case != "tma")
+    d = torch.linspace(0.5, 1.5, n_pad, dtype=dtype, device=cuda)
+    _check_k2_launch(plan, gram.window_sets(plan, pts), d[c0:], d[c0:c1], big, slot, limit)
 
 
 def _two_rank_solve(rank, world, port, out_dir):

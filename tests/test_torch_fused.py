@@ -274,6 +274,48 @@ def test_fused_refuses_tf32(monkeypatch):
         fused.assemble_factor_fused(kt, ot, pt, MESH, block=8, nugget=nugget)
 
 
+@pytest.mark.parametrize("ranks,rank", [(1, 0), (2, 0), (2, 1), (4, 3)])
+def test_k2_walk_covers_ragged_windows_once(ranks, rank):
+    """K2's walk (``GramPlan.k2_tiles``) over every superblock window of the
+    elliptic layout at 300 + 45 points (segments of 300, 300 and 45 rows:
+    ragged tiles; 32-row blocks, 256-wide superblocks: a rank's 64-row tile
+    skips columns between its row blocks), on one device and rank-mapped
+    (rank 3 of 4's last block lies in the padding): every entry of the
+    window written exactly once; exactly the tiles that hold a unit-
+    diagonal entry (a row whose window row is a column of the tile) flagged;
+    a TMA box starting on a 16-byte boundary and, clipped at the output's
+    edge, exactly its tile; and no TMA store into an output the box cannot
+    describe (a row stride of no 16-byte multiple)."""
+    kt, ot, pt = _elliptic(tops, 300, 45)
+    sizes = tops.observable_sizes(ot, {k: torch.as_tensor(v) for k, v in pt.items()})
+    n_pad = cholesky.pad_to_blocks(sum(sizes), 32, ranks)
+    kinds = set()
+    for kb0, F in fused._superblocks(n_pad // 32, 8):
+        c0, c1 = kb0 * 32, (kb0 + F) * 32
+        plan = fused.window_plan(kt, ot, sizes, c0, c1, n_pad, ranks, rank, 32)
+        h, S = plan.shape
+        if h == 0:
+            continue
+        w = plan.window_rows().numpy()
+        diagonal = np.zeros((h, S), bool)
+        on = w < S
+        diagonal[np.nonzero(on)[0], w[on]] = True
+        cover = np.zeros((h, S), np.int64)
+        out = torch.empty((h, S), dtype=torch.float64)
+        for rows, cols, diag, by_tma in plan.k2_tiles(out):
+            cover[rows, cols] += 1
+            assert diag == bool(diagonal[rows, cols].any()), (c0, rows, cols)
+            if by_tma:
+                box = (slice(rows.start, min(rows.start + gram_tile.TILE, h)),
+                       slice(cols.start, min(cols.start + gram_tile.TILE, S)))
+                assert box == (rows, cols) and cols.start % 2 == 0
+            kinds.add((diag, by_tma))
+        assert (cover == 1).all()
+        unaligned = torch.empty((h, S + 1), dtype=torch.float64)[:, :S]
+        assert not any(t[3] for t in plan.k2_tiles(unaligned))
+    assert kinds == {(d, t) for d in (False, True) for t in (False, True)}
+
+
 def test_k2_plain_version_and_plan_checks():
     """K2's plain version writes ``1 if i == j else d_r[i] d_c[j] K[i, j]``
     (the padding 0 off the diagonal) into a strided slot; a K2 plan refuses
