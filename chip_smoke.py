@@ -41,59 +41,67 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 6. the Krylov steps: ``'cg'`` and ``'woodbury'`` against ``'direct'`` on the
    JAX package's Krylov test fixtures, gated in f64, reported in f32, and
    woodbury's inner iterations warm-started (:func:`krylov_steps`);
-7. ``k2_vs_plain``: K2 (the equilibrated strip kernel) against its
+7. ``gn_graphs``: the Gauss-Newton loop recorded as CUDA graphs and
+   replayed, against its steps run eagerly on the card (:func:`gn_graphs`):
+   the canonical solve (``'structured'`` and ``'direct'``), phase 4's
+   16,200 rows, the Darcy inverse workload, the Krylov fixtures of phase 6 in f64 and phase 9's
+   42,500-row problem on the mesh path (``'cg'``): the dense replays
+   bitwise the eager runs', the mesh one within 1e-5 of z's scale; the
+   replay alone under ``torch.cuda.set_sync_debug_mode("error")``; the
+   capture ms, replays, host reads, graph pool bytes and seconds of both;
+8. ``k2_vs_plain``: K2 (the equilibrated strip kernel) against its
    plain version on every superblock window of a 5,000-row elliptic layout
    and on Darcy u layouts, f32 and f64, one launch each, exact unit
    diagonal, nothing written outside the slot; timed; and K2 on a rank's
    block-cyclic rows (rank-mapped plans: ranks 0 and 1 of 2, rank 3 of 4)
    the same way (:func:`k2_vs_plain`);
-8. ``mesh_solve``: ``workloads.mesh_elliptic`` (42,500 Gram rows) through
+9. ``mesh_solve``: ``workloads.mesh_elliptic`` (42,500 Gram rows) through
    plain ``GPSolver(problem, nugget=1e-5)``, which ``auto_mesh`` must route
    to the mesh path: cold, warm (K1 and K2 launches, peak memory) and two
    more solves, phase seconds, superblocks and attempts, rungs, probe
    quality, CG iterations and the device ms of one kernel solve, gate
    3.402e-3; then each of its 21 K2 windows and its K1 launches checked
    against their plain versions and timed (K2: the sum's share of the
-   bound and each window's, least and most, as in phase 7);
-9. ``mesh_vs_dense``: phase 4's 16,200-row problem through
+   bound and each window's, least and most, as in phase 8);
+10. ``mesh_vs_dense``: phase 4's 16,200-row problem through
    ``mesh=make_mesh(1)``, cold and warm, beside the dense path's seconds
    (the card's datum on ``_AUTO_MESH_GRAM_ROWS``), same gate, its K2
    windows and K1 launches timed;
-10. ``mesh_darcy``: ``workloads.darcy_past_wall`` (N_d 3,000) under its gates,
+11. ``mesh_darcy``: ``workloads.darcy_past_wall`` (N_d 3,000) under its gates,
     its routed step solver (``'woodbury'``), deflation rank, CG iterations,
     memory and seconds, its K2 windows and K1 launches timed;
-11. ``mesh_steps``: every step solver of the mesh path against the dense
+12. ``mesh_steps``: every step solver of the mesh path against the dense
     ``'direct'`` step on the JAX package's mesh-test fixtures, gated in
     f64 (:func:`mesh_steps`);
-12. ``mesh_ranks``: two spawned ranks sharing the card over gloo, every
+13. ``mesh_ranks``: two spawned ranks sharing the card over gloo, every
     collective staged through host memory (:func:`mesh_ranks`): each
     rank's rank-mapped K2 windows of ``mesh_elliptic`` checked and timed,
     ``mesh_elliptic`` routed to ``'cg'`` (cold, then warm: launches, peak
     memory a rank, factorize and GN seconds) and ``darcy_past_wall`` with
-    ``'woodbury'`` under their gates, test L2 within 10% of phases 8 and
-    10, z beside phase 8's, and the five step solvers of phase 11 in f64;
-13. ``mesh_nccl``: one rank per visible card over NCCL (:func:`mesh_nccl`),
-    phase 9's 16,200-row problem under its gate, z beside phase 9's; on a
+    ``'woodbury'`` under their gates, test L2 within 10% of phases 9 and
+    11, z beside phase 9's, and the five step solvers of phase 12 in f64;
+14. ``mesh_nccl``: one rank per visible card over NCCL (:func:`mesh_nccl`),
+    phase 10's 16,200-row problem under its gate, z beside phase 10's; on a
     machine with one card, a group of one, and it says so;
-14. ``checkpoint``: (a) phase 3's canonical factor and 4-step state
+15. ``checkpoint``: (a) phase 3's canonical factor and 4-step state
     through ``utils/checkpoint.py`` (the JAX package's file format): the
     factor, inverse and z bitwise, 2 GN steps resumed from the loaded z
     to at most 1.01 times the saved last loss, the extension through the
     reloaded factor equal to the original's in one K1 launch, under the
-    gate; (b) phase 9's 16,200-row mesh factor and state saved, then
+    gate; (b) phase 10's 16,200-row mesh factor and state saved, then
     reloaded in a child process that imports the port only
     (:func:`checkpoint_child`): the factor bitwise, the whitened residual
     within 1e-6 of its scale, 2 resumed steps, the extension (K1 launches
     counted) under the gate; the file's bytes and the save and load seconds
-    beside phase 9's factorize seconds;
-15. ``compat``: the reference-API ``solver_GP`` flow on the card
+    beside phase 10's factorize seconds;
+16. ``compat``: the reference-API ``solver_GP`` flow on the card
     (:func:`compat_phase`): 2 K1 launches, under the gate;
-16. ``perf_report``: the port's ``examples/perf_report.py`` as a
+17. ``perf_report``: the port's ``examples/perf_report.py`` as a
     subprocess, elliptic at 900 and 7,800 and ``--mesh 1`` at 7,800, warm:
-    its table rows. Phases 4, 8 and 9 carry each phase's TFLOP/s by the
+    its table rows. Phases 4, 9 and 10 carry each phase's TFLOP/s by the
     JAX package's FLOP model (``flop_model_tflops``: the model's count,
     not a roofline share);
-17. the script's seconds so far (the build included), the kernel summary
+18. the script's seconds so far (the build included), the kernel summary
     line (K1 with its mesh-path, checkpoint and compat launches, K2 with
     its rank-mapped ones), then the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
@@ -317,9 +325,9 @@ def krylov_steps(tpt, dev):
     step, first, X = gn._delta_woodbury(fp, z, 0.0, **kw)
     z = z - step
     out["f64_darcy_woodbury_warm"] = {
-        "first_step_iters": first,
-        "second_step_iters_cold": gn._delta_woodbury(fp, z, 0.0, **kw)[1],
-        "second_step_iters_warm": gn._delta_woodbury(fp, z, 0.0, X0=X, **kw)[1],
+        "first_step_iters": int(first),
+        "second_step_iters_cold": int(gn._delta_woodbury(fp, z, 0.0, **kw)[1]),
+        "second_step_iters_warm": int(gn._delta_woodbury(fp, z, 0.0, X0=X, **kw)[1]),
     }
     fp = elliptic(torch.float32)
     out["f32_elliptic_cg"] = compare(fp, 4, step_solver="cg", cg_tol=1e-14)[0]
@@ -399,6 +407,188 @@ def mesh_steps(tpt, dev, mesh=None, dtypes=None):
                 }
                 if dtype == torch.float64:
                     check(rel <= 1e-6, f"mesh {solver} on {name}: z differs by {rel:.3e}")
+    return out
+
+
+def graph_pool_bytes(pool):
+    """Bytes of the card's memory held by the graph pool ``pool`` (its
+    segments in the allocator's snapshot)."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def replay_steps(tpt, fp, loop, z0, steps, mesh):
+    """``steps`` Gauss-Newton steps of the recorded ``loop`` from ``z0``,
+    as ``gn_solve`` (``mesh``: ``gn_solve_distributed``) runs them, without
+    the call's set-up: for the replay under the sync debug mode."""
+    from nonlinpdes_gpsolver_tpu_torch.ops.graphs import Flag
+    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed
+
+    c = loop.carry
+    with loop.rec.scope():
+        c.reset(z0)
+        if mesh:
+            c.loss.copy_(fp.loss(z0))
+        flag = Flag(z0.device)
+        for _ in range(steps):
+            loop.step()
+            if mesh:
+                flag.post(c.code)
+                if flag.read() & 1:
+                    distributed._halve(fp, c, 1.0)
+    return c.z.clone()
+
+
+def gn_graph_case(tpt, fp, run, z0, steps, mesh=False):
+    """One configuration of the Gauss-Newton loop (``run(fp)``: a
+    ``gn_solve`` call on ``fp``) on the card: its steps run eagerly
+    (``graphs.uncaptured``), then three calls with recording on (the first
+    warms up: a Krylov loop records after its first step, an exact one
+    runs eagerly; the second records an exact loop; the third only
+    replays), then the replay alone under
+    ``torch.cuda.set_sync_debug_mode("error")``. Seconds, host reads,
+    replays and captures of each call; z of the replay against the eager
+    run's."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+
+    def timed():
+        graphs.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        st = run(fp)
+        sync()
+        return st, {"seconds": time.perf_counter() - t0, "host_reads": graphs.HOST_READS,
+                    "replays": graphs.REPLAYS, "captures": graphs.CAPTURES,
+                    "capture_ms": graphs.CAPTURE_SECONDS * 1e3,
+                    "cg_iters": st.cg_iters.tolist()}
+
+    n_loops = len(fp.graphs)
+    with graphs.uncaptured():  # earlier phases ran these code paths: no warm-up
+        eager, eager_row = timed()
+    check(len(fp.graphs) == n_loops, "an uncaptured run recorded a graph")
+    first, first_row = timed()
+    second, second_row = timed()
+    replayed, rep_row = timed()
+    check(first_row["captures"] + second_row["captures"] > 0, "no graph was recorded")
+    check(rep_row["captures"] == 0 and rep_row["replays"] > 0,
+          f"the third run recorded {rep_row['captures']} graphs, replayed {rep_row['replays']}")
+    loop = list(fp.graphs.values())[-1]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z_debug = replay_steps(tpt, fp, loop, z0, steps, mesh)
+        sync()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return {
+        "eager": eager_row, "first": first_row, "recorded": second_row, "replayed": rep_row,
+        "z_abs_diff": float((replayed.z - eager.z).abs().max()),
+        "z_scale": float(eager.z.abs().max()),
+        "z_bitwise": all(bool(torch.equal(st.z, eager.z)) for st in (first, second, replayed)),
+        "losses_equal": replayed.losses.tolist() == eager.losses.tolist(),
+        "sync_debug_replay_bitwise": bool(torch.equal(z_debug, replayed.z)),
+        "losses": replayed.losses.tolist(), "step_solver": replayed.step_solver,
+        "graphs": sorted(loop.rec.graphs), "graph_pool_bytes": graph_pool_bytes(loop.rec.pool),
+    }
+
+
+def gn_graphs(tpt, dev, mesh_full=True):
+    """Phase ``gn_graphs``: the Gauss-Newton loop recorded as CUDA graphs
+    and replayed, against the same steps run eagerly on the card
+    (:func:`gn_graph_case`), on the canonical solve (``'structured'``, 4
+    steps), its ``'direct'`` step, phase 4's 16,200-row problem
+    (``'structured'``: the peak memory with its pool), the Darcy inverse workload
+    (``'structured'``, 8 steps), the Krylov fixtures of ``krylov_steps``
+    in f64 (elliptic ``'cg'``, 4 steps; Darcy ``'woodbury'`` at nugget
+    1e-3, 2 steps), and ``mesh_solve``'s
+    42,500-row problem on the mesh path (``'cg'``; ``mesh_full=False``: a
+    2,000 + 400 cut). The dense replays must equal the eager runs bitwise;
+    the mesh replay within 1e-5 of z's scale (its CG exit may land one
+    iteration apart on a tie)."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import gn_solve_distributed
+
+    out = {}
+
+    def dense(name, fp, steps, **kw):
+        z0 = fp.problem.init_latent()
+        row = gn_graph_case(tpt, fp, lambda f: tpt.gn_solve(f, z0=z0, max_iter=steps, **kw),
+                            z0, steps)
+        check(row["z_bitwise"] and row["losses_equal"] and row["sync_debug_replay_bitwise"],
+              f"gn_graphs {name}: the replay differs from the eager steps "
+              f"({row['z_abs_diff']:.3e})")
+        out[name] = row
+
+    inp = tpt.interop.load_canonical_inputs()
+    prob = tpt.interop.problem_from_numpy(**inp, device=dev)
+    fp = tpt.factorize(prob, 1e-5)
+    dense("canonical_structured", fp, 4)
+    dense("canonical_direct", fp, 4, step_solver="direct")
+    for key, solver in out.items():
+        check(solver["replayed"]["host_reads"] == 0,
+              f"gn_graphs {key}: {solver['replayed']['host_reads']} host reads")
+    del fp
+    big = large_problem(tpt, dev)
+    torch.cuda.reset_peak_memory_stats()
+    fp = tpt.factorize(big, 1e-5)
+    dense("large_structured", fp, 4)
+    out["large_structured"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del fp, big
+    torch.cuda.empty_cache()
+    w = tpt.workloads.darcy(device=dev)
+    dense("darcy_structured", tpt.factorize(w.problem, w.nugget), w.max_iter)
+    check(out["darcy_structured"]["replayed"]["host_reads"] == 0, "gn_graphs darcy: host reads")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def u(x):
+        return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1])
+
+    def rhs(x):
+        return -torch.trace(torch.func.hessian(u)(x)) + u(x) ** 3
+
+    Xd, Xb = tpt.utils.sample_random(gen, 120, 32, dtype=torch.float64)
+    k = tpt.SquaredExponential.gaussian(0.3)
+    fp = tpt.factorize(tpt.models.nonlinear_elliptic(k, Xd, Xb, rhs, u, seed=2), 1e-10)
+    dense("krylov_elliptic_cg_f64", fp, 4, step_solver="cg", cg_tol=1e-14)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Xd, Xb = tpt.utils.sample_random(gen, 48, 16, dtype=torch.float64)
+    k = tpt.SquaredExponential.gaussian(0.4)
+    obs = torch.linspace(0.0, 0.01, 12, dtype=torch.float64, device=dev)
+    prob = tpt.models.darcy_flow(k, k, Xd, Xb, obs, lambda x: torch.ones_like(x[0]),
+                                 noise_level=1e-2, seed=3)
+    fp = tpt.factorize(prob, 1e-3, solve_mode="trsm")  # 1e-3: a third of 1e-4's CG iterations
+    dense("krylov_darcy_woodbury_f64", fp, 2, step_solver="woodbury", cg_tol=1e-9,
+          cg_maxiter=2000)
+    for key in ("krylov_elliptic_cg_f64", "krylov_darcy_woodbury_f64"):
+        row = out[key]["replayed"]
+        check(row["host_reads"] <= sum(row["cg_iters"]) + len(row["cg_iters"]) + 1,
+              f"gn_graphs {key}: {row['host_reads']} host reads for {sum(row['cg_iters'])} "
+              "CG iterations")
+    del fp, w
+    torch.cuda.empty_cache()
+    sizes = {} if mesh_full else {"n_domain": 2000, "n_boundary": 400}
+    w = tpt.workloads.mesh_elliptic(device=dev, **sizes)
+    from nonlinpdes_gpsolver_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, device=dev)
+    dfp = tpt.solvers.factorize_distributed(w.problem, mesh, nugget=w.nugget, block=512)
+    z0 = w.problem.init_latent()
+    row = gn_graph_case(tpt, dfp, lambda f: gn_solve_distributed(f, z0=z0, max_iter=w.max_iter),
+                        z0, w.max_iter, mesh=True)
+    for key in ("eager", "replayed"):
+        r = row[key]
+        r["ms_per_cg_iter"] = r["seconds"] / max(sum(r["cg_iters"]), 1) * 1e3
+    row["z_rel_diff"] = row["z_abs_diff"] / row["z_scale"]
+    check(row["z_rel_diff"] <= 1e-5 and row["sync_debug_replay_bitwise"],
+          f"gn_graphs mesh: the replay differs from the eager steps ({row['z_rel_diff']:.3e})")
+    row["gram_rows"] = dfp.factors["u"].n
+    out["mesh_elliptic_cg"] = row
+    del dfp, w
+    torch.cuda.empty_cache()
     return out
 
 
@@ -791,7 +981,7 @@ def mesh_nccl_rank(rank, world, tmp, backend, sizes, device=None):
     import torch
 
     import nonlinpdes_gpsolver_tpu_torch as tpt
-    from nonlinpdes_gpsolver_tpu_torch.parallel import initialize_distributed, make_mesh
+    from nonlinpdes_gpsolver_tpu_torch.parallel import comm, initialize_distributed, make_mesh
 
     check(initialize_distributed(backend=backend), f"the {backend} group did not start")
     mesh = make_mesh(world, device=device)
@@ -816,9 +1006,11 @@ def mesh_nccl_rank(rank, world, tmp, backend, sizes, device=None):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    comm.COLLECTIVES = 0
     res, err, secs = run()
     k1, k2 = counts()
     out = {"rank": rank, "ranks": mesh.size, "backend": mesh.backend, "device": str(dev),
+           "collectives": comm.COLLECTIVES,
            "group_of_one": mesh.size == 1, "gram_rows": 2 * n + nb, "cold_seconds": cold,
            "e2e_seconds": secs, "phase_seconds": res.timers, "test_l2": err.l2,
            "max_memory_allocated": (torch.cuda.max_memory_allocated()
@@ -898,6 +1090,7 @@ def mesh_nccl(dev, z1, sizes=FULL_SIZES, backend="nccl", world=None):
               f"mesh_nccl rank {r['rank']} launched K1/K2 {r['k1_launches']}/{r['k2_launches']}")
         check(r["converged_finite"], f"mesh_nccl rank {r['rank']}: a GN step had no finite trial")
         check(r["backend"] == backend, f"mesh_nccl ran over {r['backend']}")
+        check(r["collectives"] > 0, f"mesh_nccl rank {r['rank']} made no {backend} collective")
     check(z_rel <= Z_REL_GATE, f"mesh_nccl z {z_rel:.3e} of its scale from one device")
     return {"ranks": ranks, "z_rel_diff_to_one_device": z_rel}
 
@@ -1502,12 +1695,18 @@ def main():
     krylov = krylov_steps(tpt, dev)
     emit("krylov_steps", seconds=time.perf_counter() - t_krylov, card=card, **krylov)
 
-    # -- 7. K2 against its plain version -----------------------------------------
+    # -- 7. the Gauss-Newton loop recorded and replayed ---------------------------
+    t_phase = time.perf_counter()
+    graphs_out = gn_graphs(tpt, dev)
+    emit("gn_graphs", seconds=time.perf_counter() - t_phase, card=card, **graphs_out)
+    torch.cuda.empty_cache()
+
+    # -- 8. K2 against its plain version -----------------------------------------
     t_phase = time.perf_counter()
     k2 = k2_vs_plain(tpt, dev)
     emit("k2_vs_plain", seconds=time.perf_counter() - t_phase, card=card, limits=LIMITS, **k2)
 
-    # -- 8. the mesh path past the dense wall, routed by auto_mesh --------------
+    # -- 9. the mesh path past the dense wall, routed by auto_mesh --------------
     from nonlinpdes_gpsolver_tpu_torch.api import _AUTO_MESH_GRAM_ROWS, largest_gram_rows
     from nonlinpdes_gpsolver_tpu_torch.parallel import make_mesh
 
@@ -1531,7 +1730,7 @@ def main():
     del w
     torch.cuda.empty_cache()
 
-    # -- 9. the 16,200-row problem of phase 4 on the mesh path ------------------
+    # -- 10. the 16,200-row problem of phase 4 on the mesh path ------------------
     t_phase = time.perf_counter()
     big = large_problem(tpt, dev)
     mesh1 = make_mesh(1, device=dev)
@@ -1567,7 +1766,7 @@ def main():
     del res, big
     torch.cuda.empty_cache()
 
-    # -- 10. the Darcy inverse problem past the wall ------------------------------
+    # -- 11. the Darcy inverse problem past the wall ------------------------------
     t_phase = time.perf_counter()
     w = tpt.workloads.darcy_past_wall(device=dev)
     mesh_darcy = mesh_phase(w, 0)
@@ -1584,12 +1783,12 @@ def main():
     del w
     torch.cuda.empty_cache()
 
-    # -- 11. every step solver of the mesh path against the dense 'direct' -------
+    # -- 12. every step solver of the mesh path against the dense 'direct' -------
     t_phase = time.perf_counter()
     steps = mesh_steps(tpt, dev)
     emit("mesh_steps", seconds=time.perf_counter() - t_phase, card=card, **steps)
 
-    # -- 12. the mesh path on two ranks that share the card, over gloo -------------
+    # -- 13. the mesh path on two ranks that share the card, over gloo -------------
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     p1.update(mesh_solve=mesh_solve, mesh_darcy=mesh_darcy)
@@ -1600,15 +1799,17 @@ def main():
                          "max_memory_allocated": p1[k]["max_memory_allocated"]}
                      for k in ("mesh_solve", "mesh_darcy")}, **ranks)
 
-    # -- 13. one rank per card over NCCL ------------------------------------------
+    # -- 14. one rank per card over NCCL ------------------------------------------
     t_phase = time.perf_counter()
     nccl = mesh_nccl(dev, z_mvd)
     emit("mesh_nccl", seconds=time.perf_counter() - t_phase, card=card, backend="nccl",
          world_size=len(nccl["ranks"]), one_device_test_l2=l2_mvd,
-         note=("a group of one rank: one card is visible" if len(nccl["ranks"]) == 1
+         note=("a group of one rank: one card is visible; its collectives run over NCCL "
+               "('collectives' a rank in the warm solve), except inside a recorded "
+               "Gauss-Newton step, which holds none" if len(nccl["ranks"]) == 1
                else "one rank per visible card"), **nccl)
 
-    # -- 14. checkpoint: save and resume, dense and mesh ------------------------------
+    # -- 15. checkpoint: save and resume, dense and mesh ------------------------------
     t_phase = time.perf_counter()
     ck_dense = checkpoint_dense(tpt, canon_fp, canon_state, Xt, truth_t)
     torch.cuda.empty_cache()
@@ -1619,18 +1820,18 @@ def main():
          format="np.savez_compressed, the JAX package's keys and meta_json",
          dense=ck_dense, mesh=ck_mesh)
 
-    # -- 15. the reference-API facade ------------------------------------------------
+    # -- 16. the reference-API facade ------------------------------------------------
     t_phase = time.perf_counter()
     compat = compat_phase(tpt, inp, Xt, truth_t)
     emit("compat", seconds=time.perf_counter() - t_phase, card=card, gate_l2=GATE_L2, **compat)
 
-    # -- 16. the perf_report driver ---------------------------------------------------
+    # -- 17. the perf_report driver ---------------------------------------------------
     t_phase = time.perf_counter()
     report = perf_report_phase()
     emit("perf_report", seconds=time.perf_counter() - t_phase, card=card,
          tflops_note=FLOP_MODEL_NOTE, runs=report)
 
-    # -- 17. summary ------------------------------------------------------------
+    # -- 18. summary ------------------------------------------------------------
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": [{
         "name": "gram_tile",

@@ -16,9 +16,13 @@ takes the mesh path on its device: the fused assemble-and-factorize, the
 distributed Gauss-Newton steps and :class:`~.solvers.distributed.
 DistributedPosterior` (``solvers/distributed.py``). A mesh of P ranks
 (``parallel.make_mesh(P)`` in a process group of P ranks, each rank
-running the same program) spreads that path over them. Factorization
-checks its quality eagerly, so there is no deferred verdict and no re-run
-of a solve.
+running the same program) spreads that path over them.
+
+On the card the factorization defers its quality verdicts
+(``defer_quality``, the JAX package's optimistic pipeline) and the
+Gauss-Newton loop replays CUDA graphs; ``solve`` reads the verdicts with
+its results in one host read, and factors and solves again in the rare
+case that one failed.
 """
 
 from __future__ import annotations
@@ -31,9 +35,10 @@ import numpy as np
 import torch
 
 from .models.spec import CollocationProblem
+from .ops.backend import is_accelerator
 from .parallel.mesh import Mesh, make_mesh
 from .solvers.distributed import DistributedPosterior, factorize_distributed, gn_solve_distributed
-from .solvers.gn import FactoredProblem, GNState, factorize, gn_solve
+from .solvers.gn import GNState, factorize, gn_solve
 from .solvers.posterior import Posterior
 from .utils.metrics import ErrorStats, PhaseTimers, error_stats
 
@@ -82,6 +87,14 @@ class GPSolver:
     would hold the Gram matrix, its f64 copy, the factor and the whitening
     operator at once. ``auto_mesh=False`` forces the dense path.
     ``solve_mode`` is the dense path's (see :func:`.solvers.gn.factorize`).
+
+    ``defer_quality`` (default: on for a problem on the card, off on the
+    CPU, as the JAX package decides by its backend): the factorization
+    makes one attempt a block and leaves its verdict on the device, and
+    :meth:`solve` reads it with the Gauss-Newton results in one host read.
+    On a failed verdict it escalates the failing blocks' nugget tenfold
+    past the attempted scale, drops the factors, the solve and their
+    recorded graphs, and factors and solves again, for at most 8 rounds.
     """
 
     def __init__(
@@ -93,6 +106,7 @@ class GPSolver:
         auto_mesh: bool = True,
         mesh: Optional[Mesh] = None,
         mesh_block: int = 512,
+        defer_quality: Optional[bool] = None,
     ):
         if mesh is None and auto_mesh:
             n_max = largest_gram_rows(problem)
@@ -105,14 +119,28 @@ class GPSolver:
         self.problem = problem
         self.mesh = mesh
         self.timers = PhaseTimers(problem.device)
+        if defer_quality is None:
+            defer_quality = is_accelerator(problem.device)
+        self._defer = bool(defer_quality)
+        self._fact_args = dict(nugget=nugget, nugget_type=nugget_type, solve_mode=solve_mode,
+                               block=mesh_block)
+        self._start_scales: dict = {}
+        self._factorize()
+
+    def _factorize(self):
+        a = self._fact_args
         with self.timers.phase("factorize"):
-            if mesh is not None:
+            if self.mesh is not None:
                 self.fp = factorize_distributed(
-                    problem, mesh, nugget=nugget, nugget_type=nugget_type, block=mesh_block
+                    self.problem, self.mesh, nugget=a["nugget"], nugget_type=a["nugget_type"],
+                    block=a["block"], defer_quality=self._defer,
+                    start_scales=self._start_scales or None,
                 )
             else:
-                self.fp: FactoredProblem = factorize(
-                    problem, nugget=nugget, nugget_type=nugget_type, solve_mode=solve_mode
+                self.fp = factorize(
+                    self.problem, nugget=a["nugget"], nugget_type=a["nugget_type"],
+                    solve_mode=a["solve_mode"], defer_quality=self._defer,
+                    start_scales=self._start_scales or None,
                 )
         for name, scale in self.fp.nugget_scales.items():
             if self.fp.rungs[name]:
@@ -132,19 +160,43 @@ class GPSolver:
     ) -> SolveResult:
         """Run the Gauss-Newton solve (:func:`.solvers.gn.gn_solve`, or on
         the mesh path :func:`.solvers.distributed.gn_solve_distributed`) and
-        build the posterior at its solution."""
+        build the posterior at its solution. One host read takes the
+        finiteness verdict, the losses and any pending quality verdicts
+        (``defer_quality``); a failed verdict re-factors and solves again
+        (the class docstring)."""
         kw = dict(z0=z0, max_iter=max_iter, step_size=step_size, hessian_jitter=hessian_jitter,
                   step_solver=step_solver, tol=tol)
         on_mesh = self.mesh is not None
-        with self.timers.phase("gauss_newton"):
-            state = (gn_solve_distributed if on_mesh else gn_solve)(self.fp, **kw)
-        with self.timers.phase("posterior_weights"):
-            post = (DistributedPosterior if on_mesh else Posterior)(self.fp, state.z)
-        if not bool(state.converged_finite):
+        for _ in range(8):
+            with self.timers.phase("gauss_newton"):
+                state = (gn_solve_distributed if on_mesh else gn_solve)(self.fp, **kw)
+            with self.timers.phase("posterior_weights"):
+                post = (DistributedPosterior if on_mesh else Posterior)(self.fp, state.z)
+            bad, (finite, *losses) = self.fp.resolve_pending((state.converged_finite, state.losses))
+            if not bad:
+                break
+            for name in bad:
+                self._start_scales[name] = 10.0 * self.fp.nugget_scales[name]
+            log.warning(
+                "problem %r: deferred quality verdict failed for block(s) %s; factoring "
+                "again with the nugget escalated", self.problem.name, bad,
+            )
+            # drop every reference to the failed factors (and their recorded
+            # graphs) before the next factorization allocates its own
+            post = state = None  # noqa: F841
+            self.fp = None
+            self._factorize()
+        else:
+            raise FloatingPointError(
+                f"problem {self.problem.name!r}: factorization quality still bad after "
+                f"nugget escalation to {self._start_scales}"
+            )
+        if not finite:
             log.warning(
                 "problem %r: at least one GN step was rejected as non-finite "
                 "(nugget may be too small)", self.problem.name,
             )
+        log.info("problem %r: GN losses %s", self.problem.name, losses)
         return SolveResult(state=state, posterior=post, timers=self.timers.as_dict())
 
     @staticmethod

@@ -1,0 +1,190 @@
+"""Capture and replay of the Gauss-Newton loop as CUDA graphs.
+
+The port's counterpart of ``jax.jit`` for the loop. The JAX package runs
+the whole Gauss-Newton loop as one compiled executable
+(``solvers/gn.py::_gn_scan`` there); here a step is a function of tensors
+that keep their storage (the loop's state), recorded once as CUDA graphs
+and replayed, so that a step costs one launch a graph instead of hundreds
+of small dispatches from Python.
+
+* :class:`Recorder` owns a memory pool, on its device's one capture
+  stream. Its graphs share the pool (a Krylov step is three graphs: the
+  set-up, one CG iteration and the update, replayed in that order), and
+  its ``scope`` runs the eager warm-up and the replays on the capture
+  stream. On the CPU (and inside :func:`uncaptured`) it records nothing
+  and every part runs directly.
+* :class:`Flag` is a device flag the host reads one launch late: it is
+  copied to pinned memory behind the launch that sets it, and read after
+  the next launch is queued, so that the card never waits on the host.
+  The CG loop's exit test reads it once an iteration.
+
+A capture that fails raises: there is no return to an eager loop.
+Counters for the chip smoke test: ``CAPTURES``, ``CAPTURE_SECONDS``,
+``REPLAYS`` and ``HOST_READS`` (the lagged flag reads and the end-of-loop
+copies), reset by :func:`reset_counts`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Dict
+
+import torch
+
+CAPTURES = 0
+CAPTURE_SECONDS = 0.0
+REPLAYS = 0
+HOST_READS = 0
+
+_enabled = True
+
+
+def reset_counts() -> None:
+    global CAPTURES, CAPTURE_SECONDS, REPLAYS, HOST_READS
+    CAPTURES, CAPTURE_SECONDS, REPLAYS, HOST_READS = 0, 0.0, 0, 0
+
+
+@contextlib.contextmanager
+def uncaptured():
+    """Within the block, loops on the card run their steps eagerly: the
+    same functions, not recorded (the reference a replay is held to)."""
+    global _enabled
+    prev, _enabled = _enabled, False
+    try:
+        yield
+    finally:
+        _enabled = prev
+
+
+def capturable(device) -> bool:
+    """Whether a loop on ``device`` records its steps: on a CUDA card,
+    outside :func:`uncaptured`."""
+    return _enabled and torch.device(device).type == "cuda"
+
+
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """The one capture stream of ``device``: the libraries keep a handle
+    and a workspace for each stream they meet, so every recorder of a
+    device shares one."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    stream = _STREAMS.get(device)
+    if stream is None:
+        stream = _STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+class Recorder:
+    """Graphs recorded into one memory pool, on the device's capture stream.
+
+    ``capture(name, fn)`` records ``fn()`` (which reads and writes tensors
+    that outlive it) as graph ``name``; ``run(name, fn)`` replays it if it
+    was recorded, else calls ``fn()``. ``scope()`` puts the caller on the
+    capture stream (ordered after the caller's stream, which waits for it
+    at the end): the eager warm-up must run there, so that the libraries'
+    per-stream handles and workspaces exist before the capture."""
+
+    def __init__(self, device, capture: bool):
+        self.device = torch.device(device)
+        self.capture_on = bool(capture) and self.device.type == "cuda"
+        self.graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
+        if self.capture_on:
+            self.stream = _capture_stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+
+    @contextlib.contextmanager
+    def scope(self):
+        if self.device.type != "cuda":
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        stream = self.stream if self.capture_on else caller
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            yield
+        caller.wait_stream(stream)
+
+    @property
+    def captured(self) -> bool:
+        return bool(self.graphs)
+
+    def capture(self, name: str, fn: Callable[[], None]) -> None:
+        global CAPTURES, CAPTURE_SECONDS
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            # thread-local: another thread's queries (a process group's
+            # watchdog polling its events) do not void the capture
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        self.graphs[name] = graph
+        CAPTURES += 1
+        CAPTURE_SECONDS += time.perf_counter() - t0
+
+    def run(self, name: str, fn: Callable[[], None]) -> None:
+        global REPLAYS
+        graph = self.graphs.get(name)
+        if graph is None:
+            fn()
+            return
+        graph.replay()
+        REPLAYS += 1
+
+
+class Flag:
+    """A device flag read on the host one launch late.
+
+    ``post(flag)`` snapshots the 0-dim tensor ``flag`` (a bool or a small
+    integer) behind the work
+    queued so far (on the card: an asynchronous copy to pinned memory and
+    an event); ``read()`` waits for that snapshot only and returns it. Post,
+    queue the next launch, then read: the card never idles for the read.
+    """
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        if self.cuda:
+            self.host = torch.empty((), dtype=torch.int64, pin_memory=True)
+            self.event = torch.cuda.Event()
+        self.value = None
+
+    def post(self, flag: torch.Tensor) -> None:
+        if self.cuda:
+            self.host.copy_(flag, non_blocking=True)
+            self.event.record()
+        else:
+            self.value = flag.clone()
+
+    def read(self) -> int:
+        global HOST_READS
+        HOST_READS += 1
+        if self.cuda:
+            self.event.synchronize()
+            return int(self.host.item())
+        return int(self.value.item())
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of ``t`` (one read: on the card through pinned memory and
+    an event, not a stream synchronization)."""
+    global HOST_READS
+    if t.device.type != "cuda":
+        return t.clone()
+    HOST_READS += 1
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+    return out

@@ -65,7 +65,7 @@ def equilibrated_cholesky(
         M, d_isqrt = equilibrate(theta, nug_diag, s)
         L, ok = cholesky_f64(M)
         del M
-        if ok:
+        if bool(ok):
             return L.to(theta.dtype), d_isqrt, s, rung
         del L
         s *= 10.0
@@ -75,10 +75,11 @@ def equilibrated_cholesky(
     )
 
 
-def cholesky_f64(M: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+def cholesky_f64(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(L, ok)``: the lower Cholesky factor of the SPD matrix ``M``,
     computed and returned in f64, and whether it is usable (``cholesky_ex``
-    reported success and the factor is finite; one host read).
+    reported success and the factor is finite), a device bool tensor (no
+    host read; the caller reads it where it decides control flow).
 
     The one Cholesky of the Gram matrices on both paths: the dense
     factorization and each superblock diagonal of the mesh path's fused
@@ -86,7 +87,7 @@ def cholesky_f64(M: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     :func:`equilibrated_cholesky` for why it is f64).
     """
     L, info = torch.linalg.cholesky_ex(M.to(torch.float64))
-    return L, bool((info == 0) & torch.isfinite(L).all())
+    return L, (info == 0) & torch.isfinite(L).all()
 
 
 def whiten(L: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -172,7 +172,8 @@ def _chol_sharded(arranged: torch.Tensor, mesh: Mesh, axis: str, block: int,
     NaN in ``arranged``, as the JAX package's does, for the caller's quality
     probe to reject.
 
-    At P = 1: the f64 Cholesky of the dense view, cast back. Across ranks:
+    At P = 1: the f64 Cholesky of the dense view, cast back (no host read:
+    a failure writes NaN on the device). Across ranks:
     the right-looking panel algorithm (``:128``): step ``k`` broadcasts the
     owner's diagonal block, every rank factors it in f64 and refines its
     inverse (the same bits on every rank, so the failure flag agrees), solves
@@ -183,7 +184,7 @@ def _chol_sharded(arranged: torch.Tensor, mesh: Mesh, axis: str, block: int,
     if mesh.size == 1:
         A = arranged.view(arranged.shape[0] * B, -1)
         L, ok = cholesky_f64(A)
-        A.copy_(L if ok else torch.full_like(L, float("nan")))
+        A.copy_(torch.where(ok, L, torch.full_like(L, float("nan"))))
         del L
         return arranged, diag_inverses(arranged, mesh, axis, block)
     P_, p = mesh.size, mesh.rank
@@ -199,7 +200,7 @@ def _chol_sharded(arranged: torch.Tensor, mesh: Mesh, axis: str, block: int,
         cand = arranged[slot, :, kB : kB + B] if p == owner else arranged.new_empty((B, B))
         A_kk = comm.broadcast(mesh, cand, owner)
         L_kk, ok = cholesky_f64(A_kk)
-        if not comm.agree(mesh, ok, "all"):
+        if not comm.agree(mesh, bool(ok), "all"):
             arranged.fill_(float("nan"))
             return arranged, winvs
         W_kk = newton_refine_tri_inverse(L_kk, tri_inverse(L_kk))

@@ -5,7 +5,9 @@ The JAX package's ``shard_map`` bodies communicate by ``lax.all_gather``,
 process, and each of those is a ``torch.distributed`` call on the mesh's
 process group (NCCL between cards, gloo on the CPU), made whenever the mesh
 has a group, also at size 1. A mesh of one device with no group makes none:
-each function is then the identity.
+each function is then the identity. So is a group of one while a CUDA graph
+is being recorded (:func:`_local`): a recorded Gauss-Newton step at P = 1
+holds no collective, and the group's collectives outside it still run.
 
 * :func:`all_gather` stacks every rank's tensor, rank-major;
 * :func:`psum` sums the ranks' tensors in rank order on every rank (an
@@ -23,6 +25,9 @@ tensor (ranks that share one card) goes through a host copy, explicitly.
 :func:`agree` makes a host read that decides control flow the same on every
 rank: each rank's value is gathered and reduced, so that no rank leaves a
 loop, or takes a branch with collectives in it, that another does not.
+
+``COLLECTIVES`` counts the ``torch.distributed`` calls made (for the chip
+smoke test, which shows that a group of one still drives its backend).
 """
 
 from __future__ import annotations
@@ -34,20 +39,38 @@ import torch.distributed as dist
 
 from .mesh import Mesh
 
+COLLECTIVES = 0
+
 
 def _staged(mesh: Mesh, t: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and t.is_cuda
 
 
+def _count() -> None:
+    global COLLECTIVES
+    COLLECTIVES += 1
+
+
+def _local(mesh: Mesh) -> bool:
+    """Whether a collective is the identity: no group, or a group of one
+    inside a CUDA graph capture (where the rank's own tensor is the
+    answer, and no collective is recorded)."""
+    if mesh.group is None:
+        return True
+    return (mesh.size == 1 and mesh.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
 def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``(P, *t.shape)``: every rank's ``t``, in rank order (``lax.all_gather``)."""
-    if mesh.group is None:
+    if _local(mesh):
         return t.unsqueeze(0)
     src = t.detach().contiguous()
     staged = _staged(mesh, src)
     if staged:
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
+    _count()
     dist.all_gather(parts, src, group=mesh.group)
     out = torch.stack(parts)
     return out.to(t.device) if staged else out
@@ -55,7 +78,7 @@ def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 
 def psum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """The sum of every rank's ``t``, added in rank order (``lax.psum``)."""
-    if mesh.group is None:
+    if _local(mesh):
         return t
     parts = all_gather(mesh, t)
     out = parts[0].clone()
@@ -67,12 +90,13 @@ def psum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 def broadcast(mesh: Mesh, t: torch.Tensor, src: int) -> torch.Tensor:
     """Rank ``src``'s ``t`` on every rank; the other ranks pass a tensor of
     the same shape and dtype, whose values are not read."""
-    if mesh.group is None:
+    if _local(mesh):
         return t
     buf = t.detach().contiguous()
     staged = _staged(mesh, buf)
     if staged:  # the receivers' host buffer needs no copy from the card
         buf = buf.cpu() if mesh.rank == src else torch.empty(buf.shape, dtype=buf.dtype)
+    _count()
     dist.broadcast(buf, src=dist.get_global_rank(mesh.group, src), group=mesh.group)
     return buf.to(t.device) if staged else buf
 
@@ -80,7 +104,7 @@ def broadcast(mesh: Mesh, t: torch.Tensor, src: int) -> torch.Tensor:
 def ppermute(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """The ``t`` of rank ``p - 1`` on rank ``p``, around the ring (``lax.ppermute``
     with the permutation ``i -> i + 1``)."""
-    if mesh.group is None or mesh.size == 1:
+    if _local(mesh):
         return t
     src = t.detach().contiguous()
     staged = _staged(mesh, src)
@@ -90,6 +114,7 @@ def ppermute(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     peer = lambda q: dist.get_global_rank(mesh.group, q % mesh.size)  # noqa: E731
     ops = [dist.P2POp(dist.isend, src, peer(mesh.rank + 1), mesh.group),
            dist.P2POp(dist.irecv, out, peer(mesh.rank - 1), mesh.group)]
+    _count()
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out.to(t.device) if staged else out
@@ -102,7 +127,7 @@ def agree(mesh: Mesh, value, op: str):
     is NaN), or ``'first'``, rank 0's value."""
     if op not in ("all", "any", "min", "max", "first"):
         raise ValueError(f"unknown agreement {op!r}")
-    if mesh.group is None:
+    if _local(mesh):
         return value
     dev = "cpu" if mesh.backend == "gloo" else mesh.device
     vals = all_gather(mesh, torch.tensor([float(value)], dtype=torch.float64, device=dev))

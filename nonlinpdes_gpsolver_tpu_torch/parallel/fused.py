@@ -211,7 +211,7 @@ def _superblock(L, winvs, d_pad, kb0: int, F: int, B: int, mesh: Mesh, plan, set
         del R
     D = acc[:S] if P_ == 1 else _gather_rows(mesh, acc[:mine], kb0, F, B)
     L_sup, ok = cholesky_f64(D)
-    if not comm.agree(mesh, ok, "all"):
+    if not comm.agree(mesh, bool(ok), "all"):
         return False
     W_sup = newton_refine_tri_inverse(L_sup, tri_inverse(L_sup))
     winvs[kb0 : kb0 + F] = W_sup.view(F, B, F, B).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
@@ -307,12 +307,12 @@ def _sampled_rows_matvec(kernel, observables, points, row_layout, d_isqrt, v):
 
 
 def sampled_row_quality(fac: BlockCyclicFactor, kernel, observables, points, d_isqrt,
-                        rows_per_segment: int = 32) -> float:
+                        rows_per_segment: int = 32) -> torch.Tensor:
     """Relative residual ``max|(L L^T v - A~ v)[S]| / max|(A~ v)[S]|`` on
     the fixed probe ``v`` (numpy seed 0) over ``rows_per_segment`` evenly
-    spaced rows of every segment (``:478``); one host read, the largest over
-    the ranks (each assembles the rows itself; ``w`` is the same on every
-    rank)."""
+    spaced rows of every segment (``:478``), the largest over the ranks
+    (each assembles the rows itself; ``w`` is the same on every rank): a
+    device scalar, the same on every rank (no host read)."""
     observables = tuple(observables)
     layout = []
     for o, (off, size, op) in zip(observables, _segments(observables, points)):
@@ -325,5 +325,5 @@ def sampled_row_quality(fac: BlockCyclicFactor, kernel, observables, points, d_i
     rows, y = _sampled_rows_matvec(kernel, observables, points, layout, d_isqrt, v)
     Ltv = matvec_blockcyclic(loc, mesh, fac.axis, fac.block, v, trans=True)
     w = matvec_blockcyclic(loc, mesh, fac.axis, fac.block, Ltv)
-    q = float(torch.max(torch.abs(w[rows] - y)) / torch.max(torch.abs(y)))
-    return comm.agree(mesh, q, "max")
+    q = torch.max(torch.abs(w[rows] - y)) / torch.max(torch.abs(y))
+    return comm.all_gather(mesh, q.reshape(1)).max()

@@ -10,14 +10,17 @@ whitened Gauss-Newton loop with the mesh path's five step solvers and its
 guards, and :class:`DistributedPosterior` extends the solution.
 
 The JAX package runs the whole loop as one ``shard_map``'d ``lax.scan``;
-here every rank runs the same Python loop over eager tensor ops, on its own
-device with its own rows of each factor. Latent-sized quantities (``z``,
-the gradient, the Krylov vectors) are replicated and computed on every rank;
-the factor's solves (``parallel/cholesky.py``: ``solve_triangular`` at
-P = 1, the panel loops across ranks) and the panels that are sharded by
-column bring the ranks together. Every host read that decides control flow
-(the CG exit test, the damped update's loss tests, the GN loop's guards,
-the routing and the probes) is agreed across the ranks first
+here every rank runs the same loop, on its own device with its own rows of
+each factor. Latent-sized quantities (``z``, the gradient, the Krylov
+vectors) are replicated and computed on every rank; the factor's solves
+(``parallel/cholesky.py``: ``solve_triangular`` at P = 1, the panel loops
+across ranks) and the panels that are sharded by column bring the ranks
+together. A step is the dense path's (``solvers/gn.py::_Loop``): no host
+read inside it, recorded as CUDA graphs and replayed at P = 1 on the card
+(:func:`_records`). The loop reads the host once a step (whether the
+damped update must halve, and with ``tol`` whether the step ran), and the
+CG loop once an iteration, one iteration late; every such read, and every
+read that routes or probes, is agreed across the ranks first
 (``parallel/comm.py::agree``), so that no rank leaves a loop another stays
 in. The steps (``:516-1008``):
 
@@ -39,9 +42,10 @@ in. The steps (``:516-1008``):
 
 Every step goes through the damped update (``:898-944``): a step that is
 non-finite or more than doubles the loss is halved up to four times and the
-best finite trial kept. Quality checks run eagerly (``defer_quality`` and
-its pending device scalars are not ported). The CG loop reads one boolean
-on the host per iteration, as the dense path's does.
+best finite trial kept. The full step and its tests run on the device; only
+a step that must halve (a read once a step) runs the halvings, with their
+tests on the device too. ``factorize_distributed(defer_quality=True)``
+leaves the probe verdict on the device for :class:`..api.GPSolver`.
 """
 
 from __future__ import annotations
@@ -65,11 +69,15 @@ from ..parallel.cholesky import (
 from ..parallel.fused import assemble_factor_fused, sampled_row_quality
 from ..parallel.gram import assemble_gram_sharded
 from ..parallel.mesh import Mesh
+from ..ops.graphs import Flag, to_host
 from .gn import (
     QUALITY_TOL,
     GNState,
-    _batched_cg,
     _block_diagonals,
+    _Carry,
+    _escalation_start,
+    _linear_ops,
+    _Loop,
     _misfit_jacobi_precond,
     _misfit_jacobians,
     _normal_op,
@@ -77,7 +85,9 @@ from .gn import (
     _slice_structure,
     _woodbury_correct,
     _woodbury_pieces,
+    cached_loop,
     identity_slice_rows,
+    resolve_verdicts,
     validate_slice_structure,
 )
 from .posterior import Posterior
@@ -91,8 +101,11 @@ class DistributedFactoredProblem:
     ``col_scales[name] = d^{-1/2}``; ``nugget_scales[name]`` is the scale
     ``s`` the accepted factor used and ``rungs[name]`` the tenfold
     escalations it took. ``quality[name]`` is the accepted factor's probe
-    residual and ``stats[name]`` counts its factorization ``attempts`` and
-    the ``superblocks`` computed over them (the fused path).
+    residual (with ``defer_quality``, a device scalar until
+    :meth:`resolve_pending` reads it; :attr:`pending_scales` names the
+    blocks still pending) and ``stats[name]`` counts its factorization
+    ``attempts`` and the ``superblocks`` computed over them (the fused
+    path). ``graphs`` caches the recorded Gauss-Newton loops.
     """
 
     problem: CollocationProblem
@@ -102,6 +115,7 @@ class DistributedFactoredProblem:
     rungs: Dict[str, int]
     quality: Dict[str, float]
     stats: Dict[str, dict]
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def mesh(self) -> Mesh:
@@ -110,6 +124,18 @@ class DistributedFactoredProblem:
     def agree(self, value, op: str):
         """A host read made the same on every rank (``comm.agree``)."""
         return comm.agree(self.mesh, value, op)
+
+    def resolve_pending(self, extra=()):
+        """Read and settle the deferred verdicts in one host read (see
+        :meth:`.gn.FactoredProblem.resolve_pending`); every rank reads the
+        same verdicts (each is the largest over the ranks)."""
+        return resolve_verdicts(self.quality, extra)
+
+    @property
+    def pending_scales(self) -> Dict[str, float]:
+        """The attempted nugget scale of every block whose verdict is still
+        on the device (see :attr:`.gn.FactoredProblem.pending_scales`)."""
+        return {n: self.nugget_scales[n] for n, q in self.quality.items() if torch.is_tensor(q)}
 
     def _scale(self, name: str, v: torch.Tensor) -> torch.Tensor:
         s = self.col_scales[name]
@@ -162,6 +188,7 @@ def factorize_distributed(
     fused: bool = True,
     start_scales: Optional[Dict[str, float]] = None,
     superblock_cols: int = 2048,
+    defer_quality: bool = False,
 ) -> DistributedFactoredProblem:
     """Assemble and factor every GP block with the failure ladder (``:135``).
 
@@ -173,18 +200,27 @@ def factorize_distributed(
     finite and below ``quality_tol`` (default ``QUALITY_TOL``) escalates the
     nugget tenfold and is factored again, for at most ``max_attempts``
     (``guard=False``: one attempt, no probe). The escalation starts at
-    ``max(1, 4 eps / nugget)`` or the block's ``start_scales`` entry.
+    ``max(1, 4 eps / nugget)`` or the block's ``start_scales`` entry if
+    larger; ``rungs`` counts from the former.
+
+    ``defer_quality`` (``:176-240``): one attempt a block, and the probe's
+    verdict stays on the device in ``quality`` for the caller to read with its results and, on a failed verdict, to
+    factor again with escalated ``start_scales`` (:class:`..api.GPSolver`).
+    The fused path's superblock ladder keeps its host reads: it escalates
+    the non-finite class inside the call, as the JAX package's executable
+    does.
     """
     if problem.device != mesh.device:
         raise ValueError(f"the problem lies on {problem.device}, the mesh on {mesh.device}")
     quality_tol = QUALITY_TOL if quality_tol is None else quality_tol
     factors, col_scales, scales, rungs, quality, stats = {}, {}, {}, {}, {}, {}
-    eps = torch.finfo(problem.dtype).eps
+    s0 = _escalation_start(nugget, problem.dtype)
+    defer = defer_quality and guard
     for b in problem.blocks:
-        s = s0 = max(1.0, (4.0 * eps) / max(nugget, 1e-300), (start_scales or {}).get(b.name, 1.0))
+        s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
         fac = None
         q, attempts, superblocks = math.nan, 0, 0
-        for _ in range(max_attempts if guard else 1):
+        for _ in range(max_attempts if guard and not defer else 1):
             # no reference to a failed attempt's factor survives into the next one
             fac = res = arranged = lower = None
             if fused:
@@ -223,8 +259,10 @@ def factorize_distributed(
                     lower, mesh, axis, block,
                     matvec_blockcyclic(lower, mesh, axis, block, v, trans=True, n=n_pad), n=n_pad,
                 )
-                q = comm.agree(mesh, float(torch.max(torch.abs(w - y)) / torch.max(torch.abs(y))),
-                               "max")
+                q = torch.max(torch.abs(w - y)) / torch.max(torch.abs(y))  # the same on every rank
+            if defer:
+                break
+            q = float(q)
             if math.isfinite(q) and q < quality_tol:
                 break
             s *= 10.0  # finite but corrupt: escalate anyway
@@ -255,9 +293,7 @@ def _linearize_blocks(fp: DistributedFactoredProblem, z):
         def f(zz, _b=b):
             return _b.residual(zz, p.data)
 
-        F, jvp = torch.func.linearize(f, z)
-        vjp = torch.func.vjp(f, z)[1]
-        lins.append((b.name, F, jvp, vjp))
+        lins.append((b.name, *_linear_ops(f, z)))
     return lins
 
 
@@ -343,10 +379,11 @@ def _deflated_precond(op, g, V):
     return M
 
 
-def _cg_delta(fp, z, V_defl, hessian_jitter, cg_tol, cg_maxiter, exit_agree):
-    """The ``'cg'`` step (``:660``): matrix-free CG on ``J^T J``;
-    preconditioned by the deflation when ``V_defl`` is given, else by the
-    misfits' Jacobi diagonal (none without misfits)."""
+def _cg_system(fp, z, V_defl, hessian_jitter):
+    """The ``'cg'`` step's inner system at ``z`` (``:660``): ``(op, B, M,
+    finish)``, matrix-free ``J^T J`` against the gradient, preconditioned by
+    the deflation when ``V_defl`` is given, else by the misfits' Jacobi
+    diagonal (none without misfits)."""
     p = fp.problem
     lins = _linearize_blocks(fp, z)
     g = _gradient(fp, lins, z)
@@ -356,7 +393,8 @@ def _cg_delta(fp, z, V_defl, hessian_jitter, cg_tol, cg_maxiter, exit_agree):
         def f(zz, _m=m):
             return _m.residual(zz, p.data)
 
-        mis.append((m.weight, _normal_op(torch.func.linearize(f, z)[1], torch.func.vjp(f, z)[1], 0.0)))
+        _, jvp, vjp = _linear_ops(f, z)
+        mis.append((m.weight, _normal_op(jvp, vjp, 0.0)))
 
     def normal_op(V):
         out = H0(V)
@@ -367,23 +405,18 @@ def _cg_delta(fp, z, V_defl, hessian_jitter, cg_tol, cg_maxiter, exit_agree):
     M = _deflated_precond(normal_op, g, V_defl) if V_defl is not None else (
         _misfit_jacobi_precond(p, z)
     )
-    X, iters = _batched_cg(normal_op, g[:, None], cg_tol, cg_maxiter, M=M, exit_agree=exit_agree)
-    return X[:, 0], iters
+    return normal_op, g[:, None], M, lambda X: X[:, 0]
 
 
-def _woodbury_delta(fp, z, X0, V_defl, hessian_jitter, cg_tol, cg_maxiter, exit_agree):
-    """The ``'woodbury'`` step (``:712``): batched CG on the misfit-free
-    operator ``H0`` against ``[g, U]``, warm-started from ``X0`` (the
-    previous step's solutions, or zero), then the rank-K correction.
+def _woodbury_system(fp, z, V_defl, hessian_jitter):
+    """The ``'woodbury'`` step's inner system at ``z`` (``:712``): ``(op, B,
+    M, U, wvec)``, the misfit-free operator ``H0`` against ``[g, U]``.
 
     With the deflation basis the preconditioned CG converges the inner
     solves; without it the inner operator is floored at
     ``lambda = hessian_jitter`` or ``256 eps lambda_max`` (four power
-    iterations), a Levenberg-Marquardt step the outer loop absorbs. A
-    non-finite panel is replaced by zeros so that it does not poison the
-    next warm start. The capacitance solve takes ``hessian_jitter``, the
-    rule of the dense path (fault R4: the JAX package's mesh path passes
-    0.0 there). Returns ``(delta, iterations, X)``."""
+    iterations), a Levenberg-Marquardt step the outer loop absorbs. The
+    rank-K correction follows in :func:`_woodbury_finish`."""
     lins = _linearize_blocks(fp, z)
     g = _gradient(fp, lins, z)
     H0 = _h0_mat(fp, lins, hessian_jitter)
@@ -400,10 +433,16 @@ def _woodbury_delta(fp, z, X0, V_defl, hessian_jitter, cg_tol, cg_maxiter, exit_
             return H0(V) + lam * V
 
     U, wvec, _ = _woodbury_pieces(fp.problem, z)
-    X, iters = _batched_cg(Hop, torch.cat([g[:, None], U], dim=1), cg_tol, cg_maxiter, M=M, X0=X0,
-                           exit_agree=exit_agree)
+    return Hop, torch.cat([g[:, None], U], dim=1), M, U, wvec
+
+
+def _woodbury_finish(X, U, wvec, hessian_jitter):
+    """``(delta, X)``: a non-finite panel is replaced by zeros, so that it
+    does not poison the next warm start, then the rank-K correction. The
+    capacitance solve takes ``hessian_jitter``, the rule of the dense path
+    (fault R4: the JAX package's mesh path passes 0.0 there)."""
     X = torch.where(torch.isfinite(X).all(), X, torch.zeros_like(X))
-    return _woodbury_correct(X, U, wvec, hessian_jitter), iters, X
+    return _woodbury_correct(X, U, wvec, hessian_jitter), X
 
 
 def _normal_state(fp: DistributedFactoredProblem, structure):
@@ -513,36 +552,86 @@ def _panel_delta(fp, z, structure, hessian_jitter):
     return spd_solve(H, g, jitter=hessian_jitter)[:m]
 
 
-def _damped_update(fp, z, delta, loss_in, step_size):
-    """The guarded update (``:911``): the full step unless it is non-finite
-    or more than doubles ``loss_in``; then halved up to four times, keeping
-    the best finite trial. Returns ``(z, loss, finite)``; a step with no
-    finite trial keeps ``z`` and ``loss_in``. Every test reads the values
-    the ranks agree on (rank 0's losses)."""
-    big = torch.tensor(torch.finfo(z.dtype).max, dtype=z.dtype, device=z.device)
+def _trial(fp, z, delta, s, step_size, big):
+    """``(z_t, loss, finite)`` of the trial ``z - s step_size delta``; a
+    non-finite trial is ``(z, big, False)``."""
+    z_t = z - (s * step_size) * delta
+    finite = torch.isfinite(z_t).all()
+    z_t = torch.where(finite, z_t, z)
+    r = fp.whitened_residual(z_t)
+    return z_t, torch.where(finite, torch.dot(r, r), big), finite
 
-    def value(t):
-        return fp.agree(float(t), "first")
 
-    def trial(s):
-        z_t = z - (s * step_size) * delta
-        if not fp.agree(bool(torch.isfinite(z_t).all()), "all"):
-            return z, big, False
-        r = fp.whitened_residual(z_t)
-        return z_t, torch.dot(r, r), True
+class _MeshCarry(_Carry):
+    """The mesh loop's :class:`..gn._Carry` plus the damped update's inputs
+    and its full trial (for a step that must halve), the woodbury warm
+    start ``Xw``, and ``code``, the step's host read: bit 0 whether the
+    full step must halve, bit 1 whether the step ran (``go`` before it)."""
 
+    def __init__(self, z, max_iter, tol):
+        super().__init__(z, max_iter, tol)
+        self.z_in, self.delta, self.z1 = (torch.zeros_like(z) for _ in range(3))
+        self.loss_in, self.l1 = self.loss.clone(), self.loss.clone()
+        self.ok_in, self.f1 = self.ok.clone(), self.ok.clone()
+        self.code = torch.zeros((), dtype=torch.int64, device=z.device)
+        self.Xw = None
+
+    def reset(self, z0):
+        super().reset(z0)
+        if self.Xw is not None:
+            self.Xw.zero_()
+
+
+def _damped_update(step_size):
+    """The guarded update (``:911``), its full step on the device: the full
+    step unless it is non-finite or more than doubles the incoming loss.
+    The step is recorded as taken; ``code`` tells the host whether it must
+    halve (:func:`_halve`)."""
+
+    def update(fp, c: _MeshCarry, delta, iters):
+        go = c.go.clone()
+        z1, l1, f1 = _trial(fp, c.z, delta, 1.0, step_size, c.big)
+        for buf, val in ((c.z_in, c.z), (c.delta, delta), (c.loss_in, c.loss), (c.ok_in, c.ok),
+                         (c.z1, z1), (c.l1, l1), (c.f1, f1)):
+            buf.copy_(val)
+        need = l1 > 2.0 * c.loss_in
+        c.commit(z1, f1, torch.where(f1, l1, c.loss_in), iters)
+        c.code.copy_(need.to(torch.int64) + 2 * go.to(torch.int64))
+
+    return update
+
+
+def _halve(fp, c: _MeshCarry, step_size):
+    """The rest of the guarded update, for a step whose full step failed
+    its test: halved up to four times while the best trial still more than
+    doubles the loss, the best finite trial kept (a step with no finite
+    trial keeps ``z`` and the loss, and clears ``ok``). The tests are
+    device masks, with no host read; the step's record is rewritten."""
+    z, delta, loss_in = c.z_in, c.delta, c.loss_in
+    zc, lc, fc = c.z1, c.l1, c.f1
     s = 1.0
-    z_b, l_b, f_b = trial(s)
     for _ in range(4):
-        if not value(l_b) > 2.0 * value(loss_in):
-            break
+        go_on = lc > 2.0 * loss_in
         s *= 0.5
-        z2, l2, f2 = trial(s)
-        if value(l2) < value(l_b):
-            z_b, l_b, f_b = z2, l2, f_b or f2
-    if not f_b:
-        return z, loss_in, False
-    return z_b, l_b, True
+        z2, l2, f2 = _trial(fp, z, delta, s, step_size, c.big)
+        better = go_on & (l2 < lc)
+        zc, lc, fc = torch.where(better, z2, zc), torch.where(better, l2, lc), fc | (f2 & better)
+    loss = torch.where(fc, lc, loss_in)
+    c.z.copy_(torch.where(fc, zc, z))
+    c.loss.copy_(loss)
+    c.ok.copy_(c.ok_in & fc)
+    c.losses.index_copy_(0, (c.i - 1).view(1), loss.view(1))
+    c.cur.copy_(loss)
+    c.update_go()
+
+
+def _records(mesh: Mesh) -> bool:
+    """Whether the mesh loop is recorded as CUDA graphs: at P = 1 (no
+    group, or a group of one, whose collectives are the identity). Across
+    ranks the same step runs unrecorded."""
+    if mesh.backend == "gloo" and mesh.size > 1:
+        return False  # every collective crosses host memory, which a graph cannot hold
+    return mesh.size == 1  # NCCL across ranks: its collectives are not recorded yet
 
 
 def _any_anisotropic(p: CollocationProblem) -> bool:
@@ -655,57 +744,89 @@ def gn_solve_distributed(
     """
     p = fp.problem
     z = (p.init_latent() if z0 is None else torch.as_tensor(z0)).to(device=p.device, dtype=p.dtype)
-    m = p.latent_dim
     step_solver, structure, cand, valid = route_step_solver(
         fp, step_solver, direct_panel_limit, normal_budget_bytes
     )
-    V_defl = None
-    wants = step_solver == "woodbury" or (
-        step_solver == "cg" and (_any_anisotropic(p) or deflation_rank)
-    )
-    if wants and valid and deflation_rank != 0:
-        id_rows = identity_slice_rows(p, cand)
-        if fp.agree(id_rows is not None, "all"):
-            rank = default_deflation_rank(m) if deflation_rank is None else int(deflation_rank)
-            V_defl = _deflation_basis(fp, cand, id_rows, rank)
     if cg_tol is None:
         cg_tol = 1e-10 if torch.finfo(p.dtype).eps < 1e-10 else 1e-6
     cg_maxiter = 500 if cg_maxiter is None else int(cg_maxiter)
-    ainvs = _normal_state(fp, structure) if step_solver == "normal" else None
-    kw = dict(hessian_jitter=hessian_jitter, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
-              exit_agree=lambda stop: fp.agree(stop, "all"))
+    max_iter = int(max_iter)
+    key = ("mesh", step_solver, structure, deflation_rank, float(step_size),
+           float(hessian_jitter), float(cg_tol), cg_maxiter, tol, max_iter, tuple(z.shape),
+           z.dtype)
+    loop = cached_loop(fp, key, lambda: _mesh_loop(
+        fp, z, step_solver, structure, cand, valid, deflation_rank, max_iter, step_size,
+        hessian_jitter, cg_tol, cg_maxiter, tol))
+    c = loop.carry
+    with loop.rec.scope():
+        c.reset(z)
+        c.loss.copy_(fp.loss(z))
+        flag = Flag(z.device)
+        for _ in range(max_iter):
+            loop.step()
+            flag.post(c.code)
+            code = int(fp.agree(flag.read(), "first"))
+            if not code & 2:  # the step followed the tol stop: it changed nothing
+                break
+            if code & 1:
+                _halve(fp, c, step_size)
+    losses, ok = c.history()
+    cg_iters = (to_host(c.iters) if loop.krylov
+                else torch.zeros(max_iter, dtype=torch.int64))
+    return GNState(z=c.z.clone(), losses=losses, converged_finite=ok, cg_iters=cg_iters,
+                   step_solver=step_solver, deflation_rank=loop.deflation_rank)
 
-    Xw = None  # the woodbury warm start: the previous step's inner solutions
-    loss = fp.loss(z)
-    ok = True
-    losses, cg_iters = [], []
-    prev = cur = math.inf
-    for i in range(int(max_iter)):
-        if tol is not None and (not ok or (i >= 2 and abs(prev - cur) <= tol * max(
-                cur, torch.finfo(p.dtype).tiny))):
-            break
-        iters = 0
-        if step_solver == "cg":
-            delta, iters = _cg_delta(fp, z, V_defl, **kw)
-        elif step_solver == "woodbury":
-            delta, iters, Xw = _woodbury_delta(fp, z, Xw, V_defl, **kw)
-        elif step_solver == "normal":
-            delta = _normal_delta(fp, z, structure, ainvs, hessian_jitter)
-        else:
-            delta = _panel_delta(fp, z, structure if step_solver == "structured" else None,
-                                 hessian_jitter)
-        z, loss, finite = _damped_update(fp, z, delta, loss, step_size)
-        ok = ok and finite
-        losses.append(loss)
-        cg_iters.append(iters)
-        prev, cur = cur, fp.agree(float(loss), "first")
-    losses = torch.stack(losses) if losses else torch.zeros(0, dtype=p.dtype, device=p.device)
-    if losses.shape[0] < max_iter:
-        losses = torch.cat([losses, losses[-1:].expand(int(max_iter) - losses.shape[0])])
-    cg_iters = torch.tensor(cg_iters + [0] * (int(max_iter) - len(cg_iters)), dtype=torch.int64)
-    return GNState(z=z, losses=losses, converged_finite=torch.tensor(ok, device=p.device),
-                   cg_iters=cg_iters, step_solver=step_solver,
-                   deflation_rank=0 if V_defl is None else int(V_defl.shape[1]))
+
+def _mesh_loop(fp, z, solver, structure, cand, valid, deflation_rank, max_iter, step_size,
+               hessian_jitter, cg_tol, cg_maxiter, tol) -> _Loop:
+    """The mesh path's :class:`..gn._Loop` for one configuration, with the
+    state its steps keep across calls: the deflation basis and the
+    ``'normal'`` step's inverse blocks (set-up reads, once a loop)."""
+    p = fp.problem
+    V_defl = None
+    wants = solver == "woodbury" or (solver == "cg" and (_any_anisotropic(p) or deflation_rank))
+    if wants and valid and deflation_rank != 0:
+        id_rows = identity_slice_rows(p, cand)
+        if fp.agree(id_rows is not None, "all"):
+            rank = (default_deflation_rank(p.latent_dim) if deflation_rank is None
+                    else int(deflation_rank))
+            V_defl = _deflation_basis(fp, cand, id_rows, rank)
+    carry = _MeshCarry(z, max_iter, tol)
+    kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter, capture=_records(fp.mesh),
+              exit_agree=lambda fp, stop: fp.agree(stop, "all"))
+    update = _damped_update(step_size)
+    if solver == "cg":
+        def system_fn(fp, c):
+            op, B, M, finish = _cg_system(fp, c.z, V_defl, hessian_jitter)
+            return op, B, M, None, finish
+
+        loop = _Loop(fp, carry, update, system_fn=system_fn, **kw)
+    elif solver == "woodbury":
+        def system_fn(fp, c):
+            op, B, M, U, wvec = _woodbury_system(fp, c.z, V_defl, hessian_jitter)
+            if c.Xw is None:  # allocated in the first (eager) step, before any recording
+                c.Xw = torch.zeros_like(B)
+
+            def finish(X):
+                delta, X = _woodbury_finish(X, U, wvec, hessian_jitter)
+                c.Xw.copy_(torch.where(c.go, X, c.Xw))
+                return delta
+
+            return op, B, M, c.Xw, finish
+
+        loop = _Loop(fp, carry, update, system_fn=system_fn, **kw)
+    else:
+        ainvs = _normal_state(fp, structure) if solver == "normal" else None
+
+        def delta_fn(fp, c):
+            if solver == "normal":
+                return _normal_delta(fp, c.z, structure, ainvs, hessian_jitter)
+            return _panel_delta(fp, c.z, structure if solver == "structured" else None,
+                                hessian_jitter)
+
+        loop = _Loop(fp, carry, update, delta_fn=delta_fn, **kw)
+    loop.deflation_rank = 0 if V_defl is None else int(V_defl.shape[1])
+    return loop
 
 
 class DistributedPosterior(Posterior):

@@ -5,20 +5,27 @@ Counterpart of the main-path part of ``nonlinpdes_gpsolver_tpu/solvers/gn.py``:
 * :func:`factorize` assembles each GP block's Gram matrix with the
   trace-adaptive nugget and factors its equilibrated form, escalating the
   nugget until the factor is finite and, with ``solve_mode='inverse'``,
-  until the whitening operator passes the quality probe;
+  until the whitening operator passes the quality probe; with
+  ``defer_quality`` it leaves that probe's verdict on the device for the
+  caller (:class:`..api.GPSolver`) to read with its results;
 * :func:`gn_solve` stacks the whitened block residuals ``L_b^{-1} F_b(z)``
   and the weighted misfits into ``r(z)``, and solves ``(J^T J) delta = J^T r``
   at each step: with the ``'structured'`` or the ``'direct'`` Jacobian
   panel, or matrix-free by conjugate gradients (``'cg'``, and
   ``'woodbury'`` for misfit-coupled problems).
 
-The JAX package runs the loop as one compiled ``lax.scan``/``while_loop``;
-here it is a Python loop over eager tensor ops. A step that would make the
-iterate non-finite is rejected (z kept) without a host sync; only the
-``tol`` plateau test reads the loss on the host. The Krylov steps' CG loop
-reads one boolean on the host per iteration (its exit test), where the JAX
-package's ``while_loop`` keeps it on the device. Quality checks run eagerly
-during factorization.
+The JAX package runs the loop as one compiled ``lax.scan``/``while_loop``.
+Here a step is a function of tensors that keep their storage
+(:class:`_Carry`), with no host read in it: the non-finite guard, the loss,
+the ``tol`` plateau test and the loss history all stay on the device. On
+the card it is recorded as CUDA graphs once it has run eagerly as its own
+warm-up, and replayed (``ops/graphs.py``, :class:`_Loop`); the graphs are
+cached on the :class:`FactoredProblem`, so a warm solve records nothing.
+The fixed-count loop reads nothing until its end; with ``tol`` it reads
+the plateau flag once a step, one step late. The Krylov steps' CG loop
+(:func:`_batched_cg`) keeps its iterate and its iteration count on the
+device and reads its exit flag once an iteration, one iteration late: at
+most one iteration a solve is spent after the exit.
 
 ``solve_mode='auto'`` is ``'inverse'`` (explicit whitening operator,
 refined by one Newton step) on the card and ``'trsm'`` (triangular solves)
@@ -30,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import weakref
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -38,6 +46,7 @@ import torch
 from ..models.spec import CollocationProblem
 from ..ops.assembly import adaptive_nugget_diag, gram_matrix, observable_sizes
 from ..ops.backend import is_accelerator
+from ..ops.graphs import Flag, Recorder, capturable, to_host
 from ..ops.linalg import (
     MAX_ESCALATIONS,
     equilibrated_cholesky,
@@ -48,7 +57,8 @@ from ..ops.linalg import (
     whiten,
 )
 
-# Whitening-quality acceptance threshold of the JAX package.
+# Whitening-quality acceptance threshold of the JAX package, shared by every
+# verdict: the eager ladders and the deferred verdict GPSolver reads.
 QUALITY_TOL = 1e-2
 
 
@@ -62,6 +72,12 @@ class FactoredProblem:
     whitening operator ``L~^{-1} D^{-1/2}`` when ``solve_mode='inverse'``.
     ``nugget_scales[name]`` is the escalation factor the accepted factor
     used, and ``rungs[name]`` the number of tenfold escalations it took.
+
+    After ``factorize(defer_quality=True)``, ``quality[name]`` is the
+    block's whitening-quality verdict, a device scalar until
+    :meth:`resolve_pending` reads it; :attr:`pending_scales` names the
+    blocks still pending. ``graphs`` caches the recorded Gauss-Newton loops
+    (``gn_solve``); it goes with the factors.
     """
 
     problem: CollocationProblem
@@ -70,6 +86,15 @@ class FactoredProblem:
     nugget_scales: Dict[str, float]
     col_scales: Dict[str, torch.Tensor]
     rungs: Dict[str, int]
+    quality: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def pending_scales(self) -> Dict[str, float]:
+        """The attempted nugget scale of every block whose verdict is still
+        on the device (the JAX package's field; its in-executable ladder
+        also leaves the scale there, the port's eager one does not)."""
+        return {n: self.nugget_scales[n] for n, q in self.quality.items() if torch.is_tensor(q)}
 
     def whiten(self, name: str, v: torch.Tensor) -> torch.Tensor:
         if name in self.inv_factors:
@@ -99,6 +124,35 @@ class FactoredProblem:
         r = self.whitened_residual(z)
         return torch.dot(r, r)
 
+    def resolve_pending(self, extra=()):
+        """Read the pending verdicts (with the tensors ``extra``, in one
+        host read) and settle them: ``quality`` becomes floats. Returns
+        ``(bad, extra_values)``: ``bad`` maps each block whose verdict
+        failed (a quality not finite or not below ``QUALITY_TOL``) to its
+        quality, and ``extra_values`` is the flat list of ``extra``'s
+        values."""
+        return resolve_verdicts(self.quality, extra)
+
+
+def resolve_verdicts(quality: Dict, extra=()):
+    """The one host read of deferred verdicts (see
+    :meth:`FactoredProblem.resolve_pending`); ``quality`` is updated in
+    place."""
+    names = [n for n, q in quality.items() if torch.is_tensor(q)]
+    parts = [t.reshape(-1).to(torch.float64) for t in extra]
+    parts += [quality[n].reshape(1).to(torch.float64) for n in names]
+    if not parts:
+        return {}, []
+    dev = parts[0].device
+    vals = to_host(torch.cat([p.to(dev) for p in parts])).tolist()
+    n_extra = len(vals) - len(names)
+    bad = {}
+    for n, q in zip(names, vals[n_extra:]):
+        quality[n] = q
+        if not (math.isfinite(q) and q < QUALITY_TOL):
+            bad[n] = q
+    return bad, vals[:n_extra]
+
 
 class GNState(NamedTuple):
     z: torch.Tensor
@@ -120,10 +174,17 @@ def _probe_vec(n: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=dtype, device=device)
 
 
-def _whiten_quality(inv, L, d_isqrt, v) -> float:
-    """Relative whitening residual ``max|W(Lv) - v| / max|v|``."""
+def _whiten_quality(inv, L, d_isqrt, v) -> torch.Tensor:
+    """Relative whitening residual ``max|W(Lv) - v| / max|v|``, a device
+    scalar."""
     w = inv @ ((L @ v) / d_isqrt)
-    return float(torch.max(torch.abs(w - v)) / torch.max(torch.abs(v)))
+    return torch.max(torch.abs(w - v)) / torch.max(torch.abs(v))
+
+
+def _escalation_start(nugget: float, dtype) -> float:
+    """``max(1, 4 eps / nugget)``: a nugget below a few ulps of the working
+    dtype is no regularization at all."""
+    return max(1.0, (4.0 * torch.finfo(dtype).eps) / max(nugget, 1e-300))
 
 
 def factorize(
@@ -131,15 +192,26 @@ def factorize(
     nugget: float,
     nugget_type: str = "adaptive",
     solve_mode: str = "auto",
+    defer_quality: bool = False,
+    start_scales: Dict[str, float] | None = None,
 ) -> FactoredProblem:
     """Assemble + regularize + factor every GP block's Gram matrix.
 
     Runs on the problem's device and dtype. The escalation starts at the
-    dtype-aware scale ``s0 = max(1, 4 eps / nugget)``: a nugget below a few
-    ulps of the working dtype is no regularization at all. With
-    ``solve_mode='inverse'`` each accepted factor is inverted (plus one
-    Newton step on the card), and a factor whose whitening residual on a
-    fixed probe is not below ``QUALITY_TOL`` is escalated tenfold again.
+    dtype-aware scale ``s0 = max(1, 4 eps / nugget)``, or the block's
+    ``start_scales`` entry if larger. With ``solve_mode='inverse'`` each
+    accepted factor is inverted (plus one Newton step on the card), and a
+    factor whose whitening residual on a fixed probe is not below
+    ``QUALITY_TOL`` is escalated tenfold again.
+
+    ``defer_quality`` (the JAX package's optimistic pipeline, ``gn.py:381``
+    there): one quality probe a block, and no host read for it. The
+    whitening verdict stays on the device in ``quality``; the caller reads it with its results and, on a
+    failed verdict, factors again with ``start_scales`` ten times the
+    attempted scale. The non-finite class still escalates inside the call
+    (one read a Cholesky), as the JAX package's in-executable ladder does:
+    only the finite-but-corrupt class waits for the caller. ``'trsm'``
+    blocks have no probe and nothing pending.
     """
     device, dtype = problem.device, problem.dtype
     on_accelerator = is_accelerator(device)
@@ -148,23 +220,26 @@ def factorize(
     if solve_mode not in ("inverse", "trsm"):
         raise ValueError(f"unknown solve_mode {solve_mode!r}")
     factors, inv_factors, scales, col_scales, rungs = {}, {}, {}, {}, {}
-    eps = torch.finfo(dtype).eps
+    quality = {}
     for b in problem.blocks:
         theta = gram_matrix(b.kernel, b.observables, problem.points)
         sizes = observable_sizes(b.observables, problem.points)
         nug = adaptive_nugget_diag(theta, b.observables, sizes, nugget, nugget_type)
-        s0 = max(1.0, (4.0 * eps) / max(nugget, 1e-300))
-        s, total_rungs = s0, 0
+        s0 = _escalation_start(nugget, dtype)
+        s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
+        total_rungs = round(math.log10(s / s0))
         for _ in range(MAX_ESCALATIONS):
             L, d_isqrt, s, r = equilibrated_cholesky(theta, nug, s)
             total_rungs += r
             if solve_mode == "trsm":
                 break
-            inv = tri_inverse(L)
-            if on_accelerator:
-                inv = newton_refine_tri_inverse(L, inv)
-            inv = inv * d_isqrt[None, :]
-            q = _whiten_quality(inv, L, d_isqrt, _probe_vec(L.shape[0], dtype, device))
+            inv = _refined_inverse(L, on_accelerator) * d_isqrt[None, :]
+            v = _probe_vec(L.shape[0], dtype, device)
+            q = _whiten_quality(inv, L, d_isqrt, v)
+            if defer_quality:
+                inv_factors[b.name], quality[b.name] = inv, q
+                break
+            q = float(q)
             if math.isfinite(q) and q < QUALITY_TOL:
                 inv_factors[b.name] = inv
                 break
@@ -180,7 +255,13 @@ def factorize(
         col_scales[b.name] = d_isqrt
         scales[b.name] = s
         rungs[b.name] = total_rungs
-    return FactoredProblem(problem, factors, inv_factors, scales, col_scales, rungs)
+    return FactoredProblem(problem, factors, inv_factors, scales, col_scales, rungs, quality)
+
+
+def _refined_inverse(L: torch.Tensor, refine: bool) -> torch.Tensor:
+    """``L^{-1}``, with one Newton step on the card."""
+    inv = tri_inverse(L)
+    return newton_refine_tri_inverse(L, inv) if refine else inv
 
 
 def _slice_structure(problem: CollocationProblem):
@@ -323,6 +404,74 @@ def _misfit_jacobians(p: CollocationProblem, z):
     return [math.sqrt(m.weight) * _misfit_jacobian(m, p.data, z)[1] for m in p.misfits]
 
 
+class _CGState:
+    """The CG recursion's tensors, updated in place by :func:`_cg_iteration`
+    (a recorded graph reads and writes the same storage): the iterate
+    ``X``, residual ``R``, direction ``P``, ``gamma = R.M(R)`` per column,
+    the squared stopping radii ``tol2``, the ``active`` columns, the count
+    of iterations in which any column was active, and ``flag``, whether
+    any column still is (the exit test the host reads)."""
+
+    def __init__(self, normal_op, B, tol, M=None, X0=None):
+        self.tol2 = float(tol) ** 2 * torch.sum(B * B, dim=0)
+        if X0 is None:
+            self.X, self.R = torch.zeros_like(B), B.clone()
+        else:
+            self.X, self.R = X0.clone(), B - normal_op(X0)
+        Z = M(self.R) if M is not None else self.R
+        self.P = Z.clone()
+        self.gamma = torch.sum(self.R * Z, dim=0)
+        self.active = torch.sum(self.R * self.R, dim=0) > self.tol2
+        self.iters = torch.zeros((), dtype=torch.int64, device=B.device)
+        self.flag = self.active.any()
+
+    def mask(self, go: torch.Tensor) -> None:
+        """Freeze every column unless ``go`` (a skipped Gauss-Newton step)."""
+        self.active &= go
+        self.flag.copy_(self.active.any())
+
+
+def _cg_iteration(st: _CGState, normal_op, M=None) -> None:
+    """One CG iteration on every column at once, in place. A column that
+    is not active takes alpha = beta = 0, so an iteration after every
+    column stopped leaves ``X`` and ``R`` as they were."""
+    active = st.active
+    Q = normal_op(st.P)
+    denom = torch.sum(st.P * Q, dim=0)
+    safe = active & (denom > 0)
+    alpha = torch.where(safe, st.gamma / torch.where(safe, denom, 1.0), 0.0)
+    st.X.copy_(st.X + alpha * st.P)
+    st.R.copy_(st.R - alpha * Q)
+    Z = M(st.R) if M is not None else st.R
+    gamma_new = torch.sum(st.R * Z, dim=0)
+    beta = torch.where(safe, gamma_new / torch.where(st.gamma > 0, st.gamma, 1.0), 0.0)
+    st.P.copy_(Z + beta * st.P)
+    st.gamma.copy_(gamma_new)
+    st.iters.add_(active.any().to(torch.int64))
+    st.active.copy_(torch.sum(st.R * st.R, dim=0) > st.tol2)
+    st.flag.copy_(st.active.any())
+
+
+def _cg_loop(iterate, st: _CGState, maxiter: int, exit_agree=None) -> None:
+    """Run ``iterate()`` (one CG iteration on ``st``) until no column is
+    active, at most ``maxiter`` times. The exit flag is read one iteration
+    late (:class:`..ops.graphs.Flag`): iteration i + 1 is queued before
+    iteration i's flag is read, so the card never waits on the host, and
+    the one iteration queued after the last active one changes nothing.
+    ``exit_agree`` maps the host's decision to stop to the decision every
+    rank of a mesh takes."""
+    flag = Flag(st.flag.device)
+    flag.post(st.flag)
+    for _ in range(int(maxiter)):
+        iterate()
+        stop = not flag.read()
+        if exit_agree is not None:
+            stop = exit_agree(stop)
+        if stop:
+            break
+        flag.post(st.flag)
+
+
 def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None, exit_agree=None):
     """Conjugate gradients on a matrix of right-hand sides sharing one SPD
     operator: the inner solve of the ``'cg'`` and ``'woodbury'`` steps.
@@ -333,41 +482,13 @@ def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None, exit_agree=None):
     residual fell below ``tol * ||b||`` is frozen (alpha = beta = 0) while
     the others go on; the loop ends when all have, or at ``maxiter``.
     ``M`` is an optional preconditioner, ``X0`` an optional warm start (one
-    more operator application for its residual). Returns ``(X, iters)``.
-
-    The exit test reads one boolean on the host per iteration (a device
-    sync on the card), where the JAX package's ``while_loop`` decides on
-    the device; ``exit_agree`` maps it to the decision every rank of a mesh
-    takes.
+    more operator application for its residual). Returns ``(X, iters)``,
+    ``iters`` a device scalar, as from the JAX package's ``while_loop``;
+    the exit test is read as :func:`_cg_loop` says.
     """
-    tol2 = float(tol) ** 2 * torch.sum(B * B, dim=0)
-    prec = M if M is not None else (lambda R: R)
-    if X0 is None:
-        X, R = torch.zeros_like(B), B
-    else:
-        X, R = X0, B - normal_op(X0)
-    Z = prec(R)
-    P, gamma = Z, torch.sum(R * Z, dim=0)
-    iters = 0
-    while iters < maxiter:
-        active = torch.sum(R * R, dim=0) > tol2
-        stop = not bool(active.any())
-        if exit_agree is not None:
-            stop = exit_agree(stop)
-        if stop:
-            break
-        Q = normal_op(P)
-        denom = torch.sum(P * Q, dim=0)
-        safe = active & (denom > 0)
-        alpha = torch.where(safe, gamma / torch.where(safe, denom, 1.0), 0.0)
-        X = X + alpha * P
-        R = R - alpha * Q
-        Z = prec(R)
-        gamma_new = torch.sum(R * Z, dim=0)
-        beta = torch.where(safe, gamma_new / torch.where(gamma > 0, gamma, 1.0), 0.0)
-        P, gamma = Z + beta * P, gamma_new
-        iters += 1
-    return X, iters
+    st = _CGState(normal_op, B, tol, M, X0)
+    _cg_loop(lambda: _cg_iteration(st, normal_op, M), st, maxiter, exit_agree)
+    return st.X, st.iters
 
 
 def _normal_op(jvp, vjp, hessian_jitter):
@@ -431,35 +552,68 @@ def _woodbury_correct(X, U, wvec, hessian_jitter):
     return Xg - Xu @ y
 
 
-def _delta_cg(fp: FactoredProblem, z, hessian_jitter, cg_tol, cg_maxiter):
-    """The ``'cg'`` step: Jacobi-preconditioned CG on ``J^T J`` (one JVP and
-    one VJP per iteration), never forming the Jacobian."""
-    r, jvp = torch.func.linearize(fp.whitened_residual, z)
-    _, vjp = torch.func.vjp(fp.whitened_residual, z)
-    X, iters = _batched_cg(
-        _normal_op(jvp, vjp, hessian_jitter), vjp(r)[0][:, None], cg_tol, cg_maxiter,
-        M=_misfit_jacobi_precond(fp.problem, z),
-    )
-    return X[:, 0], iters
+def _linear_ops(fn, z):
+    """``(fn(z), jvp, vjp)`` of ``fn`` at ``z``: the JVP re-evaluates ``fn``
+    at ``z`` with each tangent (no traced linearization, whose trace would
+    be redone on every call), the VJP reuses one autograd graph."""
+    r, vjp = torch.func.vjp(fn, z)
+
+    def jvp(v):
+        return torch.func.jvp(fn, (z,), (v,))[1]
+
+    return r, jvp, vjp
+
+
+def _whitened_linear_ops(fp: FactoredProblem, z, misfits: bool = True):
+    """:func:`_linear_ops` of the whitened residual, its JVP taken through
+    the raw residuals and whitened after (the whitening is linear), so that
+    an operator application whitens the tangent alone, not ``F(z)`` too."""
+    p = fp.problem
+    r, vjp = torch.func.vjp(functools.partial(fp.whitened_residual, misfits=misfits), z)
+
+    def tangent(residual, v):
+        return torch.func.jvp(lambda zz: residual(zz, p.data), (z,), (v,))[1]
+
+    def jvp(v):
+        parts = [fp.whiten(b.name, tangent(b.residual, v)) for b in p.blocks]
+        if misfits:
+            parts += [math.sqrt(m.weight) * tangent(m.residual, v) for m in p.misfits]
+        return torch.cat(parts)
+
+    return r, jvp, vjp
+
+
+def _cg_system(fp: FactoredProblem, z, hessian_jitter):
+    """The ``'cg'`` step's inner system at ``z``: ``(op, B, M, finish)``,
+    Jacobi-preconditioned ``J^T J`` (one JVP and one VJP an application,
+    never forming the Jacobian) against ``J^T r``; ``finish(X)`` is the
+    step."""
+    r, jvp, vjp = _whitened_linear_ops(fp, z)
+    op = _normal_op(jvp, vjp, hessian_jitter)
+    return op, vjp(r)[0][:, None], _misfit_jacobi_precond(fp.problem, z), lambda X: X[:, 0]
+
+
+def _woodbury_system(fp: FactoredProblem, z, hessian_jitter):
+    """The ``'woodbury'`` step's inner system at ``z``: batched CG on the
+    misfit-free normal operator ``H0`` (whose spectrum is the whitened GP
+    blocks'; the ``1/noise^2`` misfit rows are what stall plain CG) against
+    ``[g, U]``; ``finish(X)`` is the rank-K correction of
+    :func:`_woodbury_correct`."""
+    r0, jvp0, vjp0 = _whitened_linear_ops(fp, z, misfits=False)
+    U, wvec, F = _woodbury_pieces(fp.problem, z)
+    g = vjp0(r0)[0] + U @ (wvec * F)
+    B = torch.cat([g[:, None], U], dim=1)
+    return (_normal_op(jvp0, vjp0, hessian_jitter), B, None,
+            lambda X: _woodbury_correct(X, U, wvec, hessian_jitter))
 
 
 def _delta_woodbury(fp: FactoredProblem, z, hessian_jitter, cg_tol, cg_maxiter, X0=None):
-    """The ``'woodbury'`` step: batched CG on the misfit-free normal
-    operator ``H0`` (whose spectrum is the whitened GP blocks'; the
-    ``1/noise^2`` misfit rows are what stall plain CG) against ``[g, U]``,
-    then the rank-K correction of :func:`_woodbury_correct`. Returns
-    ``(delta, iters, X)``; ``X0`` warm-starts the inner solves (the mesh
-    path's carry of the previous step's ``X``), zero when ``None``."""
-    wr0 = functools.partial(fp.whitened_residual, misfits=False)
-    r0, jvp0 = torch.func.linearize(wr0, z)
-    _, vjp0 = torch.func.vjp(wr0, z)
-    U, wvec, F = _woodbury_pieces(fp.problem, z)
-    g = vjp0(r0)[0] + U @ (wvec * F)
-    X, iters = _batched_cg(
-        _normal_op(jvp0, vjp0, hessian_jitter), torch.cat([g[:, None], U], dim=1),
-        cg_tol, cg_maxiter, X0=X0,
-    )
-    return _woodbury_correct(X, U, wvec, hessian_jitter), iters, X
+    """The ``'woodbury'`` step at ``z`` (eager): ``(delta, iters, X)``;
+    ``X0`` warm-starts the inner solves (the mesh path's carry of the
+    previous step's ``X``), zero when ``None``."""
+    op, B, _, finish = _woodbury_system(fp, z, hessian_jitter)
+    X, iters = _batched_cg(op, B, cg_tol, cg_maxiter, X0=X0)
+    return finish(X), iters, X
 
 
 def _direct_jacobian(fp: FactoredProblem, z):
@@ -472,6 +626,164 @@ def _direct_jacobian(fp: FactoredProblem, z):
     ]
     parts.extend(_misfit_jacobians(p, z))
     return torch.cat(parts, dim=0)
+
+
+class _Carry:
+    """The Gauss-Newton loop's state, in tensors that keep their storage (a
+    recorded step reads and writes them in place): the iterate ``z``, the
+    finiteness verdict ``ok``, the step counter ``i``, the loss and
+    inner-iteration histories, the current ``loss``, the last two losses
+    ``prev`` and ``cur`` (the ``tol`` plateau test) and ``go``, whether the
+    next step runs (always with ``tol=None``). Every step is masked by
+    ``go``: a step queued after a ``tol`` stop changes nothing.
+    The mesh path keeps its damped update's inputs here too."""
+
+    def __init__(self, z: torch.Tensor, max_iter: int, tol):
+        dev, dt = z.device, z.dtype
+        self.tol, self.max_iter = tol, int(max_iter)
+        self.z = z.clone()
+        self.ok = torch.ones((), dtype=torch.bool, device=dev)
+        self.i = torch.zeros((), dtype=torch.int64, device=dev)
+        self.losses = torch.zeros(self.max_iter, dtype=dt, device=dev)
+        self.iters = torch.zeros(self.max_iter, dtype=torch.int64, device=dev)
+        self.big = torch.full((), torch.finfo(dt).max, dtype=dt, device=dev)
+        self.prev, self.cur, self.loss = self.big.clone(), self.big.clone(), self.big.clone()
+        self.go = torch.ones((), dtype=torch.bool, device=dev)
+        self.no_iters = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def reset(self, z0: torch.Tensor) -> None:
+        self.z.copy_(z0)
+        self.ok.fill_(True)
+        self.i.zero_()
+        self.losses.zero_()
+        self.iters.zero_()
+        for t in (self.prev, self.cur, self.loss):
+            t.copy_(self.big)
+        self.go.fill_(True)
+
+    def update_go(self) -> None:
+        """``go``: the JAX package's plateau predicate (``gn.py:879``); with
+        ``tol=None`` it stays true."""
+        if self.tol is None:
+            return
+        tiny = torch.finfo(self.z.dtype).tiny
+        plateau = torch.abs(self.prev - self.cur) <= self.tol * torch.clamp(self.cur, min=tiny)
+        self.go.copy_((self.i < self.max_iter) & (~plateau | (self.i < 2)) & self.ok)
+
+    def commit(self, z_next, finite, loss, iters) -> None:
+        """Record a step: its iterate, finiteness, loss and inner iterations."""
+        idx = torch.clamp(self.i, max=self.max_iter - 1).view(1)
+        g = self.go
+        self.z.copy_(torch.where(g, z_next, self.z))
+        self.ok.copy_(torch.where(g, self.ok & finite, self.ok))
+        self.loss.copy_(torch.where(g, loss, self.loss))
+        for hist, val in ((self.losses, loss), (self.iters, iters)):
+            hist.index_copy_(0, idx, torch.where(g, val.view(1), hist.index_select(0, idx)))
+        self.prev.copy_(torch.where(g, self.cur, self.prev))
+        self.cur.copy_(torch.where(g, loss, self.cur))
+        self.i.add_(g.to(torch.int64))
+        self.update_go()
+
+    def history(self):
+        """``(losses, converged_finite)``, new tensors; with ``tol`` the
+        untaken steps repeat the last loss."""
+        taken = torch.arange(self.max_iter, device=self.i.device) < self.i
+        return torch.where(taken, self.losses, self.cur), self.ok.clone()
+
+
+class _Loop:
+    """A configured Gauss-Newton step on a :class:`_Carry`, recorded on the
+    card once it has run eagerly as its own warm-up (below).
+
+    An exact step is ``delta_fn(fp, carry) -> delta``. A Krylov step is
+    ``system_fn(fp, carry) -> (op, B, M, X0, finish)``: its inner system,
+    solved by the CG loop, and ``finish(X) -> delta``. Either way
+    ``update(fp, carry, delta, iters)`` applies the step. Recorded, an
+    exact step is one graph; a Krylov step three (the system and CG set-up,
+    one CG iteration, the update) sharing one pool, with the CG loop's
+    lagged exit reads between them (``exit_agree(fp, stop)``: see
+    :func:`_cg_loop`).
+
+    When to record: an exact step at the start of the loop's second call,
+    its first call being the warm-up (a handful of exact steps cost less
+    eagerly than a capture does, so a loop called once is not recorded); a
+    Krylov step after its first step, whose CG iterations are the warm-up
+    and repay the capture within the call.
+
+    The loop holds its factored problem ``fp`` weakly and keeps no closure
+    over it between steps: ``fp.graphs`` owns the loop, and the factors go
+    as soon as ``fp`` does."""
+
+    def __init__(self, fp, carry: _Carry, update, delta_fn=None, system_fn=None,
+                 cg_tol=0.0, cg_maxiter=0, exit_agree=None, capture=True):
+        device = carry.z.device
+        self.fp = weakref.ref(fp)
+        self.carry, self.update = carry, update
+        self.delta_fn, self.system_fn = delta_fn, system_fn
+        self.cg_tol, self.cg_maxiter, self.exit_agree = cg_tol, cg_maxiter, exit_agree
+        self.rec = Recorder(device, capture and capturable(device))
+        self.cg = None  # the CG state of the step in flight, or of the recorded one
+        self._ctx = None
+        self.steps = 0
+
+    @property
+    def krylov(self) -> bool:
+        return self.system_fn is not None
+
+    def _exact(self, fp):
+        self.update(fp, self.carry, self.delta_fn(fp, self.carry), self.carry.no_iters)
+
+    def _setup(self, fp):
+        op, B, M, X0, finish = self.system_fn(fp, self.carry)
+        st = _CGState(op, B, self.cg_tol, M, X0)
+        st.mask(self.carry.go)
+        self.cg, self._ctx = st, (op, M, finish)
+
+    def _iterate(self):
+        op, M, _ = self._ctx
+        _cg_iteration(self.cg, op, M)
+
+    def _finish(self, fp):
+        self.update(fp, self.carry, self._ctx[2](self.cg.X), self.cg.iters)
+
+    def _record(self, fp):
+        if not self.krylov:
+            self.rec.capture("step", lambda: self._exact(fp))
+            return
+        self.rec.capture("setup", lambda: self._setup(fp))
+        self.rec.capture("iteration", self._iterate)
+        self.rec.capture("finish", lambda: self._finish(fp))
+
+    def step(self) -> None:
+        """One Gauss-Newton step, queued (recorded first if it is due)."""
+        fp, rec = self.fp(), self.rec
+        warm_up = 1 if self.krylov else self.carry.max_iter
+        if rec.capture_on and not rec.captured and self.steps >= warm_up:
+            self._record(fp)
+        try:
+            if not self.krylov:
+                rec.run("step", lambda: self._exact(fp))
+            else:
+                rec.run("setup", lambda: self._setup(fp))
+                agree = None if self.exit_agree is None else (
+                    lambda stop: self.exit_agree(fp, stop))
+                _cg_loop(lambda: rec.run("iteration", self._iterate), self.cg,
+                         self.cg_maxiter, agree)
+                rec.run("finish", lambda: self._finish(fp))
+        finally:
+            self._ctx = None  # the step's closures hold fp; the recorded graphs need none
+        self.steps += 1
+
+
+def cached_loop(fp, key, make):
+    """The loop ``key`` of ``fp`` (made by ``make()`` the first time): its
+    recorded graphs, pool and static tensors live as long as the factors."""
+    loop = fp.graphs.get(key)
+    if loop is None:
+        loop = make()
+        if loop.rec.capture_on:
+            fp.graphs[key] = loop
+    return loop
 
 
 def gn_solve(
@@ -513,6 +825,11 @@ def gn_solve(
     the JAX package's dense path): at small nuggets in f32 their steps can
     be poor. Each step's inner CG starts from zero, as in the JAX package's
     dense path.
+
+    The loop reads nothing on the host but the ``tol`` flag (once a step,
+    one step late) and the CG exit flag (once an iteration, one iteration
+    late); on the card its step is replayed from CUDA graphs cached on
+    ``fp`` (module docstring).
     """
     p = fp.problem
     z = (p.init_latent() if z0 is None else torch.as_tensor(z0)).to(
@@ -541,39 +858,58 @@ def gn_solve(
                 "validation failed for this problem)"
             )
         structure = cand if valid else None
-
-    def delta(z):
-        if step_solver == "cg":
-            return _delta_cg(fp, z, hessian_jitter, cg_tol, cg_maxiter)
-        if step_solver == "woodbury":
-            return _delta_woodbury(fp, z, hessian_jitter, cg_tol, cg_maxiter)[:2]
-        J = _direct_jacobian(fp, z) if structure is None else _structured_jacobian(fp, z, structure)
-        return spd_solve(J.T @ J, J.T @ fp.whitened_residual(z), jitter=hessian_jitter), 0
-
-    ok = torch.ones((), dtype=torch.bool, device=p.device)
-    losses, cg_iters = [], []
-    prev = cur = math.inf
-    for i in range(int(max_iter)):
-        if tol is not None and i >= 2:
-            if abs(prev - cur) <= tol * max(cur, torch.finfo(p.dtype).tiny):
-                break
-        step, iters = delta(z)
-        cg_iters.append(iters)
-        z_new = z - step_size * step
-        finite = torch.isfinite(z_new).all()
-        z = torch.where(finite, z_new, z)
-        ok = ok & finite
-        losses.append(fp.loss(z))
-        if tol is not None:
-            prev, cur = cur, float(losses[-1])
-            if not bool(ok):
-                break
-    losses = torch.stack(losses) if losses else torch.zeros(0, dtype=p.dtype, device=p.device)
-    if losses.shape[0] < max_iter:
-        pad = losses[-1:].expand(int(max_iter) - losses.shape[0])
-        losses = torch.cat([losses, pad])
-    cg_iters = torch.tensor(cg_iters + [0] * (int(max_iter) - len(cg_iters)), dtype=torch.int64)
     routed = step_solver if step_solver != "auto" else (
         "direct" if structure is None else "structured")
-    return GNState(z=z, losses=losses, converged_finite=ok, cg_iters=cg_iters,
+    max_iter = int(max_iter)
+    key = ("dense", routed, structure, float(step_size), float(hessian_jitter), float(cg_tol),
+           cg_maxiter, tol, max_iter, tuple(z.shape), z.dtype)
+    loop = cached_loop(fp, key, lambda: _dense_loop(fp, z, routed, structure, max_iter,
+                                                    step_size, hessian_jitter, cg_tol,
+                                                    cg_maxiter, tol))
+    carry = loop.carry
+    with loop.rec.scope():
+        carry.reset(z)
+        flag = Flag(z.device)
+        flag.post(carry.go)
+        for _ in range(max_iter):
+            loop.step()
+            if tol is not None:
+                if not flag.read():  # the step just queued follows the stop: it changed nothing
+                    break
+                flag.post(carry.go)
+    losses, ok = carry.history()
+    cg_iters = (to_host(carry.iters) if loop.krylov
+                else torch.zeros(max_iter, dtype=torch.int64))
+    return GNState(z=carry.z.clone(), losses=losses, converged_finite=ok, cg_iters=cg_iters,
                    step_solver=routed)
+
+
+def _dense_loop(fp, z, solver, structure, max_iter, step_size, hessian_jitter, cg_tol,
+                cg_maxiter, tol) -> _Loop:
+    """The dense path's :class:`_Loop` for one configuration: the guarded
+    update ``z - step_size * delta`` (a non-finite iterate keeps ``z``)
+    and the loss at the new iterate."""
+
+    def update(fp, carry, delta, iters):
+        z_new = carry.z - step_size * delta
+        finite = torch.isfinite(z_new).all()
+        z_next = torch.where(finite, z_new, carry.z)
+        carry.commit(z_next, finite, fp.loss(z_next), iters)
+
+    carry = _Carry(z, max_iter, tol)
+    kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter)
+    if solver in ("cg", "woodbury"):
+        system = _cg_system if solver == "cg" else _woodbury_system
+
+        def system_fn(fp, c):
+            op, B, M, finish = system(fp, c.z, hessian_jitter)
+            return op, B, M, None, finish
+
+        return _Loop(fp, carry, update, system_fn=system_fn, **kw)
+
+    def delta_fn(fp, c):
+        J = (_direct_jacobian(fp, c.z) if structure is None
+             else _structured_jacobian(fp, c.z, structure))
+        return spd_solve(J.T @ J, J.T @ fp.whitened_residual(c.z), jitter=hessian_jitter)
+
+    return _Loop(fp, carry, update, delta_fn=delta_fn, **kw)

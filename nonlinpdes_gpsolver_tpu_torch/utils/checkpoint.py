@@ -60,6 +60,18 @@ def _state_payload(state: GNState) -> dict:
             "converged_finite": _host(torch.as_tensor(state.converged_finite))}
 
 
+def _settle(fp) -> None:
+    """Resolve ``fp``'s pending quality verdicts (``defer_quality``) before
+    its scales and rungs are written: a factor whose verdict failed is not
+    saved."""
+    bad, _ = fp.resolve_pending()
+    if bad:
+        raise FloatingPointError(
+            f"problem {fp.problem.name!r}: the deferred quality verdict failed for {bad}; "
+            "solve with GPSolver, which factors again, before saving"
+        )
+
+
 def _write(path, meta: dict, payload: dict) -> None:
     payload["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     np.savez_compressed(Path(path), **payload)
@@ -67,7 +79,9 @@ def _write(path, meta: dict, payload: dict) -> None:
 
 def save_solver_state(path, fp: FactoredProblem, state: Optional[GNState] = None) -> None:
     """Write a dense-path :class:`~..solvers.gn.FactoredProblem` (and a
-    Gauss-Newton state) to ``path``, in the JAX package's format."""
+    Gauss-Newton state) to ``path``, in the JAX package's format. Pending
+    deferred verdicts are read first; a failed one refuses the save."""
+    _settle(fp)
     meta = {
         "problem": fp.problem.name,
         "blocks": [b.name for b in fp.problem.blocks],
@@ -116,7 +130,10 @@ def save_distributed_state(path, dfp: DistributedFactoredProblem,
     Every rank of the mesh calls it (the gather is a collective); rank 0
     writes the file, and a barrier follows, so that the file is whole on
     every rank's return. The layout saved is the mesh's own; a load onto
-    another mesh size re-deals it (:func:`load_distributed_state`)."""
+    another mesh size re-deals it (:func:`load_distributed_state`).
+    Pending deferred verdicts are read first; a failed one refuses the
+    save."""
+    _settle(dfp)
     meta = {
         "problem": dfp.problem.name,
         "blocks": [],

@@ -1,0 +1,182 @@
+"""The same solves from several source trees in one call, one tree after
+another: an A/B of two commits on one card.
+
+    python3 scripts/torch_ab.py --what ranks --roots OLD . . OLD [--repeats 2] \
+        [--n_domain 20000 --n_boundary 2500] [--device cpu] [--out FILE]
+    python3 scripts/torch_ab.py --what dense --roots OLD . . OLD [--repeats 5]
+
+``--roots`` lists source trees (each a checkout of the repo, e.g. a
+``git archive`` of an older commit unpacked into a directory that
+``.gitignore`` lists), run in the order given (old, new, new, old). Each
+root runs in a fresh process that imports the port from that tree and
+builds its kernels there first.
+
+* ``ranks``: two ranks (``chip_smoke.py``'s phase ``mesh_ranks``: gloo, one
+  card shared, every collective staged through host memory) run
+  ``workloads.mesh_elliptic`` through ``w.solve(mesh)`` once cold and
+  ``--repeats`` times warm, and report each run's phase seconds, the step
+  solver, the CG iterations and the test L2. The default size is the chip
+  smoke test's, 42,500 Gram rows.
+* ``dense``: the four reference workloads (``w.solve()``) and the 16,200-row
+  elliptic problem of ``chip_smoke.py``'s ``large_solve`` on the dense
+  path, each with a new ``GPSolver`` a run, once cold and ``--repeats``
+  times warm: each run's end-to-end and Gauss-Newton seconds, and the
+  last run's losses.
+
+One JSON line a root goes to stdout and, with ``--out``, to that file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.abspath(__file__)
+
+
+def rank_main(rank, world, port, root, device, n, nb, repeats, tmp):
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, root)
+    import torch
+    import torch.distributed as dist
+
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    try:
+        initialize_distributed(backend="gloo")
+        mesh = make_mesh(world, device=device)
+        w = tpt.workloads.mesh_elliptic(device=mesh.device, n_domain=n, n_boundary=nb)
+        runs = []
+        for _ in range(1 + repeats):
+            t0 = time.perf_counter()
+            res = w.solve(mesh)
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+            runs.append({"seconds": time.perf_counter() - t0, "phase_seconds": res.timers})
+        out = {"rank": rank, "runs": runs, "step_solver": res.state.step_solver,
+               "cg_iters": res.state.cg_iters.tolist(),
+               "test_l2": w.metrics(res)["test_l2"]}
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dense_runs(tpt, device, repeats):
+    """``--what dense`` in one root: ``{name: {"runs": [[e2e, gn], ...],
+    "losses": [...]}}``."""
+    import torch
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def large():
+        Xd, Xb = tpt.utils.sample_random(torch.Generator(device=device).manual_seed(0), 7800,
+                                         600)
+        prob = tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
+                                             tpt.workloads.elliptic_rhs(),
+                                             tpt.workloads.u_elliptic, seed=1)
+        return lambda: tpt.GPSolver(prob, nugget=1e-5, auto_mesh=False).solve(max_iter=4)
+
+    cases = {name: getattr(tpt.workloads, name)(device=device).solve
+             for name in ("elliptic", "burgers", "eikonal", "darcy")}
+    cases["large"] = large()
+    out = {}
+    for name, solve in cases.items():
+        runs = []
+        for _ in range(1 + repeats):
+            t0 = time.perf_counter()
+            res = solve()
+            sync()
+            runs.append([time.perf_counter() - t0, res.timers["gauss_newton"]])
+        out[name] = {"runs": runs, "losses": res.state.losses.tolist()}
+        del res
+    return out
+
+
+def child(what, root, device, n, nb, repeats):
+    """One root: build its kernels, then run ``what``."""
+    sys.path.insert(0, root)
+    import torch.multiprocessing as mp
+
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+
+    if device.startswith("cuda"):
+        from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
+
+        gram_tile._kernel_lib()
+    if what == "dense":
+        t0 = time.perf_counter()
+        cases = dense_runs(tpt, device, repeats)
+        print(json.dumps({"root": root, "package": os.path.dirname(tpt.__file__),
+                          "seconds": time.perf_counter() - t0, "cases": cases}))
+        return
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(rank_main, args=(2, port, root, device, n, nb, repeats, tmp), nprocs=2,
+                 join=True)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    print(json.dumps({"root": root, "package": os.path.dirname(tpt.__file__),
+                      "seconds": time.perf_counter() - t0, "ranks": ranks}))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--what", choices=("ranks", "dense"), default="ranks")
+    ap.add_argument("--roots", nargs="+", default=["."])
+    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--n_domain", type=int, default=20000)
+    ap.add_argument("--n_boundary", type=int, default=2500)
+    ap.add_argument("--repeats", type=int, default=None,
+                    help="warm runs a root (default: 2 for ranks, 5 for dense)")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.repeats is None:
+        args.repeats = 2 if args.what == "ranks" else 5
+    if args.child is not None:
+        child(args.what, args.child, args.device, args.n_domain, args.n_boundary, args.repeats)
+        return
+    card = ""
+    if args.device.startswith("cuda"):
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True).stdout
+        print(card.strip())
+    for root in args.roots:
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, HERE, "--what", args.what, "--child", root,
+                               "--device", args.device,
+                               "--n_domain", str(args.n_domain), "--n_boundary",
+                               str(args.n_boundary), "--repeats", str(args.repeats)],
+                              capture_output=True, text=True, cwd=root)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr[-4000:])
+            raise SystemExit(f"root {root}: exit {proc.returncode}")
+        line = proc.stdout.strip().splitlines()[-1]
+        rec = json.loads(line)
+        rec["what"], rec["card"] = args.what, card.strip()
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as fh:
+                fh.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -96,9 +96,9 @@ def main():
                 W = linalg.tri_inverse(L)
                 for steps in (0, 1):
                     Ws = linalg.newton_refine_tri_inverse(L, W, steps) if steps else W
-                    row[f"quality_newton{steps}"] = gn._whiten_quality(
+                    row[f"quality_newton{steps}"] = float(gn._whiten_quality(
                         Ws * d_isqrt[None, :], L, d_isqrt, probe
-                    )
+                    ))
                 del W, Ws
             del L
             torch.cuda.empty_cache()

@@ -9,13 +9,16 @@ sampler with seed 0 for other sizes) it runs the elliptic solve of
 ``chip_smoke.py`` (f32, nugget 1e-5, 4 GN steps, extension to a 60x60 grid),
 and for each named workload of ``nonlinpdes_gpsolver_tpu_torch/workloads.py``
 (the mesh path's ``mesh_elliptic`` and ``darcy_past_wall`` too; ``--sizes``
-with no value profiles no elliptic size) its solve and test extensions,
-once cold, then once more under
-``torch.profiler``, and prints one JSON line each:
-the synchronized wall seconds of the profiled solve, the device busy time
-(the union of all kernel intervals), the idle share ``1 - busy / wall``, the
-solver's phase seconds, and the ``--top`` kernels by total device time with
-their launch counts. Needs a CUDA card.
+with no value profiles no elliptic size) its solve and test extensions:
+once cold, then under ``torch.profiler`` twice, each printing one JSON line:
+``"solver": "new"``, a new ``GPSolver`` (factorization, the first
+Gauss-Newton step eager, the loop's capture, its replays), and
+``"solver": "same"``, that solver's second solve (the recorded loop
+replayed, no factorization). Each line holds the synchronized wall seconds
+of the profiled run, the device busy time (the union of all kernel
+intervals, graph replays' kernels included), the idle share
+``1 - busy / wall``, the solver's phase seconds, and the ``--top`` kernels
+by total device time with their launch counts. Needs a CUDA card.
 """
 
 import argparse
@@ -54,7 +57,7 @@ def main():
     def size_case(size):
         n_dom, n_bdy = map(int, size.split(":"))
 
-        def solve():
+        def build():
             if (n_dom, n_bdy) == (900, 124):
                 inp = tpt.interop.load_canonical_inputs()
                 prob = tpt.interop.problem_from_numpy(**inp, device=dev)
@@ -64,27 +67,26 @@ def main():
                 prob = tpt.models.nonlinear_elliptic(
                     tpt.SquaredExponential.gaussian(0.2), Xd, Xb, rhs_f, u_truth, seed=1
                 )
-            res = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4)
-            return res, tpt.GPSolver.errors(res.posterior.extend(Xt), truth).l2
+            return (tpt.GPSolver(prob, nugget=1e-5), 4,
+                    lambda res: tpt.GPSolver.errors(res.posterior.extend(Xt), truth).l2)
 
-        return {"n_domain": n_dom, "n_boundary": n_bdy}, solve
+        return {"n_domain": n_dom, "n_boundary": n_bdy}, build
 
     def workload_case(name):
         w = getattr(tpt.workloads, name)(device=dev)
 
-        def solve():
-            res = w.solve()
-            return res, w.metrics(res)["test_l2"]
+        def build():
+            mesh = tpt.parallel.make_mesh(1, device=dev) if w.mesh else None
+            return (tpt.GPSolver(w.problem, nugget=w.nugget, mesh=mesh), w.max_iter,
+                    lambda res: w.metrics(res)["test_l2"])
 
-        return {"workload": name}, solve
+        return {"workload": name}, build
 
-    cases = [size_case(s) for s in args.sizes] + [workload_case(n) for n in args.workloads]
-    for label, solve in cases:
-        solve()
+    def profiled(run):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res, l2 = solve()
+            out = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -103,14 +105,39 @@ def main():
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[: args.top]
-        print(json.dumps({
-            **label, "wall_s": wall,
-            "device_busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / wall,
-            "kernel_launches": len(kernels), "phase_seconds": res.timers,
-            "test_l2": l2, "rungs": res.posterior.fp.rungs,
+        return out, {
+            "wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "idle_share": 1.0 - busy_us / 1e6 / wall, "kernel_launches": len(kernels),
             "top_kernels": [{"name": n[:120], "launches": c, "ms": ms} for n, (c, ms) in top],
-        }), flush=True)
-        del res
+        }
+
+    cases = [size_case(s) for s in args.sizes] + [workload_case(n) for n in args.workloads]
+    for label, build in cases:
+        solver, steps, l2_of = build()
+        l2_of(solver.solve(max_iter=steps))  # cold
+        del solver
+        torch.cuda.empty_cache()
+
+        def new_solver():
+            sv, n, l2 = build()
+            res = sv.solve(max_iter=n)
+            return sv, res, l2(res)
+
+        def same_solver():
+            res = solver.solve(max_iter=steps)
+            return solver, res, l2_of(res)
+
+        for kind, run in (("new", new_solver), ("same", same_solver)):
+            before = {} if kind == "new" else solver.timers.as_dict()
+            (solver, res, l2), prof_row = profiled(run)
+            phases = {k: v - before.get(k, 0.0) for k, v in res.timers.items()}
+            print(json.dumps({
+                **label, "solver": kind, **prof_row, "phase_seconds": phases,
+                "test_l2": l2, "rungs": res.posterior.fp.rungs,
+                "cg_iters": res.state.cg_iters.tolist(),
+            }), flush=True)
+            del res
+        del solver
         torch.cuda.empty_cache()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

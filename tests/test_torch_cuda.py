@@ -573,3 +573,103 @@ def test_solver_gp_on_card(cuda):
     assert pred.is_cuda and pred.dtype == torch.float32
     stats = solver.get_test_error(torch.func.vmap(u)(Xt), print_option=False)
     assert stats.l2 <= GATE_L2, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["structured", "direct", "cg"])
+def test_gn_loop_replays_its_eager_steps(cuda, step):
+    """The Gauss-Newton loop recorded as CUDA graphs and replayed gives the
+    eager steps' z and losses bitwise (canonical problem, f32, 4 steps), a
+    warm solve records nothing, and the replay makes no host read
+    (``'structured'``, ``'direct'``) or one a CG iteration (``'cg'``)."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+
+    prob = tpt.interop.problem_from_numpy(**tpt.interop.load_canonical_inputs(), device=cuda)
+    fp = tpt.factorize(prob, 1e-5)
+    kw = dict(max_iter=4, step_solver=step, cg_maxiter=50)
+    with graphs.uncaptured():
+        eager = tpt.gn_solve(fp, **kw)
+    for _ in range(2):
+        tpt.gn_solve(fp, **kw)
+    graphs.reset_counts()
+    replayed = tpt.gn_solve(fp, **kw)
+    torch.cuda.synchronize()
+    assert graphs.CAPTURES == 0 and graphs.REPLAYS > 0
+    assert torch.equal(replayed.z, eager.z) and torch.equal(replayed.losses, eager.losses)
+    iters = replayed.cg_iters.tolist()
+    if step == "cg":
+        assert graphs.HOST_READS <= sum(iters) + len(iters) + 1
+    else:
+        assert graphs.HOST_READS == 0 and iters == [0] * 4
+
+
+@pytest.mark.cuda
+def test_gpsolver_defers_on_card(cuda):
+    """On the card ``GPSolver`` defers its quality verdict and ``solve``
+    settles it: the canonical problem's verdict passes in one round."""
+    prob = tpt.interop.problem_from_numpy(**tpt.interop.load_canonical_inputs(), device=cuda)
+    solver = tpt.GPSolver(prob, nugget=1e-5)
+    assert torch.is_tensor(solver.fp.quality["u"]) and solver.fp.pending_scales
+    solver.solve(max_iter=4)
+    assert not solver.fp.pending_scales and solver.fp.quality["u"] < 1e-2
+    assert solver.fp.rungs == {"u": 0}
+
+
+def _nccl_group_of_one(rank, world, port, out_dir):
+    """A group of one rank over NCCL on card 0: the 3,000-row mesh problem's
+    ``'cg'`` loop, solved twice on one factorization (the second replays)."""
+    import os
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.parallel import comm, initialize_distributed, make_mesh
+
+    assert initialize_distributed(backend="nccl")
+    try:
+        got = _mesh_cg_twice(make_mesh(1, device="cuda:0"))
+        torch.save({**got, "collectives": comm.COLLECTIVES, "captures": graphs.CAPTURES,
+                    "replays": graphs.REPLAYS}, os.path.join(out_dir, "rank0.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_cg_twice(mesh):
+    """Factor the 3,000-row mesh problem on ``mesh``, solve its ``'cg'``
+    loop once (recorded there), then count a second solve."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.parallel import comm
+    from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import (
+        factorize_distributed, gn_solve_distributed)
+
+    w = tpt.workloads.mesh_elliptic(device=mesh.device, n_domain=1300, n_boundary=400)
+    fp = factorize_distributed(w.problem, mesh, nugget=1e-5, block=256)
+    kw = dict(max_iter=3, step_solver="cg")
+    gn_solve_distributed(fp, **kw)
+    graphs.reset_counts()
+    comm.COLLECTIVES = 0
+    st = gn_solve_distributed(fp, **kw)
+    torch.cuda.synchronize()
+    return {"z": st.z.cpu(), "losses": st.losses.cpu()}
+
+
+@pytest.mark.cuda
+def test_group_of_one_over_nccl_records_its_loop(cuda, tmp_path):
+    """A group of one over NCCL records its mesh loop as a P = 1 mesh
+    without a group does, and gives its z and losses bitwise; its replayed
+    solve still makes NCCL collectives outside the graphs (the lagged CG
+    exit and the damped update's read)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_nccl_group_of_one, args=(1, port, str(tmp_path)), nprocs=1, join=True)
+    got = torch.load(tmp_path / "rank0.pt")
+    one = _mesh_cg_twice(tpt.parallel.make_mesh(1, device=cuda))
+    assert got["captures"] == 0 and got["replays"] > 0 and got["collectives"] > 0
+    assert torch.equal(got["z"], one["z"]) and torch.equal(got["losses"], one["losses"])
