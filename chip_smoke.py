@@ -101,7 +101,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     its table rows. Phases 4, 9 and 10 carry each phase's TFLOP/s by the
     JAX package's FLOP model (``flop_model_tflops``: the model's count,
     not a roofline share);
-18. the script's seconds so far (the build included), the kernel summary
+18. ``structure_reuse``: five new problems of one structure, each on a new
+    ``GPSolver``, for the canonical problem (its draw, then fresh draws of
+    the port's sampler), Burgers, Eikonal, Darcy, phase 4's 16,200 rows and
+    phase 9's 42,500 (:func:`structure_reuse`; the last two on their
+    phase's draw, then on fresh draws): the second binds the first one's
+    storage and records its loop, later ones replay it with no capture;
+    each run bitwise its eager solve and an unshared solve of the same
+    problem, under its gates;
+19. the script's seconds so far (the build included), the kernel summary
     line (K1 with its mesh-path, checkpoint and compat launches, K2 with
     its rank-mapped ones), then the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
@@ -420,9 +428,10 @@ def graph_pool_bytes(pool):
 
 
 def replay_steps(tpt, fp, loop, z0, steps, mesh):
-    """``steps`` Gauss-Newton steps of the recorded ``loop`` from ``z0``,
-    as ``gn_solve`` (``mesh``: ``gn_solve_distributed``) runs them, without
-    the call's set-up: for the replay under the sync debug mode."""
+    """``steps`` Gauss-Newton steps of the recorded ``loop`` (which runs on
+    the factored problem ``fp``: the entry's view of a bound problem) from
+    ``z0``, as ``gn_solve`` (``mesh``: ``gn_solve_distributed``) runs them,
+    without the call's set-up: for the replay under the sync debug mode."""
     from nonlinpdes_gpsolver_tpu_torch.ops.graphs import Flag
     from nonlinpdes_gpsolver_tpu_torch.solvers import distributed
 
@@ -433,7 +442,7 @@ def replay_steps(tpt, fp, loop, z0, steps, mesh):
             c.loss.copy_(fp.loss(z0))
         flag = Flag(z0.device)
         for _ in range(steps):
-            loop.step()
+            loop.step(fp)
             if mesh:
                 flag.post(c.code)
                 if flag.read() & 1:
@@ -454,6 +463,7 @@ def gn_graph_case(tpt, fp, run, z0, steps, mesh=False):
     import torch
 
     from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.solvers._reuse import loops_of
 
     def timed():
         graphs.reset_counts()
@@ -466,20 +476,21 @@ def gn_graph_case(tpt, fp, run, z0, steps, mesh=False):
                     "capture_ms": graphs.CAPTURE_SECONDS * 1e3,
                     "cg_iters": st.cg_iters.tolist()}
 
-    n_loops = len(fp.graphs)
     with graphs.uncaptured():  # earlier phases ran these code paths: no warm-up
         eager, eager_row = timed()
-    check(len(fp.graphs) == n_loops, "an uncaptured run recorded a graph")
+    check(eager_row["captures"] == eager_row["replays"] == 0,
+          "an uncaptured run recorded or replayed a graph")
     first, first_row = timed()
     second, second_row = timed()
     replayed, rep_row = timed()
     check(first_row["captures"] + second_row["captures"] > 0, "no graph was recorded")
     check(rep_row["captures"] == 0 and rep_row["replays"] > 0,
           f"the third run recorded {rep_row['captures']} graphs, replayed {rep_row['replays']}")
-    loop = list(fp.graphs.values())[-1]
+    loops, run_fp = loops_of(fp)
+    loop = list(loops.values())[-1]
     torch.cuda.set_sync_debug_mode("error")
     try:
-        z_debug = replay_steps(tpt, fp, loop, z0, steps, mesh)
+        z_debug = replay_steps(tpt, run_fp, loop, z0, steps, mesh)
         sync()
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -589,6 +600,142 @@ def gn_graphs(tpt, dev, mesh_full=True):
     out["mesh_elliptic_cg"] = row
     del dfp, w
     torch.cuda.empty_cache()
+    return out
+
+
+def reuse_workloads(tpt, dev, names, large_sizes=(7800, 600), mesh_sizes=(20000, 2500)):
+    """``make(k)`` of each case of ``structure_reuse``: the workload of its
+    ``k``-th new problem, built anew from one configuration. ``canonical``:
+    the JAX package's draw, then fresh draws of the port's sampler at the
+    same N (seeds 1, 2, ...); Burgers, Eikonal and Darcy: their own draw;
+    ``large``: phase 4's 16,200 rows and ``mesh``: ``mesh_solve``'s 42,500
+    rows, each on its phase's draw, then on fresh draws of the sampler
+    (``*_sizes``: cut, for a rehearsal on the CPU)."""
+    import torch
+
+    W = tpt.workloads
+    Xt = tpt.utils.test_grid(60, 60, device=dev)
+    truth = torch.func.vmap(W.u_elliptic)(Xt)
+
+    def elliptic(Xd, Xb, seed):
+        problem = tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
+                                                W.elliptic_rhs(), W.u_elliptic, seed=seed)
+        return W.Workload("elliptic", problem, Xt, truth, 1e-5, 4, {"test_l2": GATE_L2})
+
+    def canonical(k):
+        if k == 0:
+            return W.elliptic(device=dev)
+        return elliptic(*tpt.utils.sample_random(torch.Generator(device=dev).manual_seed(k),
+                                                 900, 124), seed=k)
+
+    makers = {
+        "canonical": canonical,
+        "burgers": lambda k: W.burgers(device=dev),
+        "eikonal": lambda k: W.eikonal(device=dev),
+        "darcy": lambda k: W.darcy(device=dev),
+        "large": lambda k: W.Workload("elliptic_16200", large_problem(tpt, dev, large_sizes, k),
+                                      Xt, truth, 1e-5, 4, {"test_l2": GATE_L2}),
+        "mesh": lambda k: W.mesh_elliptic(device=dev, n_domain=mesh_sizes[0],
+                                          n_boundary=mesh_sizes[1], seed=1 + k),
+    }
+    return {name: makers[name] for name in names}
+
+
+REUSE_LAUNCHES = {"canonical": 2, "burgers": 2, "eikonal": 2, "darcy": 4, "large": 2}
+
+
+def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy", "large", "mesh"),
+                    runs=5, **sizes):
+    """Phase ``structure_reuse``: for each case of :func:`reuse_workloads`,
+    ``runs`` solves, each on a new problem and a new ``GPSolver`` (the last
+    one and its results gone), as a user's loop over problems of one
+    structure runs them. Per run: e2e and GN seconds, captures, replays,
+    host reads, K1 (and K2) launches, how the factorization bound
+    (``made`` a new entry, ``rebound`` a released one's storage, or
+    ``unshared``) and the peak memory, allocated and reserved (a retained
+    graph pool shows in the latter only), and once the run's solver is gone
+    the bytes its released entry keeps (``RETAINED_BYTES``: storage and
+    graph pool). The run's z and losses must equal bitwise those of two
+    solves with recording off (``graphs.uncaptured``): the same solver
+    solved again, and a second solver of the same problem made while the
+    first is alive, so that it shares nothing with the entry
+    (``unshared``: its own factor, data and loop state), which a bind that
+    left stale storage or state would fail. Every run must pass its gates,
+    the second and later ones rebind, and from the third on record
+    nothing."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+
+    out = {}
+    cuda = torch.device(dev).type == "cuda"
+    tpt.clear_graph_cache()  # each case's first problem makes its entry
+    for name, make in reuse_workloads(tpt, dev, names, **sizes).items():
+        rows = []
+        for k in range(runs):
+            t0 = time.perf_counter()
+            w = make(k)
+            sync(dev)
+            build_s = time.perf_counter() - t0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            graphs.reset_counts()
+            t0 = time.perf_counter()
+            new_solver = lambda: tpt.GPSolver(  # noqa: E731
+                w.problem, nugget=w.nugget,
+                mesh=tpt.parallel.make_mesh(1, device=dev) if w.mesh else None)
+            solver = new_solver()
+            res = solver.solve(max_iter=w.max_iter)
+            metrics = w.metrics(res)
+            sync(dev)
+            e2e = time.perf_counter() - t0
+            launches = counts()
+            binds = {"made": graphs.ENTRIES, "rebound": graphs.REBINDS,
+                     "unshared": graphs.UNSHARED}
+            row = {"build_seconds": build_s, "e2e_seconds": e2e,
+                   "gn_seconds": res.timers["gauss_newton"], "phase_seconds": res.timers,
+                   "captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
+                   "host_reads": graphs.HOST_READS, "k1_launches": launches[0],
+                   "k2_launches": launches[1], "bind": [b for b, n in binds.items() for _ in
+                                                        range(n)],
+                   "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None,
+                   "max_memory_reserved": torch.cuda.max_memory_reserved() if cuda else None,
+                   "metrics": metrics,
+                   "losses": res.state.losses.tolist(), "cg_iters": res.state.cg_iters.tolist(),
+                   "rungs": res.posterior.fp.rungs, "step_solver": res.state.step_solver}
+            with graphs.uncaptured():
+                eager = solver.solve(max_iter=w.max_iter)
+                unshared_count = graphs.UNSHARED
+                alone = new_solver()
+                row["reference_unshared"] = graphs.UNSHARED == unshared_count + 1
+                ref = alone.solve(max_iter=w.max_iter)
+            row["bitwise_eager"] = (bool(torch.equal(res.z, eager.z))
+                                    and bool(torch.equal(res.state.losses, eager.state.losses)))
+            row["bitwise_unshared"] = (bool(torch.equal(res.z, ref.z))
+                                       and bool(torch.equal(res.state.losses, ref.state.losses)))
+            del alone, ref
+            if cuda:  # the reference's freed blocks would show in the next run's reserved peak
+                torch.cuda.empty_cache()
+            failed = w.failures(metrics)
+            rows.append(row)
+            tag = f"structure_reuse {name} run {k + 1}"
+            check(not failed, f"{tag}: " + "; ".join(failed))
+            check(bool(res.state.converged_finite), f"{tag}: a GN step was rejected")
+            check(row["bitwise_eager"], f"{tag}: z or losses differ from the eager solve")
+            check(row["reference_unshared"] and row["bitwise_unshared"],
+                  f"{tag}: z or losses differ from an unshared solve of the problem")
+            check(k == 0 or row["bind"] == ["rebound"], f"{tag}: bound as {row['bind']}")
+            check(k < 2 or row["captures"] == 0, f"{tag}: {row['captures']} captures")
+            expected = REUSE_LAUNCHES.get(name)
+            check(not cuda or (launches[0] == expected if expected else min(launches) > 0),
+                  f"{tag}: K1 and K2 launched {launches} times")
+            del w, solver, res, eager
+            row["retained_bytes"] = graphs.RETAINED_BYTES  # the run's entry, released
+        out[name] = rows
+    tpt.clear_graph_cache()
+    if cuda:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1115,16 +1262,17 @@ def model_tflops(problem, phase_seconds, gn_steps):
             "gauss_newton": tflops(fm["gn_total"], phase_seconds["gauss_newton"])}
 
 
-def large_problem(tpt, dev, sizes=(7800, 600)):
+def large_problem(tpt, dev, sizes=(7800, 600), seed=0):
     """Phase 4's problem, 16,200 Gram rows: N_domain 7800 and N_boundary 600
-    from the port's sampler (seed 0), sigma 0.2, the seed-1 latent
-    (``sizes``: smaller, for a rehearsal on the CPU)."""
+    from the port's sampler (seed ``seed``, 0 in phase 4), sigma 0.2, the
+    latent of seed ``seed + 1`` (``sizes``: smaller, for a rehearsal on the
+    CPU)."""
     import torch
 
-    Xd, Xb = tpt.utils.sample_random(torch.Generator(device=dev).manual_seed(0), *sizes)
+    Xd, Xb = tpt.utils.sample_random(torch.Generator(device=dev).manual_seed(seed), *sizes)
     return tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
                                          tpt.workloads.elliptic_rhs(), tpt.workloads.u_elliptic,
-                                         seed=1)
+                                         seed=seed + 1)
 
 
 def sha256_of(t):
@@ -1812,6 +1960,7 @@ def main():
     # -- 15. checkpoint: save and resume, dense and mesh ------------------------------
     t_phase = time.perf_counter()
     ck_dense = checkpoint_dense(tpt, canon_fp, canon_state, Xt, truth_t)
+    del canon_fp, canon_state  # the canonical layout's entry is released for structure_reuse
     torch.cuda.empty_cache()
     ck_mesh = checkpoint_mesh(mvd_fp, mvd_state, mvd_factorize_s)
     del mvd_fp, mvd_state
@@ -1831,7 +1980,12 @@ def main():
     emit("perf_report", seconds=time.perf_counter() - t_phase, card=card,
          tflops_note=FLOP_MODEL_NOTE, runs=report)
 
-    # -- 18. summary ------------------------------------------------------------
+    # -- 18. new problems of one structure: one recorded loop ------------------------
+    t_phase = time.perf_counter()
+    reuse = structure_reuse(tpt, dev)
+    emit("structure_reuse", seconds=time.perf_counter() - t_phase, card=card, runs=5, **reuse)
+
+    # -- 19. summary ------------------------------------------------------------
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": [{
         "name": "gram_tile",

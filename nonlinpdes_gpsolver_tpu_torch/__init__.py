@@ -25,13 +25,14 @@ torch.set_float32_matmul_precision("highest")
 from . import compat, interop, models, ops, parallel, solvers, utils, workloads  # noqa: E402
 from .api import GPSolver, SolveResult  # noqa: E402
 from .ops import SquaredExponential  # noqa: E402
-from .solvers import Posterior, factorize, gn_solve  # noqa: E402
+from .solvers import Posterior, clear_graph_cache, factorize, gn_solve  # noqa: E402
 
 __all__ = [
     "GPSolver",
     "SolveResult",
     "SquaredExponential",
     "Posterior",
+    "clear_graph_cache",
     "factorize",
     "gn_solve",
     "compat",

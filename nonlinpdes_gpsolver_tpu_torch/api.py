@@ -22,7 +22,10 @@ On the card the factorization defers its quality verdicts
 (``defer_quality``, the JAX package's optimistic pipeline) and the
 Gauss-Newton loop replays CUDA graphs; ``solve`` reads the verdicts with
 its results in one host read, and factors and solves again in the rare
-case that one failed.
+case that one failed. The recorded loop is shared by every problem of one
+structure (``solvers/_reuse.py``): once a solver and its results are gone,
+a new ``GPSolver`` of the same structure factors into their storage and
+replays their loop.
 """
 
 from __future__ import annotations
@@ -93,8 +96,9 @@ class GPSolver:
     makes one attempt a block and leaves its verdict on the device, and
     :meth:`solve` reads it with the Gauss-Newton results in one host read.
     On a failed verdict it escalates the failing blocks' nugget tenfold
-    past the attempted scale, drops the factors, the solve and their
-    recorded graphs, and factors and solves again, for at most 8 rounds.
+    past the attempted scale, drops the solve and releases the factors
+    (``solvers/_reuse.py``), and factors and solves again into the same
+    storage, for at most 8 rounds.
     """
 
     def __init__(
@@ -181,8 +185,9 @@ class GPSolver:
                 "problem %r: deferred quality verdict failed for block(s) %s; factoring "
                 "again with the nugget escalated", self.problem.name, bad,
             )
-            # drop every reference to the failed factors (and their recorded
-            # graphs) before the next factorization allocates its own
+            # drop every reference to the failed factors: their problem is then
+            # gone, its bind released, and the next factorization writes into
+            # their storage (solvers/_reuse.py)
             post = state = None  # noqa: F841
             self.fp = None
             self._factorize()

@@ -12,6 +12,8 @@ Counterpart of ``nonlinpdes_gpsolver_tpu/models/burgers.py``:
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..ops.assembly import Observable
@@ -19,6 +21,19 @@ from ..ops.kernels import SquaredExponential
 from ..ops.operators import d, d2, identity
 from .elliptic import Values, _eval_on, _latent_init
 from .spec import CollocationProblem, GPBlock
+
+
+@lru_cache(maxsize=None)
+def _burgers_residual(alpha: float, nu: float, N_d: int):
+    """The residual of one configuration (cached, as in the JAX package:
+    a rebuilt problem shares its recorded loop)."""
+
+    def residual(z, data):
+        v0, v2, v3 = z[:N_d], z[N_d : 2 * N_d], z[2 * N_d :]
+        u_t = nu * v3 + data["f"] - alpha * v0 * v2
+        return torch.cat([u_t, v2, v3, v0, data["g"]])
+
+    return residual
 
 
 def burgers(
@@ -35,15 +50,9 @@ def burgers(
     """The problem lives on the device and dtype of ``X_domain``;
     ``init='random'`` draws ``z0`` from a ``torch.Generator`` seeded with
     ``seed`` on that device (not the JAX package's draw)."""
-    N_d = X_domain.shape[0]
+    N_d = int(X_domain.shape[0])
     data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
-    alpha, nu = float(alpha), float(nu)
-
-    def residual(z, data):
-        v0, v2, v3 = z[:N_d], z[N_d : 2 * N_d], z[2 * N_d :]
-        u_t = nu * v3 + data["f"] - alpha * v0 * v2
-        return torch.cat([u_t, v2, v3, v0, data["g"]])
-
+    residual = _burgers_residual(float(alpha), float(nu), N_d)
     observables = (
         Observable("domain", d(0)),        # u_t
         Observable("domain", d(1)),        # u_x

@@ -19,6 +19,8 @@ at the interior points (``6 N_d``). Gram layouts (row order):
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..ops.assembly import Observable
@@ -26,6 +28,30 @@ from ..ops.kernels import SquaredExponential
 from ..ops.operators import d, identity, laplacian
 from .elliptic import Values, _eval_on, _latent_init
 from .spec import CollocationProblem, GPBlock, Misfit
+
+
+@lru_cache(maxsize=None)
+def _darcy_residuals(N_d: int, N_data: int):
+    """``(residual_a, residual_u, data_misfit)`` of one configuration
+    (cached, as in the JAX package); the split uses ``N_d`` and the misfit
+    ``N_data``, Python integers."""
+
+    def split(z):
+        return tuple(z[k * N_d : (k + 1) * N_d] for k in range(6))
+
+    def residual_a(z, data):
+        w0, w1, w2, *_ = split(z)
+        return torch.cat([w1, w2, w0])
+
+    def residual_u(z, data):
+        w0, w1, w2, v0, v1, v2 = split(z)
+        lap_u = -v1 * w1 - v2 * w2 - data["f"] * torch.exp(-w0)
+        return torch.cat([v1, v2, lap_u, v0, data["g"]])
+
+    def data_misfit(z, data):
+        return split(z)[3][:N_data] - data["obs"]
+
+    return residual_a, residual_u, data_misfit
 
 
 def darcy_flow(
@@ -42,28 +68,13 @@ def darcy_flow(
 ) -> CollocationProblem:
     """``data_u``: noisy observations of ``u`` at ``X_domain[:N_data]``. The
     problem lives on the device and dtype of ``X_domain``."""
-    N_d = X_domain.shape[0]
-    N_data = data_u.shape[0]
+    N_d = int(X_domain.shape[0])
     data = {
         "f": _eval_on(rhs_f, X_domain),
         "g": _eval_on(bdy_g, X_boundary),
         "obs": data_u.to(device=X_domain.device, dtype=X_domain.dtype),
     }
-
-    def split(z):
-        return tuple(z[k * N_d : (k + 1) * N_d] for k in range(6))
-
-    def residual_a(z, data):
-        w0, w1, w2, *_ = split(z)
-        return torch.cat([w1, w2, w0])
-
-    def residual_u(z, data):
-        w0, w1, w2, v0, v1, v2 = split(z)
-        lap_u = -v1 * w1 - v2 * w2 - data["f"] * torch.exp(-w0)
-        return torch.cat([v1, v2, lap_u, v0, data["g"]])
-
-    def data_misfit(z, data):
-        return split(z)[3][:N_data] - data["obs"]
+    residual_a, residual_u, data_misfit = _darcy_residuals(N_d, int(data_u.shape[0]))
 
     obs_a = (
         Observable("domain", d(0)),

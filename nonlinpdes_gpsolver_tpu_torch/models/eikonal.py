@@ -11,6 +11,8 @@ side is squared, as the reference's code (not its banner) has it:
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..ops.assembly import Observable
@@ -18,6 +20,18 @@ from ..ops.kernels import SquaredExponential
 from ..ops.operators import d, identity, laplacian
 from .elliptic import Values, _eval_on, _latent_init
 from .spec import CollocationProblem, GPBlock
+
+
+@lru_cache(maxsize=None)
+def _eikonal_residual(eps: float, N_d: int):
+    """The residual of one configuration (cached, as in the JAX package)."""
+
+    def residual(z, data):
+        v0, v1, v2 = z[:N_d], z[N_d : 2 * N_d], z[2 * N_d :]
+        lap_u = -(data["f"] ** 2 - v1**2 - v2**2) / eps
+        return torch.cat([v1, v2, lap_u, v0, data["g"]])
+
+    return residual
 
 
 def eikonal(
@@ -31,15 +45,9 @@ def eikonal(
     seed: int = 0,
 ) -> CollocationProblem:
     """The problem lives on the device and dtype of ``X_domain``."""
-    N_d = X_domain.shape[0]
+    N_d = int(X_domain.shape[0])
     data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
-    eps = float(eps)
-
-    def residual(z, data):
-        v0, v1, v2 = z[:N_d], z[N_d : 2 * N_d], z[2 * N_d :]
-        lap_u = -(data["f"] ** 2 - v1**2 - v2**2) / eps
-        return torch.cat([v1, v2, lap_u, v0, data["g"]])
-
+    residual = _eikonal_residual(float(eps), N_d)
     observables = (
         Observable("domain", d(0)),
         Observable("domain", d(1)),

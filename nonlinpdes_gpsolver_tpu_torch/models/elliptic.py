@@ -10,12 +10,17 @@ Counterpart of ``nonlinpdes_gpsolver_tpu/models/elliptic.py``:
 
 ``rhs_f`` and ``bdy_g`` are callables of one point, evaluated over the
 points with ``torch.func.vmap``, or tensors of values, or ``None`` (zero).
-The callables are evaluated once, when the problem is built; nothing is
-cached across problems.
+The callables are evaluated once, when the problem is built, into the
+problem's ``data``. The residuals come from ``lru_cache``'d factories, as
+in the JAX package: one configuration gives the same function objects on
+every rebuild, so that a problem rebuilt on fresh points and data shares
+its recorded Gauss-Newton loop (``solvers/_reuse.py``). They close over
+Python scalars only; every tensor reaches them through ``data``.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Callable, Union
 
 import torch
@@ -42,6 +47,32 @@ def _observables():
         Observable("domain", identity()),
         Observable("boundary", identity()),
     )
+
+
+@lru_cache(maxsize=None)
+def _elliptic_residual(alpha: float, m: int):
+    """The elimination form's residual (cached: one function per
+    configuration)."""
+
+    def residual(z, data):
+        # [Delta u; u_int; u_bd] with Delta u eliminated via the PDE
+        return torch.cat([alpha * z**m - data["f"], z, data["g"]])
+
+    return residual
+
+
+@lru_cache(maxsize=None)
+def _elliptic_relaxed_residuals(alpha: float, m: int, N_d: int):
+    """The penalty form's block residual and PDE penalty (cached)."""
+
+    def residual(z, data):
+        return torch.cat([z, data["g"]])  # [v; w; g] - linear in z
+
+    def pde_penalty(z, data):
+        v, w = z[:N_d], z[N_d:]
+        return -v + alpha * w**m - data["f"]
+
+    return residual, pde_penalty
 
 
 def _latent_init(init: str, size: int, seed: int, like: torch.Tensor):
@@ -74,12 +105,7 @@ def nonlinear_elliptic(
     """
     N_d = X_domain.shape[0]
     data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
-    alpha, m = float(alpha), int(m)
-
-    def residual(z, data):
-        # [Delta u; u_int; u_bd] with Delta u eliminated via the PDE
-        return torch.cat([alpha * z**m - data["f"], z, data["g"]])
-
+    residual = _elliptic_residual(float(alpha), int(m))
     return CollocationProblem(
         name="nonlinear_elliptic",
         blocks=(GPBlock("u", kernel, _observables(), residual),),
@@ -106,17 +132,9 @@ def nonlinear_elliptic_relaxed(
 
     Loss: ``||L^{-1}[v; w; g]||^2 + (1/pen_lambda)||-v + alpha w^m - f||^2``.
     """
-    N_d = X_domain.shape[0]
+    N_d = int(X_domain.shape[0])
     data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
-    alpha, m = float(alpha), int(m)
-
-    def residual(z, data):
-        return torch.cat([z, data["g"]])  # [v; w; g] - linear in z
-
-    def pde_penalty(z, data):
-        v, w = z[:N_d], z[N_d:]
-        return -v + alpha * w**m - data["f"]
-
+    residual, pde_penalty = _elliptic_relaxed_residuals(float(alpha), int(m), N_d)
     return CollocationProblem(
         name="nonlinear_elliptic_relaxed",
         blocks=(GPBlock("u", kernel, _observables(), residual),),

@@ -21,7 +21,12 @@ of small dispatches from Python.
 A capture that fails raises: there is no return to an eager loop.
 Counters for the chip smoke test: ``CAPTURES``, ``CAPTURE_SECONDS``,
 ``REPLAYS`` and ``HOST_READS`` (the lagged flag reads and the end-of-loop
-copies), reset by :func:`reset_counts`.
+copies); and those of the loops shared by problems of one structure
+(``solvers/_reuse.py``): ``ENTRIES`` (entries made), ``REBINDS`` (problems
+whose factorization wrote into a released entry's storage), ``UNSHARED``
+(problems left on loops of their own because the entry of their layout was
+owned) and ``RETAINED_BYTES`` (the factor, data and graph-pool bytes that
+released entries keep; a gauge, not reset). :func:`reset_counts` zeroes the others.
 """
 
 from __future__ import annotations
@@ -36,31 +41,32 @@ CAPTURES = 0
 CAPTURE_SECONDS = 0.0
 REPLAYS = 0
 HOST_READS = 0
+ENTRIES = 0
+REBINDS = 0
+UNSHARED = 0
+RETAINED_BYTES = 0
 
 _enabled = True
+capturing = False  # a capture is in progress (no graph may be freed meanwhile)
 
 
 def reset_counts() -> None:
-    global CAPTURES, CAPTURE_SECONDS, REPLAYS, HOST_READS
+    global CAPTURES, CAPTURE_SECONDS, REPLAYS, HOST_READS, ENTRIES, REBINDS, UNSHARED
     CAPTURES, CAPTURE_SECONDS, REPLAYS, HOST_READS = 0, 0.0, 0, 0
+    ENTRIES, REBINDS, UNSHARED = 0, 0, 0
 
 
 @contextlib.contextmanager
 def uncaptured():
     """Within the block, loops on the card run their steps eagerly: the
-    same functions, not recorded (the reference a replay is held to)."""
+    same functions, neither recorded nor replayed (the reference a replay
+    is held to)."""
     global _enabled
     prev, _enabled = _enabled, False
     try:
         yield
     finally:
         _enabled = prev
-
-
-def capturable(device) -> bool:
-    """Whether a loop on ``device`` records its steps: on a CUDA card,
-    outside :func:`uncaptured`."""
-    return _enabled and torch.device(device).type == "cuda"
 
 
 _STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -83,19 +89,27 @@ class Recorder:
     """Graphs recorded into one memory pool, on the device's capture stream.
 
     ``capture(name, fn)`` records ``fn()`` (which reads and writes tensors
-    that outlive it) as graph ``name``; ``run(name, fn)`` replays it if it
-    was recorded, else calls ``fn()``. ``scope()`` puts the caller on the
+    that outlive it) as graph ``name``; ``replay(name)`` replays it.
+    ``live`` says whether this call may record and replay: on a CUDA card,
+    outside :func:`uncaptured`. ``scope()`` puts a live caller on the
     capture stream (ordered after the caller's stream, which waits for it
     at the end): the eager warm-up must run there, so that the libraries'
-    per-stream handles and workspaces exist before the capture."""
+    per-stream handles and workspaces exist before the capture. ``pool``
+    shares a pool with other recorders (graphs that are never replayed
+    concurrently, each of whose lasting tensors is rewritten by its own
+    replays)."""
 
-    def __init__(self, device, capture: bool):
+    def __init__(self, device, capture: bool = True, pool=None):
         self.device = torch.device(device)
         self.capture_on = bool(capture) and self.device.type == "cuda"
         self.graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
         if self.capture_on:
             self.stream = _capture_stream(self.device)
-            self.pool = torch.cuda.graph_pool_handle()
+            self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+
+    @property
+    def live(self) -> bool:
+        return self.capture_on and _enabled
 
     @contextlib.contextmanager
     def scope(self):
@@ -103,7 +117,7 @@ class Recorder:
             yield
             return
         caller = torch.cuda.current_stream(self.device)
-        stream = self.stream if self.capture_on else caller
+        stream = self.stream if self.live else caller
         stream.wait_stream(caller)
         with torch.cuda.stream(stream):
             yield
@@ -114,31 +128,31 @@ class Recorder:
         return bool(self.graphs)
 
     def capture(self, name: str, fn: Callable[[], None]) -> None:
-        global CAPTURES, CAPTURE_SECONDS
+        global CAPTURES, CAPTURE_SECONDS, capturing
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream):
-            # thread-local: another thread's queries (a process group's
-            # watchdog polling its events) do not void the capture
-            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-            try:
-                fn()
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
+        capturing = True
+        try:
+            with torch.cuda.stream(self.stream):
+                # thread-local: another thread's queries (a process group's
+                # watchdog polling its events) do not void the capture
+                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+                try:
+                    fn()
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+        finally:
+            capturing = False
         self.graphs[name] = graph
         CAPTURES += 1
         CAPTURE_SECONDS += time.perf_counter() - t0
 
-    def run(self, name: str, fn: Callable[[], None]) -> None:
+    def replay(self, name: str) -> None:
         global REPLAYS
-        graph = self.graphs.get(name)
-        if graph is None:
-            fn()
-            return
-        graph.replay()
+        self.graphs[name].replay()
         REPLAYS += 1
 
 

@@ -13,35 +13,61 @@ package is imported), so only the numerical safeguards carry over:
 * the Newton refinement of the triangular inverse;
 * the ``1 + 32 eps`` floor on the unit diagonal of the equilibrated
   Gauss-Newton normal matrix, and of the small SPD inverse of the mesh
-  path's deflation preconditioner (:func:`spd_inverse`).
+  path's deflation preconditioner (:func:`spd_inverse`);
+* the fixed quality probe, cached (:func:`probe_vector`).
+
+The dense factorization's outputs can be written into given storage
+(``out``): a problem whose structure matches a released one's factors
+into that storage, which its recorded Gauss-Newton loop reads
+(``solvers/_reuse.py``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .backend import is_accelerator
 
 MAX_ESCALATIONS = 8
 
+_PROBES: Dict[tuple, torch.Tensor] = {}
+
+
+def probe_vector(n: int, dtype, device) -> torch.Tensor:
+    """The JAX package's fixed quality probe (numpy seed 0, ``n`` standard
+    normals), cached per ``(n, dtype, device)`` as its ``_PROBE_CACHE``
+    caches it, so that a factorization draws and uploads nothing. Callers
+    only read it."""
+    key = (int(n), dtype, torch.device(device))
+    v = _PROBES.get(key)
+    if v is None:
+        v = torch.as_tensor(np.random.default_rng(0).standard_normal(n), dtype=dtype,
+                            device=device)
+        _PROBES[key] = v
+    return v
+
 
 def equilibrate(
-    theta: torch.Tensor, nug_diag: torch.Tensor, s: float
+    theta: torch.Tensor, nug_diag: torch.Tensor, s: float, out: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(M, d_isqrt)``: ``M = D^{-1/2} (theta + s diag(nug)) D^{-1/2}`` in
-    f64 with an exact unit diagonal, and ``d_isqrt = D^{-1/2}`` in
-    ``theta``'s dtype, ``D`` being the diagonal of the regularized matrix."""
+    f64 with an exact unit diagonal (formed in ``out`` when given), and
+    ``d_isqrt = D^{-1/2}`` in ``theta``'s dtype, ``D`` being the diagonal of
+    the regularized matrix."""
     d_isqrt = torch.rsqrt(torch.diagonal(theta) + s * nug_diag)
     ds = d_isqrt.to(torch.float64)
-    M = theta.to(torch.float64, copy=True)
+    M = theta.to(torch.float64, copy=True) if out is None else out.copy_(theta)
     M.mul_(ds[:, None]).mul_(ds[None, :]).fill_diagonal_(1.0)
     return M, d_isqrt
 
 
 def equilibrated_cholesky(
-    theta: torch.Tensor, nug_diag: torch.Tensor, s0: float
+    theta: torch.Tensor, nug_diag: torch.Tensor, s0: float,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    work: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, float, int]:
     """Factor ``D^{-1/2} (theta + s diag(nug)) D^{-1/2}`` (unit diagonal).
 
@@ -59,14 +85,22 @@ def equilibrated_cholesky(
     16,200-row elliptic Gram's nugget up a hundredfold and missed the
     accuracy gate, while its f64 Cholesky, on the card's f64 tensor cores,
     took no longer than the f32 one (PERF.md).
+
+    ``out = (L, d_isqrt)``: the accepted factor and scales are written
+    there (no second copy of the factor is made in the working dtype).
+    ``work``: an ``(n, n)`` f64 tensor the equilibrated matrix is formed
+    in (it may share its bytes with ``out[0]``, written only after the
+    factorization).
     """
     s = float(s0)
     for rung in range(MAX_ESCALATIONS):
-        M, d_isqrt = equilibrate(theta, nug_diag, s)
+        M, d_isqrt = equilibrate(theta, nug_diag, s, out=work)
         L, ok = cholesky_f64(M)
         del M
         if bool(ok):
-            return L.to(theta.dtype), d_isqrt, s, rung
+            if out is None:
+                return L.to(theta.dtype), d_isqrt, s, rung
+            return out[0].copy_(L), out[1].copy_(d_isqrt), s, rung
         del L
         s *= 10.0
     raise FloatingPointError(
@@ -114,19 +148,24 @@ def tri_inverse(L: torch.Tensor) -> torch.Tensor:
 def newton_refine_tri_inverse(
     L: torch.Tensor, W: torch.Tensor, steps: int = 1
 ) -> torch.Tensor:
-    """Newton iteration on the left inverse: ``W <- W + (I - W L) W``.
+    """Newton iteration on the left inverse, in place in ``W``:
+    ``W <- W + (I - W L) W``.
 
     Each step squares the residual ``E = I - W L``. A raw f32 triangular
     inverse of these ill-conditioned equilibrated Gram factors carries
     ``||W L - I||`` around 1e-2 and one step brings it to about 1e-4; the
     JAX package measured the step moving the canonical solve's test L2 from
     9.5e-3 to 2.3e-3 on its accelerator. This is the dense two-matmul form
-    (of each matrix of a batch, for a batch).
+    (of each matrix of a batch, for a batch), with two temporaries the size
+    of ``W``: ``E`` is formed from ``W L`` (negated, its diagonal raised by
+    one: the same values as ``I - W L``), then ``W += E W``.
     """
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
     for _ in range(steps):
-        E = eye - W @ L
-        W = W + E @ W
+        E = W @ L
+        E.neg_()
+        E.diagonal(dim1=-2, dim2=-1).add_(1.0)
+        W.add_(E @ W)
+        del E
     return W
 
 

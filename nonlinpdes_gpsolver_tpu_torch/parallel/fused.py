@@ -59,7 +59,7 @@ import torch
 
 from ..ops.assembly import cross_gram, observable_sizes
 from ..ops.gram_tile import GramPlan
-from ..ops.linalg import cholesky_f64, newton_refine_tri_inverse, tri_inverse
+from ..ops.linalg import cholesky_f64, newton_refine_tri_inverse, probe_vector, tri_inverse
 from . import comm
 from .cholesky import BlockCyclicFactor, first_slot, local_row, matvec_blockcyclic, pad_to_blocks
 from .gram import _diag_const, _equilibration_parts, _segments, window_sets
@@ -236,13 +236,16 @@ def assemble_factor_fused(kernel, observables, points, mesh: Mesh, axis: str = "
                           block: int = 256, nugget: float = 1e-10,
                           nugget_type: str = "adaptive", nugget_scale: float = 1.0,
                           chunk_cols: int = 4096, superblock_cols: int = 2048,
-                          max_attempts: int = 8) -> FusedFactor:
+                          max_attempts: int = 8, out=None) -> FusedFactor:
     """Factor the never-materialized equilibrated regularized Gram matrix
     (``:395``), escalating the nugget scale tenfold from ``nugget_scale``
     while a superblock diagonal fails, for at most ``max_attempts``
     attempts. ``superblock_cols`` is the panel width ``S`` (the JAX
     package's 2048, measured on its accelerator; a multiple of ``block``).
-    Every rank calls it with the same problem and gets its own shard."""
+    Every rank calls it with the same problem and gets its own shard.
+    ``out = (local, diag_inv, d_isqrt)``: storage of the factor's shapes to
+    factor into (a released factor of the same layout,
+    ``solvers/_reuse.py``) instead of new tensors."""
     check_tf32_off()
     observables = tuple(observables)
     sizes = observable_sizes(observables, points)
@@ -258,15 +261,22 @@ def assemble_factor_fused(kernel, observables, points, mesh: Mesh, axis: str = "
     c_pad = torch.cat([c_vec, c_vec.new_ones(pad)])
     nug_pad = torch.cat([nug_vec, nug_vec.new_zeros(pad)])
 
-    L = torch.zeros((nbl * block, n_pad), dtype=dtype, device=device)
-    winvs = torch.zeros((nb, block, block), dtype=dtype, device=device)
+    if out is None:
+        local = torch.zeros((nbl, block, n_pad), dtype=dtype, device=device)
+        winvs = torch.zeros((nb, block, block), dtype=dtype, device=device)
+        d_out = None
+    else:
+        local, winvs, d_out = out
+        local.zero_()
+        winvs.zero_()
+    L = local.view(nbl * block, n_pad)
     sbs = _superblocks(nb, max(1, superblock_cols // block))
     plans = {}
     for kb0, F in sbs:
         plan = window_plan(kernel, observables, sizes, kb0 * block, (kb0 + F) * block, n_pad,
                            mesh.size, mesh.rank, block)
         plans[kb0] = plan, window_sets(plan, points)
-    s, done = float(nugget_scale), 0
+    s, done, ok = float(nugget_scale), 0, False
     for attempt in range(1, max_attempts + 1):
         if attempt > 1:
             L.zero_()
@@ -276,11 +286,12 @@ def assemble_factor_fused(kernel, observables, points, mesh: Mesh, axis: str = "
             if not _superblock(L, winvs, d_pad, kb0, F, block, mesh, *plans[kb0], chunk_cols):
                 break
         else:
-            fac = BlockCyclicFactor(L.view(nbl, block, n_pad), mesh, axis, block, n, n_pad, winvs)
-            return FusedFactor(fac, d_pad[:n], s, True, attempt, done)
+            ok = True
+            break
         s *= 10.0
-    fac = BlockCyclicFactor(L.view(nbl, block, n_pad), mesh, axis, block, n, n_pad, winvs)
-    return FusedFactor(fac, d_pad[:n], s, False, max_attempts, done)
+    d_isqrt = d_pad[:n] if d_out is None else d_out.copy_(d_pad[:n])
+    fac = BlockCyclicFactor(local, mesh, axis, block, n, n_pad, winvs)
+    return FusedFactor(fac, d_isqrt, s, ok, attempt, done)
 
 
 def _sampled_rows_matvec(kernel, observables, points, row_layout, d_isqrt, v):
@@ -320,8 +331,7 @@ def sampled_row_quality(fac: BlockCyclicFactor, kernel, observables, points, d_i
         idx = tuple(np.linspace(0, size - 1, take).astype(int).tolist())
         layout.append((op, o.points, off, idx))
     loc, mesh = fac.local, fac.mesh
-    v = torch.as_tensor(np.random.default_rng(0).standard_normal(fac.n_pad), dtype=loc.dtype,
-                        device=loc.device)
+    v = probe_vector(fac.n_pad, loc.dtype, loc.device)
     rows, y = _sampled_rows_matvec(kernel, observables, points, layout, d_isqrt, v)
     Ltv = matvec_blockcyclic(loc, mesh, fac.axis, fac.block, v, trans=True)
     w = matvec_blockcyclic(loc, mesh, fac.axis, fac.block, Ltv)

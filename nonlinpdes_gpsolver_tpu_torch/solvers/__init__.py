@@ -1,3 +1,4 @@
+from ._reuse import clear_graph_cache
 from .gn import GNState, FactoredProblem, factorize, gn_solve
 from .posterior import Posterior
 from .distributed import (
@@ -8,6 +9,7 @@ from .distributed import (
 )
 
 __all__ = [
+    "clear_graph_cache",
     "GNState",
     "FactoredProblem",
     "factorize",

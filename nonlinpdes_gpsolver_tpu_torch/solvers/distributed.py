@@ -17,7 +17,10 @@ vectors) are replicated and computed on every rank; the factor's solves
 across ranks) and the panels that are sharded by column bring the ranks
 together. A step is the dense path's (``solvers/gn.py::_Loop``): no host
 read inside it, recorded as CUDA graphs and replayed at P = 1 on the card
-(:func:`_records`). The loop reads the host once a step (whether the
+(:func:`_records`), where a recorded loop serves every problem of one
+layout (``solvers/_reuse.py``: the fused factorization of a new problem
+writes into a released problem's factor, and the loop's deflation basis
+and ``'normal'`` blocks are computed again for it). The loop reads the host once a step (whether the
 damped update must halve, and with ``tol`` whether the step ran), and the
 CG loop once an iteration, one iteration late; every such read, and every
 read that routes or probes, is agreed across the ranks first
@@ -51,25 +54,28 @@ leaves the probe verdict on the device for :class:`..api.GPSolver`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
 
 from ..models.spec import CollocationProblem
-from ..ops.linalg import spd_inverse, spd_solve
+from ..ops.linalg import probe_vector, spd_inverse, spd_solve
 from ..parallel import comm
 from ..parallel.cholesky import (
     BlockCyclicFactor,
     _chol_sharded,
     kernel_solve_blockcyclic,
     matvec_blockcyclic,
+    pad_to_blocks,
     trsm_blockcyclic,
 )
 from ..parallel.fused import assemble_factor_fused, sampled_row_quality
 from ..parallel.gram import assemble_gram_sharded
 from ..parallel.mesh import Mesh
 from ..ops.graphs import Flag, to_host
+from . import _reuse
 from .gn import (
     QUALITY_TOL,
     GNState,
@@ -81,11 +87,9 @@ from .gn import (
     _misfit_jacobi_precond,
     _misfit_jacobians,
     _normal_op,
-    _probe_vec,
     _slice_structure,
     _woodbury_correct,
     _woodbury_pieces,
-    cached_loop,
     identity_slice_rows,
     resolve_verdicts,
     validate_slice_structure,
@@ -105,7 +109,7 @@ class DistributedFactoredProblem:
     :meth:`resolve_pending` reads it; :attr:`pending_scales` names the
     blocks still pending) and ``stats[name]`` counts its factorization
     ``attempts`` and the ``superblocks`` computed over them (the fused
-    path). ``graphs`` caches the recorded Gauss-Newton loops.
+    path). ``entry`` and ``graphs`` are :class:`.gn.FactoredProblem`'s.
     """
 
     problem: CollocationProblem
@@ -116,6 +120,7 @@ class DistributedFactoredProblem:
     quality: Dict[str, float]
     stats: Dict[str, dict]
     graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    entry: object = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def mesh(self) -> Mesh:
@@ -209,14 +214,67 @@ def factorize_distributed(
     The fused path's superblock ladder keeps its host reads: it escalates
     the non-finite class inside the call, as the JAX package's executable
     does.
+
+    Where the loop is recorded (:func:`_records`), the fused path factors
+    into the storage of a released problem of the same layout, whose
+    recorded loop then serves this one (``solvers/_reuse.py``).
     """
     if problem.device != mesh.device:
         raise ValueError(f"the problem lies on {problem.device}, the mesh on {mesh.device}")
+    key = (_reuse.layout_key(problem, mesh_roles(problem, mesh, block), (mesh, axis, block))
+           if fused and _records(mesh) else None)
+    with _reuse.claimed(key) as entry:
+        dfp = _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_tol,
+                                max_attempts, guard, chunk_cols, fused, start_scales,
+                                superblock_cols, defer_quality,
+                                entry.outputs() if entry is not None else {})
+        _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
+                      functools.partial(mesh_view, mesh=mesh, axis=axis, block=block))
+    return dfp
+
+
+def mesh_roles(problem: CollocationProblem, mesh: Mesh, block: int) -> Dict[str, tuple]:
+    """Per block the stored tensors of a fused factor, as ``((role,
+    shape), ...)`` (``solvers/_reuse.py``): this rank's rows, the
+    diagonal-block inverses and the column scales."""
+    out = {}
+    for b in problem.blocks:
+        n = sum(int(problem.points[o.points].shape[0]) for o in b.observables)
+        n_pad = pad_to_blocks(n, block, mesh.size)
+        nb = n_pad // block
+        out[b.name] = (("local", (nb // mesh.size, block, n_pad)),
+                       ("diag_inv", (nb, block, block)), ("d", (n,)))
+    return out
+
+
+def mesh_tensors(dfp: DistributedFactoredProblem) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``dfp``'s stored tensors by block and role (:func:`mesh_roles`)."""
+    return {name: {"local": f.local, "diag_inv": f.diag_inv, "d": dfp.col_scales[name]}
+            for name, f in dfp.factors.items()}
+
+
+def mesh_view(problem: CollocationProblem, tensors, mesh: Mesh, axis: str,
+              block: int) -> DistributedFactoredProblem:
+    """The factored problem an entry's loops run on, made of its storage
+    (``solvers/_reuse.py``)."""
+    return DistributedFactoredProblem(
+        problem, {b: BlockCyclicFactor(t["local"], mesh, axis, block, int(t["d"].shape[0]),
+                                       int(t["local"].shape[2]), t["diag_inv"])
+                  for b, t in tensors.items()},
+        {b: t["d"] for b, t in tensors.items()}, {}, {}, {}, {})
+
+
+def _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_tol,
+                      max_attempts, guard, chunk_cols, fused, start_scales, superblock_cols,
+                      defer_quality, out) -> DistributedFactoredProblem:
+    """:func:`factorize_distributed`'s ladder, the fused factors written
+    into ``out[block]`` where given."""
     quality_tol = QUALITY_TOL if quality_tol is None else quality_tol
     factors, col_scales, scales, rungs, quality, stats = {}, {}, {}, {}, {}, {}
     s0 = _escalation_start(nugget, problem.dtype)
     defer = defer_quality and guard
     for b in problem.blocks:
+        buf = out.get(b.name)
         s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
         fac = None
         q, attempts, superblocks = math.nan, 0, 0
@@ -228,6 +286,7 @@ def factorize_distributed(
                     b.kernel, b.observables, problem.points, mesh, axis=axis, block=block,
                     nugget=nugget, nugget_type=nugget_type, nugget_scale=s,
                     chunk_cols=chunk_cols, superblock_cols=superblock_cols,
+                    out=None if buf is None else (buf["local"], buf["diag_inv"], buf["d"]),
                 )
                 fac, d_isqrt, s = res.factor, res.d_isqrt, res.scale
                 attempts += res.attempts
@@ -248,7 +307,7 @@ def factorize_distributed(
                 attempts += 1
                 n_pad = arranged.shape[2]
                 if guard:  # against the matrix, before the factorization overwrites it
-                    v = _probe_vec(n_pad, arranged.dtype, arranged.device)
+                    v = probe_vector(n_pad, arranged.dtype, arranged.device)
                     y = matvec_blockcyclic(arranged, mesh, axis, block, v, n=n_pad)
                 lower, winvs = _chol_sharded(arranged, mesh, axis, block)
                 fac = BlockCyclicFactor(lower, mesh, axis, block, int(d_isqrt.shape[0]),
@@ -751,19 +810,23 @@ def gn_solve_distributed(
         cg_tol = 1e-10 if torch.finfo(p.dtype).eps < 1e-10 else 1e-6
     cg_maxiter = 500 if cg_maxiter is None else int(cg_maxiter)
     max_iter = int(max_iter)
-    key = ("mesh", step_solver, structure, deflation_rank, float(step_size),
+    # whether the Krylov step deflates: it reads this problem's kernels,
+    # which are in neither key, so it is a key of its own
+    wants = step_solver == "woodbury" or (
+        step_solver == "cg" and (_any_anisotropic(p) or bool(deflation_rank)))
+    key = ("mesh", step_solver, structure, deflation_rank, wants, valid, float(step_size),
            float(hessian_jitter), float(cg_tol), cg_maxiter, tol, max_iter, tuple(z.shape),
            z.dtype)
-    loop = cached_loop(fp, key, lambda: _mesh_loop(
-        fp, z, step_solver, structure, cand, valid, deflation_rank, max_iter, step_size,
-        hessian_jitter, cg_tol, cg_maxiter, tol))
+    loop, fp = _reuse.loop_for(fp, key, lambda run_fp, pool: _mesh_loop(
+        run_fp, z, step_solver, structure, cand, valid, wants, deflation_rank, max_iter,
+        step_size, hessian_jitter, cg_tol, cg_maxiter, tol, pool))
     c = loop.carry
     with loop.rec.scope():
         c.reset(z)
         c.loss.copy_(fp.loss(z))
         flag = Flag(z.device)
         for _ in range(max_iter):
-            loop.step()
+            loop.step(fp)
             flag.post(c.code)
             code = int(fp.agree(flag.read(), "first"))
             if not code & 2:  # the step followed the tol stop: it changed nothing
@@ -777,33 +840,41 @@ def gn_solve_distributed(
                    step_solver=step_solver, deflation_rank=loop.deflation_rank)
 
 
-def _mesh_loop(fp, z, solver, structure, cand, valid, deflation_rank, max_iter, step_size,
-               hessian_jitter, cg_tol, cg_maxiter, tol) -> _Loop:
+def _mesh_loop(fp, z, solver, structure, cand, valid, wants, deflation_rank, max_iter,
+               step_size, hessian_jitter, cg_tol, cg_maxiter, tol, pool) -> _Loop:
     """The mesh path's :class:`..gn._Loop` for one configuration, with the
-    state its steps keep across calls: the deflation basis and the
-    ``'normal'`` step's inverse blocks (set-up reads, once a loop)."""
+    state its steps keep across calls: the deflation basis (when ``wants``)
+    and the ``'normal'`` step's inverse blocks. They depend on the
+    problem's factors, so ``prepare`` computes them (set-up reads) for each
+    problem the loop serves, into the storage a recording reads."""
     p = fp.problem
-    V_defl = None
-    wants = solver == "woodbury" or (solver == "cg" and (_any_anisotropic(p) or deflation_rank))
-    if wants and valid and deflation_rank != 0:
-        id_rows = identity_slice_rows(p, cand)
-        if fp.agree(id_rows is not None, "all"):
-            rank = (default_deflation_rank(p.latent_dim) if deflation_rank is None
-                    else int(deflation_rank))
-            V_defl = _deflation_basis(fp, cand, id_rows, rank)
+    state = {}
+
+    def prepare(loop, fp):
+        V_defl = None
+        if wants and valid and deflation_rank != 0:
+            id_rows = identity_slice_rows(fp.problem, cand)
+            if fp.agree(id_rows is not None, "all"):
+                rank = (default_deflation_rank(p.latent_dim) if deflation_rank is None
+                        else int(deflation_rank))
+                V_defl = _deflation_basis(fp, cand, id_rows, rank)
+        _refill(state, "V_defl", V_defl)
+        _refill(state, "ainvs", _normal_state(fp, structure) if solver == "normal" else None)
+        loop.deflation_rank = 0 if V_defl is None else int(V_defl.shape[1])
+
     carry = _MeshCarry(z, max_iter, tol)
-    kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter, capture=_records(fp.mesh),
-              exit_agree=lambda fp, stop: fp.agree(stop, "all"))
+    kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter, capture=_records(fp.mesh), pool=pool,
+              exit_agree=lambda fp, stop: fp.agree(stop, "all"), prepare=prepare)
     update = _damped_update(step_size)
     if solver == "cg":
         def system_fn(fp, c):
-            op, B, M, finish = _cg_system(fp, c.z, V_defl, hessian_jitter)
+            op, B, M, finish = _cg_system(fp, c.z, state["V_defl"], hessian_jitter)
             return op, B, M, None, finish
 
-        loop = _Loop(fp, carry, update, system_fn=system_fn, **kw)
+        loop = _Loop(carry, update, system_fn=system_fn, **kw)
     elif solver == "woodbury":
         def system_fn(fp, c):
-            op, B, M, U, wvec = _woodbury_system(fp, c.z, V_defl, hessian_jitter)
+            op, B, M, U, wvec = _woodbury_system(fp, c.z, state["V_defl"], hessian_jitter)
             if c.Xw is None:  # allocated in the first (eager) step, before any recording
                 c.Xw = torch.zeros_like(B)
 
@@ -814,19 +885,29 @@ def _mesh_loop(fp, z, solver, structure, cand, valid, deflation_rank, max_iter, 
 
             return op, B, M, c.Xw, finish
 
-        loop = _Loop(fp, carry, update, system_fn=system_fn, **kw)
+        loop = _Loop(carry, update, system_fn=system_fn, **kw)
     else:
-        ainvs = _normal_state(fp, structure) if solver == "normal" else None
-
         def delta_fn(fp, c):
             if solver == "normal":
-                return _normal_delta(fp, c.z, structure, ainvs, hessian_jitter)
+                return _normal_delta(fp, c.z, structure, state["ainvs"], hessian_jitter)
             return _panel_delta(fp, c.z, structure if solver == "structured" else None,
                                 hessian_jitter)
 
-        loop = _Loop(fp, carry, update, delta_fn=delta_fn, **kw)
-    loop.deflation_rank = 0 if V_defl is None else int(V_defl.shape[1])
+        loop = _Loop(carry, update, delta_fn=delta_fn, **kw)
     return loop
+
+
+def _refill(state: dict, name: str, value) -> None:
+    """Set ``state[name]`` to ``value`` (a tensor, a list of tensors or
+    ``None``), into the tensors already there: a recorded step reads their
+    storage."""
+    old = state.get(name)
+    if old is None:
+        state[name] = value
+        return
+    for o, v in zip(old if isinstance(old, list) else [old],
+                    value if isinstance(value, list) else [value]):
+        o.copy_(v)
 
 
 class DistributedPosterior(Posterior):

@@ -19,10 +19,13 @@ Here a step is a function of tensors that keep their storage
 (:class:`_Carry`), with no host read in it: the non-finite guard, the loss,
 the ``tol`` plateau test and the loss history all stay on the device. On
 the card it is recorded as CUDA graphs once it has run eagerly as its own
-warm-up, and replayed (``ops/graphs.py``, :class:`_Loop`); the graphs are
-cached on the :class:`FactoredProblem`, so a warm solve records nothing.
-The fixed-count loop reads nothing until its end; with ``tol`` it reads
-the plateau flag once a step, one step late. The Krylov steps' CG loop
+warm-up, and replayed (``ops/graphs.py``, :class:`_Loop`). As the JAX
+package keys its compiled loop on the problem's structure, not the
+instance, a recorded loop serves every problem of one layout
+(``solvers/_reuse.py``): a new problem whose structure matches a released
+one's factors into that one's storage and replays its loop, recording
+nothing. The fixed-count loop reads nothing until its end; with ``tol``
+it reads the plateau flag once a step, one step late. The Krylov steps' CG loop
 (:func:`_batched_cg`) keeps its iterate and its iteration count on the
 device and reads its exit flag once an iteration, one iteration late: at
 most one iteration a solve is spent after the exit.
@@ -37,7 +40,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-import weakref
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -46,16 +48,18 @@ import torch
 from ..models.spec import CollocationProblem
 from ..ops.assembly import adaptive_nugget_diag, gram_matrix, observable_sizes
 from ..ops.backend import is_accelerator
-from ..ops.graphs import Flag, Recorder, capturable, to_host
+from ..ops.graphs import Flag, Recorder, to_host
 from ..ops.linalg import (
     MAX_ESCALATIONS,
     equilibrated_cholesky,
     kernel_solve,
     newton_refine_tri_inverse,
+    probe_vector,
     spd_solve,
     tri_inverse,
     whiten,
 )
+from . import _reuse
 
 # Whitening-quality acceptance threshold of the JAX package, shared by every
 # verdict: the eager ladders and the deferred verdict GPSolver reads.
@@ -76,8 +80,10 @@ class FactoredProblem:
     After ``factorize(defer_quality=True)``, ``quality[name]`` is the
     block's whitening-quality verdict, a device scalar until
     :meth:`resolve_pending` reads it; :attr:`pending_scales` names the
-    blocks still pending. ``graphs`` caches the recorded Gauss-Newton loops
-    (``gn_solve``); it goes with the factors.
+    blocks still pending. ``entry`` is the shared loops' entry whose
+    storage these factors are (``solvers/_reuse.py``), or ``None``;
+    ``graphs`` holds the loops of a problem that is not bound to one
+    (``gn_solve``), which go with it.
     """
 
     problem: CollocationProblem
@@ -88,6 +94,7 @@ class FactoredProblem:
     rungs: Dict[str, int]
     quality: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    entry: object = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def pending_scales(self) -> Dict[str, float]:
@@ -168,12 +175,6 @@ class GNState(NamedTuple):
     deflation_rank: int = 0
 
 
-def _probe_vec(n: int, dtype, device) -> torch.Tensor:
-    """The JAX package's fixed whitening-quality probe (numpy seed 0)."""
-    v = np.random.default_rng(0).standard_normal(n)
-    return torch.as_tensor(v, dtype=dtype, device=device)
-
-
 def _whiten_quality(inv, L, d_isqrt, v) -> torch.Tensor:
     """Relative whitening residual ``max|W(Lv) - v| / max|v|``, a device
     scalar."""
@@ -212,6 +213,10 @@ def factorize(
     (one read a Cholesky), as the JAX package's in-executable ladder does:
     only the finite-but-corrupt class waits for the caller. ``'trsm'``
     blocks have no probe and nothing pending.
+
+    The outputs go straight into the storage of a released problem of the
+    same layout, whose recorded loop then serves this one
+    (``solvers/_reuse.py``).
     """
     device, dtype = problem.device, problem.dtype
     on_accelerator = is_accelerator(device)
@@ -221,47 +226,118 @@ def factorize(
         raise ValueError(f"unknown solve_mode {solve_mode!r}")
     factors, inv_factors, scales, col_scales, rungs = {}, {}, {}, {}, {}
     quality = {}
-    for b in problem.blocks:
-        theta = gram_matrix(b.kernel, b.observables, problem.points)
-        sizes = observable_sizes(b.observables, problem.points)
-        nug = adaptive_nugget_diag(theta, b.observables, sizes, nugget, nugget_type)
-        s0 = _escalation_start(nugget, dtype)
-        s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
-        total_rungs = round(math.log10(s / s0))
-        for _ in range(MAX_ESCALATIONS):
-            L, d_isqrt, s, r = equilibrated_cholesky(theta, nug, s)
-            total_rungs += r
-            if solve_mode == "trsm":
-                break
-            inv = _refined_inverse(L, on_accelerator) * d_isqrt[None, :]
-            v = _probe_vec(L.shape[0], dtype, device)
-            q = _whiten_quality(inv, L, d_isqrt, v)
-            if defer_quality:
-                inv_factors[b.name], quality[b.name] = inv, q
-                break
-            q = float(q)
-            if math.isfinite(q) and q < QUALITY_TOL:
-                inv_factors[b.name] = inv
-                break
-            s *= 10.0  # finite but corrupted factor: escalate anyway
-            total_rungs += 1
-        else:
-            raise FloatingPointError(
-                f"block {b.name!r}: factor quality still bad after nugget "
-                f"escalation to {s:g}x"
-            )
-        del theta
-        factors[b.name] = L
-        col_scales[b.name] = d_isqrt
-        scales[b.name] = s
-        rungs[b.name] = total_rungs
-    return FactoredProblem(problem, factors, inv_factors, scales, col_scales, rungs, quality)
+    key = _reuse.layout_key(problem, {
+        b.name: dense_roles(sum(observable_sizes(b.observables, problem.points)),
+                            solve_mode == "inverse")
+        for b in problem.blocks})
+    with _reuse.claimed(key) as entry:
+        out = entry.outputs() if entry is not None else {}
+        for b in problem.blocks:
+            theta = gram_matrix(b.kernel, b.observables, problem.points)
+            sizes = observable_sizes(b.observables, problem.points)
+            buf = out.get(b.name) or dense_storage(int(theta.shape[0]), solve_mode == "inverse",
+                                                   dtype, device)
+            nug = adaptive_nugget_diag(theta, b.observables, sizes, nugget, nugget_type)
+            s0 = _escalation_start(nugget, dtype)
+            s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
+            total_rungs = round(math.log10(s / s0))
+            for _ in range(MAX_ESCALATIONS):
+                L, d_isqrt, s, r = equilibrated_cholesky(theta, nug, s, out=(buf["L"], buf["d"]),
+                                                         work=_equilibration_work(buf))
+                total_rungs += r
+                if solve_mode == "trsm":
+                    break
+                inv = _refined_inverse(L, on_accelerator, d_isqrt, out=buf["inv"])
+                v = probe_vector(L.shape[0], dtype, device)
+                q = _whiten_quality(inv, L, d_isqrt, v)
+                if defer_quality:
+                    inv_factors[b.name], quality[b.name] = inv, q
+                    break
+                q = float(q)
+                if math.isfinite(q) and q < QUALITY_TOL:
+                    inv_factors[b.name] = inv
+                    break
+                s *= 10.0  # finite but corrupted factor: escalate anyway
+                total_rungs += 1
+            else:
+                raise FloatingPointError(
+                    f"block {b.name!r}: factor quality still bad after nugget "
+                    f"escalation to {s:g}x"
+                )
+            del theta
+            factors[b.name] = L
+            col_scales[b.name] = d_isqrt
+            scales[b.name] = s
+            rungs[b.name] = total_rungs
+        fp = FactoredProblem(problem, factors, inv_factors, scales, col_scales, rungs, quality)
+        _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view)
+    return fp
 
 
-def _refined_inverse(L: torch.Tensor, refine: bool) -> torch.Tensor:
-    """``L^{-1}``, with one Newton step on the card."""
-    inv = tri_inverse(L)
-    return newton_refine_tri_inverse(L, inv) if refine else inv
+def dense_roles(n: int, inverse: bool) -> tuple:
+    """The stored tensors of a dense block of ``n`` rows, as
+    ``((role, shape), ...)``: the factor, the column scales and, in
+    ``'inverse'`` mode, the whitening operator (``solvers/_reuse.py``)."""
+    roles = (("L", (n, n)), ("d", (n,)))
+    return roles + (("inv", (n, n)),) if inverse else roles
+
+
+def dense_storage(n: int, inverse: bool, dtype, device) -> Dict[str, torch.Tensor]:
+    """New storage of a dense block of ``n`` rows (:func:`dense_roles`),
+    the matrices column-major, as torch's factorizations return them. With
+    the whitening operator, the factor and it are one buffer, factor first:
+    the f64 equilibrated matrix is formed in its bytes
+    (:func:`_equilibration_work`) before either is written, so that the
+    factorization's peak holds no more than it did without this storage."""
+    kw = dict(dtype=dtype, device=device)
+    if inverse:
+        flat = torch.empty(2 * n * n, **kw)
+        out = {"L": flat[: n * n].view(n, n).t(), "inv": flat[n * n :].view(n, n).t()}
+    else:
+        out = {"L": torch.empty((n, n), **kw).t()}
+    out["d"] = torch.empty(n, **kw)
+    return out
+
+
+def _equilibration_work(buf: Dict[str, torch.Tensor]):
+    """The ``(n, n)`` f64 matrix over the bytes of a block's factor and
+    whitening operator (:func:`dense_storage`), or ``None`` where they do
+    not hold it (no operator, or not one buffer)."""
+    L = buf["L"]
+    n, start = L.shape[0], L.storage_offset() * L.element_size()
+    if "inv" not in buf or start % 8 or L.untyped_storage().nbytes() < start + 8 * n * n:
+        return None
+    return torch.empty(0, dtype=torch.float64, device=L.device).set_(
+        L.untyped_storage(), start // 8, (n, n))
+
+
+def dense_tensors(fp: FactoredProblem) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``fp``'s stored tensors by block and role (:func:`dense_roles`)."""
+    out = {}
+    for b in fp.problem.blocks:
+        t = {"L": fp.factors[b.name], "d": fp.col_scales[b.name]}
+        if b.name in fp.inv_factors:
+            t["inv"] = fp.inv_factors[b.name]
+        out[b.name] = t
+    return out
+
+
+def dense_view(problem, tensors) -> FactoredProblem:
+    """The factored problem an entry's loops run on, made of its storage."""
+    return FactoredProblem(
+        problem, {b: t["L"] for b, t in tensors.items()},
+        {b: t["inv"] for b, t in tensors.items() if "inv" in t}, {},
+        {b: t["d"] for b, t in tensors.items()}, {})
+
+
+def _refined_inverse(L: torch.Tensor, refine: bool, d_isqrt: torch.Tensor,
+                     out: torch.Tensor) -> torch.Tensor:
+    """The whitening operator ``L^{-1} D^{-1/2}``, into ``out``; ``L^{-1}``
+    is refined in place by one Newton step on the card."""
+    W = tri_inverse(L)
+    if refine:
+        newton_refine_tri_inverse(L, W)
+    return torch.mul(W, d_isqrt[None, :], out=out)
 
 
 def _slice_structure(problem: CollocationProblem):
@@ -300,15 +376,48 @@ def _block_diagonals(residual, data, z, s, N):
     return outs
 
 
+def _verdict_key(kind: str, problem: CollocationProblem, structure):
+    """The key of a cached structure verdict: the JAX package's residual
+    identities, structure and dtype, and the device type; ``None`` for an
+    unhashable residual (checked without caching, as there)."""
+    key = (kind, tuple(b.residual for b in problem.blocks), structure, problem.dtype,
+           problem.device.type)
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def _cached_verdict(kind: str, problem, structure, check):
+    key = _verdict_key(kind, problem, structure)
+    if key is not None and key in _reuse.VERDICTS:
+        return _reuse.VERDICTS[key]
+    verdict = check(problem, structure)
+    if key is not None:
+        _reuse.VERDICTS[key] = verdict
+    return verdict
+
+
 def validate_slice_structure(
     problem: CollocationProblem, structure, probes: int = 2
 ) -> bool:
-    """Check the pointwise-slice structure on random tangents (one host sync).
+    """Check the pointwise-slice structure on random tangents (one host
+    sync), once per residual identities, structure, dtype and device type
+    (the JAX package's ``_STRUCTURE_CACHE``): model constructors build
+    their residuals with cached factories, so a rebuilt problem of one
+    configuration is not checked again.
 
     For random tangents ``v`` the structured prediction
     ``sum_j D_j[rows] * v[slice j]`` (zero on non-interior rows) must match
     the true JVP of the raw residuals.
     """
+    return _cached_verdict("slices", problem, structure,
+                           lambda p, st: _check_slice_structure(p, st, probes))
+
+
+def _check_slice_structure(problem: CollocationProblem, structure, probes: int) -> bool:
+    """:func:`validate_slice_structure`'s check, uncached."""
     p = problem
     s, N, seginfo = structure
     rng = np.random.default_rng(0)
@@ -340,7 +449,14 @@ def identity_slice_rows(problem: CollocationProblem, structure):
     package). Those rows give a selection ``S`` with ``S J = I``, whose
     prior restriction ``S Theta S^T`` spans the smooth latent modes: the
     mesh path's deflation basis. Checked with two random-tangent JVPs per
-    candidate (numpy seed 7); one host read per candidate checked."""
+    candidate (numpy seed 7), one host read per candidate checked, once per
+    key of :func:`validate_slice_structure` (the JAX package's
+    ``_IDENTITY_ROW_CACHE``)."""
+    return _cached_verdict("identity rows", problem, structure, _find_identity_rows)
+
+
+def _find_identity_rows(problem: CollocationProblem, structure):
+    """:func:`identity_slice_rows`' check, uncached."""
     p = problem
     s, N, seginfo = structure
     rng = np.random.default_rng(7)
@@ -708,23 +824,28 @@ class _Loop:
     its first call being the warm-up (a handful of exact steps cost less
     eagerly than a capture does, so a loop called once is not recorded); a
     Krylov step after its first step, whose CG iterations are the warm-up
-    and repay the capture within the call.
+    and repay the capture within the call. The count is the loop's, so a
+    loop shared by the problems of one layout (``solvers/_reuse.py``)
+    records at the second problem's solve and every later problem replays.
+    Calls inside :func:`..ops.graphs.uncaptured` run eagerly and do not
+    count.
 
-    The loop holds its factored problem ``fp`` weakly and keeps no closure
-    over it between steps: ``fp.graphs`` owns the loop, and the factors go
-    as soon as ``fp`` does."""
+    The loop holds no factored problem: each step is given the one it runs
+    on (``fp``), and the recorded graphs read its tensors' storage.
+    ``prepare(loop, fp)``, when set, computes the loop's per-problem state
+    for ``fp`` (the mesh path's deflation basis), into the same storage once
+    recorded; ``bound`` says for which bind it last did."""
 
-    def __init__(self, fp, carry: _Carry, update, delta_fn=None, system_fn=None,
-                 cg_tol=0.0, cg_maxiter=0, exit_agree=None, capture=True):
-        device = carry.z.device
-        self.fp = weakref.ref(fp)
+    def __init__(self, carry: _Carry, update, delta_fn=None, system_fn=None, cg_tol=0.0,
+                 cg_maxiter=0, exit_agree=None, capture=True, pool=None, prepare=None):
         self.carry, self.update = carry, update
         self.delta_fn, self.system_fn = delta_fn, system_fn
         self.cg_tol, self.cg_maxiter, self.exit_agree = cg_tol, cg_maxiter, exit_agree
-        self.rec = Recorder(device, capture and capturable(device))
-        self.cg = None  # the CG state of the step in flight, or of the recorded one
-        self._ctx = None
+        self.rec = Recorder(carry.z.device, capture, pool)
+        self.cg = None  # the recorded step's CG state
         self.steps = 0
+        self.prepare, self.bound = prepare, None
+        self.deflation_rank = 0
 
     @property
     def krylov(self) -> bool:
@@ -737,53 +858,49 @@ class _Loop:
         op, B, M, X0, finish = self.system_fn(fp, self.carry)
         st = _CGState(op, B, self.cg_tol, M, X0)
         st.mask(self.carry.go)
-        self.cg, self._ctx = st, (op, M, finish)
-
-    def _iterate(self):
-        op, M, _ = self._ctx
-        _cg_iteration(self.cg, op, M)
-
-    def _finish(self, fp):
-        self.update(fp, self.carry, self._ctx[2](self.cg.X), self.cg.iters)
+        return st, (op, M, finish)
 
     def _record(self, fp):
+        rec = self.rec
         if not self.krylov:
-            self.rec.capture("step", lambda: self._exact(fp))
+            rec.capture("step", lambda: self._exact(fp))
             return
-        self.rec.capture("setup", lambda: self._setup(fp))
-        self.rec.capture("iteration", self._iterate)
-        self.rec.capture("finish", lambda: self._finish(fp))
+        ctx = []
 
-    def step(self) -> None:
-        """One Gauss-Newton step, queued (recorded first if it is due)."""
-        fp, rec = self.fp(), self.rec
+        def setup():
+            self.cg, parts = self._setup(fp)
+            ctx.append(parts)
+
+        rec.capture("setup", setup)
+        op, M, finish = ctx.pop()
+        rec.capture("iteration", lambda: _cg_iteration(self.cg, op, M))
+        rec.capture("finish", lambda: self.update(fp, self.carry, finish(self.cg.X),
+                                                  self.cg.iters))
+
+    def step(self, fp) -> None:
+        """One Gauss-Newton step on ``fp``, queued (recorded first if it is
+        due, replayed once recorded)."""
+        rec = self.rec
+        live = rec.live
         warm_up = 1 if self.krylov else self.carry.max_iter
-        if rec.capture_on and not rec.captured and self.steps >= warm_up:
+        if live and not rec.captured and self.steps >= warm_up:
             self._record(fp)
-        try:
+        agree = None if self.exit_agree is None else (lambda stop: self.exit_agree(fp, stop))
+        if live and rec.captured:
             if not self.krylov:
-                rec.run("step", lambda: self._exact(fp))
+                rec.replay("step")
             else:
-                rec.run("setup", lambda: self._setup(fp))
-                agree = None if self.exit_agree is None else (
-                    lambda stop: self.exit_agree(fp, stop))
-                _cg_loop(lambda: rec.run("iteration", self._iterate), self.cg,
-                         self.cg_maxiter, agree)
-                rec.run("finish", lambda: self._finish(fp))
-        finally:
-            self._ctx = None  # the step's closures hold fp; the recorded graphs need none
-        self.steps += 1
-
-
-def cached_loop(fp, key, make):
-    """The loop ``key`` of ``fp`` (made by ``make()`` the first time): its
-    recorded graphs, pool and static tensors live as long as the factors."""
-    loop = fp.graphs.get(key)
-    if loop is None:
-        loop = make()
-        if loop.rec.capture_on:
-            fp.graphs[key] = loop
-    return loop
+                rec.replay("setup")
+                _cg_loop(lambda: rec.replay("iteration"), self.cg, self.cg_maxiter, agree)
+                rec.replay("finish")
+        elif not self.krylov:
+            self._exact(fp)
+        else:
+            st, (op, M, finish) = self._setup(fp)
+            _cg_loop(lambda: _cg_iteration(st, op, M), st, self.cg_maxiter, agree)
+            self.update(fp, self.carry, finish(st.X), st.iters)
+        if live:
+            self.steps += 1
 
 
 def gn_solve(
@@ -828,8 +945,8 @@ def gn_solve(
 
     The loop reads nothing on the host but the ``tol`` flag (once a step,
     one step late) and the CG exit flag (once an iteration, one iteration
-    late); on the card its step is replayed from CUDA graphs cached on
-    ``fp`` (module docstring).
+    late); on the card its step is replayed from CUDA graphs shared by the
+    problems of ``fp``'s layout (module docstring).
     """
     p = fp.problem
     z = (p.init_latent() if z0 is None else torch.as_tensor(z0)).to(
@@ -863,16 +980,16 @@ def gn_solve(
     max_iter = int(max_iter)
     key = ("dense", routed, structure, float(step_size), float(hessian_jitter), float(cg_tol),
            cg_maxiter, tol, max_iter, tuple(z.shape), z.dtype)
-    loop = cached_loop(fp, key, lambda: _dense_loop(fp, z, routed, structure, max_iter,
-                                                    step_size, hessian_jitter, cg_tol,
-                                                    cg_maxiter, tol))
+    loop, run_fp = _reuse.loop_for(fp, key, lambda run_fp, pool: _dense_loop(
+        z, routed, structure, max_iter, step_size, hessian_jitter, cg_tol, cg_maxiter, tol,
+        pool))
     carry = loop.carry
     with loop.rec.scope():
         carry.reset(z)
         flag = Flag(z.device)
         flag.post(carry.go)
         for _ in range(max_iter):
-            loop.step()
+            loop.step(run_fp)
             if tol is not None:
                 if not flag.read():  # the step just queued follows the stop: it changed nothing
                     break
@@ -884,8 +1001,8 @@ def gn_solve(
                    step_solver=routed)
 
 
-def _dense_loop(fp, z, solver, structure, max_iter, step_size, hessian_jitter, cg_tol,
-                cg_maxiter, tol) -> _Loop:
+def _dense_loop(z, solver, structure, max_iter, step_size, hessian_jitter, cg_tol,
+                cg_maxiter, tol, pool) -> _Loop:
     """The dense path's :class:`_Loop` for one configuration: the guarded
     update ``z - step_size * delta`` (a non-finite iterate keeps ``z``)
     and the loss at the new iterate."""
@@ -897,7 +1014,7 @@ def _dense_loop(fp, z, solver, structure, max_iter, step_size, hessian_jitter, c
         carry.commit(z_next, finite, fp.loss(z_next), iters)
 
     carry = _Carry(z, max_iter, tol)
-    kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter)
+    kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter, pool=pool)
     if solver in ("cg", "woodbury"):
         system = _cg_system if solver == "cg" else _woodbury_system
 
@@ -905,11 +1022,11 @@ def _dense_loop(fp, z, solver, structure, max_iter, step_size, hessian_jitter, c
             op, B, M, finish = system(fp, c.z, hessian_jitter)
             return op, B, M, None, finish
 
-        return _Loop(fp, carry, update, system_fn=system_fn, **kw)
+        return _Loop(carry, update, system_fn=system_fn, **kw)
 
     def delta_fn(fp, c):
         J = (_direct_jacobian(fp, c.z) if structure is None
              else _structured_jacobian(fp, c.z, structure))
         return spd_solve(J.T @ J, J.T @ fp.whitened_residual(c.z), jitter=hessian_jitter)
 
-    return _Loop(fp, carry, update, delta_fn=delta_fn, **kw)
+    return _Loop(carry, update, delta_fn=delta_fn, **kw)

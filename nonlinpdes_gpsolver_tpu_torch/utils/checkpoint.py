@@ -31,10 +31,16 @@ What the port holds and the format does not, bridged:
   load reads the file and takes its own blocks
   (``parallel/cholesky.py::deal_saved_blocks``), on a mesh of any size that
   divides ``nb``.
+
+A loaded factor is a factorization like any other for the Gauss-Newton
+loops shared by problems of one structure (``solvers/_reuse.py``): it is
+read into the storage of a released problem of its layout, whose recorded
+loop it then replays, or its tensors make a new entry.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 from pathlib import Path
@@ -45,10 +51,24 @@ import torch
 
 from ..models.spec import CollocationProblem
 from ..parallel import comm
-from ..parallel.cholesky import BlockCyclicFactor, deal_saved_blocks, diag_inverses
+from ..parallel.cholesky import BlockCyclicFactor, deal_saved_blocks, diag_inverses, pad_to_blocks
 from ..parallel.mesh import Mesh
-from ..solvers.distributed import DistributedFactoredProblem
-from ..solvers.gn import FactoredProblem, GNState
+from ..solvers import _reuse
+from ..solvers.distributed import (
+    DistributedFactoredProblem,
+    _records,
+    mesh_roles,
+    mesh_tensors,
+    mesh_view,
+)
+from ..solvers.gn import (
+    FactoredProblem,
+    GNState,
+    dense_roles,
+    dense_storage,
+    dense_tensors,
+    dense_view,
+)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -194,6 +214,20 @@ def _converter(problem: CollocationProblem):
     return to
 
 
+def _into(out: dict, to):
+    """``put(block, role, a)``: ``a`` (an array, or a tensor already on the
+    problem's device in its dtype) written into ``out[block][role]`` (a
+    claimed entry's storage) where there is one."""
+
+    def put(name, role, a):
+        buf = out.get(name, {}).get(role)
+        if buf is None:
+            return a if torch.is_tensor(a) else to(a)
+        return buf.copy_(a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a)))
+
+    return put
+
+
 def load_solver_state(path, problem: CollocationProblem
                       ) -> Tuple[FactoredProblem, Optional[GNState]]:
     """Rebuild a :class:`~..solvers.gn.FactoredProblem` for ``problem`` (and
@@ -202,25 +236,40 @@ def load_solver_state(path, problem: CollocationProblem
     to = _converter(problem)
     with np.load(Path(path)) as data:
         meta = _read_meta(data, problem)
-        factors, inv_factors, col_scales = {}, {}, {}
         for b in problem.blocks:
             if b.name not in meta["blocks"]:
                 raise ValueError(f"checkpoint missing block {b.name!r}")
-            L = data[f"factor__{b.name}"]
-            n_expected = _block_size(problem, b)
-            if L.shape[0] != n_expected:
-                raise ValueError(f"block {b.name!r}: factor size {L.shape[0]} != problem size "
+            n_file, n_expected = data[f"factor__{b.name}"].shape[0], _block_size(problem, b)
+            if n_file != n_expected:
+                raise ValueError(f"block {b.name!r}: factor size {n_file} != problem size "
                                  f"{n_expected} (points changed?)")
-            factors[b.name] = to(L)
-            if b.name in meta["has_inverse"]:
-                inv_factors[b.name] = to(data[f"inv_factor__{b.name}"])
-            if b.name in meta.get("has_col_scales", []):
-                col_scales[b.name] = to(data[f"col_scale__{b.name}"])
-        fp = FactoredProblem(
-            problem=problem, factors=factors, inv_factors=inv_factors,
-            nugget_scales={k: float(v) for k, v in meta["nugget_scales"].items()},
-            col_scales=col_scales, rungs=_rungs(meta),
-        )
+        scaled = all(b.name in meta.get("has_col_scales", []) for b in problem.blocks)
+        key = _reuse.layout_key(problem, {
+            b.name: dense_roles(_block_size(problem, b), b.name in meta["has_inverse"])
+            for b in problem.blocks}) if scaled else None
+        with _reuse.claimed(key) as entry:
+            if entry is not None:
+                out = entry.outputs()
+            elif key is not None:  # the storage a factorization of the layout makes
+                out = {b.name: dense_storage(_block_size(problem, b), b.name in meta["has_inverse"],
+                                             problem.dtype, problem.device)
+                       for b in problem.blocks}
+            else:
+                out = {}
+            put = _into(out, to)
+            factors, inv_factors, col_scales = {}, {}, {}
+            for b in problem.blocks:
+                factors[b.name] = put(b.name, "L", data[f"factor__{b.name}"])
+                if b.name in meta["has_inverse"]:
+                    inv_factors[b.name] = put(b.name, "inv", data[f"inv_factor__{b.name}"])
+                if b.name in meta.get("has_col_scales", []):
+                    col_scales[b.name] = put(b.name, "d", data[f"col_scale__{b.name}"])
+            fp = FactoredProblem(
+                problem=problem, factors=factors, inv_factors=inv_factors,
+                nugget_scales={k: float(v) for k, v in meta["nugget_scales"].items()},
+                col_scales=col_scales, rungs=_rungs(meta),
+            )
+            _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view)
         state = _read_state(data, meta, to)
     return fp, state
 
@@ -241,7 +290,6 @@ def load_distributed_state(path, problem: CollocationProblem, mesh: Mesh, axis: 
         if meta.get("kind") != "distributed":
             raise ValueError("not a distributed checkpoint")
         by_name = {bm["name"]: bm for bm in meta["blocks"]}
-        factors, col_scales = {}, {}
         for b in problem.blocks:
             bm = by_name.get(b.name)
             if bm is None:
@@ -250,17 +298,34 @@ def load_distributed_state(path, problem: CollocationProblem, mesh: Mesh, axis: 
             if bm["n"] != n_expected:
                 raise ValueError(f"block {b.name!r}: factor size {bm['n']} != problem size "
                                  f"{n_expected} (points changed?)")
-            local = to(deal_saved_blocks(data[f"factor_local__{b.name}"], bm["mesh_size"], mesh))
-            factors[b.name] = BlockCyclicFactor(
-                local, mesh, axis, int(bm["block"]), int(bm["n"]), int(bm["n_pad"]),
-                diag_inverses(local, mesh, axis, int(bm["block"])),
+        key, block = None, {int(by_name[b.name]["block"]) for b in problem.blocks}
+        if len(block) == 1 and _records(mesh):  # the fused factor's layout (mesh_roles)
+            block = block.pop()
+            if all(by_name[b.name]["n_pad"] == pad_to_blocks(by_name[b.name]["n"], block, mesh.size)
+                   and b.name in meta.get("has_col_scales", []) for b in problem.blocks):
+                key = _reuse.layout_key(problem, mesh_roles(problem, mesh, block),
+                                        (mesh, axis, block))
+        with _reuse.claimed(key) as entry:
+            put = _into(entry.outputs() if entry is not None else {}, to)
+            factors, col_scales = {}, {}
+            for b in problem.blocks:
+                bm = by_name[b.name]
+                local = put(b.name, "local",
+                            deal_saved_blocks(data[f"factor_local__{b.name}"], bm["mesh_size"],
+                                              mesh))
+                diag_inv = put(b.name, "diag_inv",
+                               diag_inverses(local, mesh, axis, int(bm["block"])))
+                factors[b.name] = BlockCyclicFactor(local, mesh, axis, int(bm["block"]),
+                                                    int(bm["n"]), int(bm["n_pad"]), diag_inv)
+                if b.name in meta.get("has_col_scales", []):
+                    col_scales[b.name] = put(b.name, "d", data[f"col_scale__{b.name}"])
+            dfp = DistributedFactoredProblem(
+                problem=problem, factors=factors, col_scales=col_scales,
+                nugget_scales={k: float(v) for k, v in meta["nugget_scales"].items()},
+                rungs=_rungs(meta), quality={}, stats={},
             )
-            if b.name in meta.get("has_col_scales", []):
-                col_scales[b.name] = to(data[f"col_scale__{b.name}"])
-        dfp = DistributedFactoredProblem(
-            problem=problem, factors=factors, col_scales=col_scales,
-            nugget_scales={k: float(v) for k, v in meta["nugget_scales"].items()},
-            rungs=_rungs(meta), quality={}, stats={},
-        )
+            if key is not None:
+                _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
+                              functools.partial(mesh_view, mesh=mesh, axis=axis, block=block))
         state = _read_state(data, meta, to)
     return dfp, state

@@ -19,9 +19,11 @@ builds its kernels there first.
   smoke test's, 42,500 Gram rows.
 * ``dense``: the four reference workloads (``w.solve()``) and the 16,200-row
   elliptic problem of ``chip_smoke.py``'s ``large_solve`` on the dense
-  path, each with a new ``GPSolver`` a run, once cold and ``--repeats``
-  times warm: each run's end-to-end and Gauss-Newton seconds, and the
-  last run's losses.
+  path, each with a new ``GPSolver`` a run (the last run's result dropped
+  first, so that a tree that shares one recorded loop among the problems
+  of one structure does), once cold and ``--repeats`` times warm: each
+  run's end-to-end and Gauss-Newton seconds and captures, and the last
+  run's losses.
 
 One JSON line a root goes to stdout and, with ``--out``, to that file.
 """
@@ -72,9 +74,11 @@ def rank_main(rank, world, port, root, device, n, nb, repeats, tmp):
 
 
 def dense_runs(tpt, device, repeats):
-    """``--what dense`` in one root: ``{name: {"runs": [[e2e, gn], ...],
-    "losses": [...]}}``."""
+    """``--what dense`` in one root: ``{name: {"runs": [[e2e, gn, captures],
+    ...], "losses": [...]}}``."""
     import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
 
     def sync():
         if torch.device(device).type == "cuda":
@@ -93,12 +97,14 @@ def dense_runs(tpt, device, repeats):
     cases["large"] = large()
     out = {}
     for name, solve in cases.items():
-        runs = []
+        runs, res = [], None
         for _ in range(1 + repeats):
+            res = None
+            graphs.reset_counts()
             t0 = time.perf_counter()
             res = solve()
             sync()
-            runs.append([time.perf_counter() - t0, res.timers["gauss_newton"]])
+            runs.append([time.perf_counter() - t0, res.timers["gauss_newton"], graphs.CAPTURES])
         out[name] = {"runs": runs, "losses": res.state.losses.tolist()}
         del res
     return out

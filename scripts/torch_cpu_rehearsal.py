@@ -3,6 +3,7 @@
 
     python3 scripts/torch_cpu_rehearsal.py [--workloads burgers eikonal darcy] [--krylov]
     python3 scripts/torch_cpu_rehearsal.py --workloads --ranks
+    python3 scripts/torch_cpu_rehearsal.py --workloads --reuse
 
 The port picks its numerics by device (``ops/backend.py::is_accelerator``):
 on the card, ``solve_mode='inverse'`` with the Newton step, the
@@ -14,6 +15,13 @@ line with its metrics, gate failures, rungs and losses; with ``--krylov``
 it runs ``chip_smoke.krylov_steps`` on the CPU. The Gram kernel's plain
 version stands in for the kernel, so the results predict the card's to
 rounding only, and its seconds are CPU seconds, not device times.
+
+``--reuse`` runs ``chip_smoke.py``'s phase ``structure_reuse`` with the
+card's numerics: five new problems of one structure, each on a new
+``GPSolver``, for the canonical problem, the Darcy inverse problem, phase
+4's problem cut to 700/100 and ``mesh_solve``'s cut to 500/100 (on the CPU
+nothing is recorded, so every run is eager; the binds and the gates are the
+card's).
 
 ``--ranks`` runs ``chip_smoke.py``'s phases ``mesh_ranks`` and ``mesh_nccl``
 on the CPU in f64 at small sizes (``mesh_elliptic`` 500/100,
@@ -37,6 +45,7 @@ def main():
                     choices=["elliptic", "burgers", "eikonal", "darcy"])
     ap.add_argument("--krylov", action="store_true")
     ap.add_argument("--ranks", action="store_true")
+    ap.add_argument("--reuse", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -60,6 +69,15 @@ def main():
 
             steps = chip_smoke.krylov_steps(tpt, torch.device("cpu"))
             print(json.dumps({"krylov_steps_cpu": steps}), flush=True)
+        if args.reuse:
+            import chip_smoke
+
+            t0 = time.perf_counter()
+            reuse = chip_smoke.structure_reuse(
+                tpt, torch.device("cpu"), names=("canonical", "darcy", "large", "mesh"),
+                large_sizes=(700, 100), mesh_sizes=(500, 100))
+            print(json.dumps({"structure_reuse_cpu": reuse,
+                              "cpu_seconds": time.perf_counter() - t0}), flush=True)
     if args.ranks:
         rehearse_ranks(tpt)
 

@@ -79,7 +79,7 @@ def main():
         theta = tpt.ops.gram_matrix(b.kernel, b.observables, prob.points)
         sizes = tpt.ops.observable_sizes(b.observables, prob.points)
         nug = tpt.ops.adaptive_nugget_diag(theta, b.observables, sizes, 1e-5)
-        probe = gn._probe_vec(theta.shape[0], theta.dtype, dev)
+        probe = linalg.probe_vector(theta.shape[0], theta.dtype, dev)
         for s in (1.0, 10.0, 100.0):
             M64, d_isqrt = linalg.equilibrate(theta, nug, s)
             row = {"n_domain": n_dom, "n_boundary": n_bdy, "rows": theta.shape[0], "s": s}

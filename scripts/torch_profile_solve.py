@@ -10,12 +10,14 @@ sampler with seed 0 for other sizes) it runs the elliptic solve of
 and for each named workload of ``nonlinpdes_gpsolver_tpu_torch/workloads.py``
 (the mesh path's ``mesh_elliptic`` and ``darcy_past_wall`` too; ``--sizes``
 with no value profiles no elliptic size) its solve and test extensions:
-once cold, then under ``torch.profiler`` twice, each printing one JSON line:
-``"solver": "new"``, a new ``GPSolver`` (factorization, the first
-Gauss-Newton step eager, the loop's capture, its replays), and
-``"solver": "same"``, that solver's second solve (the recorded loop
-replayed, no factorization). Each line holds the synchronized wall seconds
-of the profiled run, the device busy time (the union of all kernel
+twice cold (on new solvers: the first makes the entry of its structure and
+runs its exact loop eagerly, the second records it; ``solvers/_reuse.py``),
+then under ``torch.profiler`` twice, each printing one JSON line:
+``"solver": "new"``, a new ``GPSolver`` of that structure (its
+factorization into the released storage, the recorded loop replayed), and
+``"solver": "same"``, that solver's second solve (no factorization). Each
+line holds how the new solver bound (``bind``), the synchronized wall
+seconds of the profiled run, the device busy time (the union of all kernel
 intervals, graph replays' kernels included), the idle share
 ``1 - busy / wall``, the solver's phase seconds, and the ``--top`` kernels
 by total device time with their launch counts. Needs a CUDA card.
@@ -111,11 +113,14 @@ def main():
             "top_kernels": [{"name": n[:120], "launches": c, "ms": ms} for n, (c, ms) in top],
         }
 
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+
     cases = [size_case(s) for s in args.sizes] + [workload_case(n) for n in args.workloads]
     for label, build in cases:
-        solver, steps, l2_of = build()
-        l2_of(solver.solve(max_iter=steps))  # cold
-        del solver
+        for _ in range(2):  # cold: the entry made, then its loop recorded
+            solver, steps, l2_of = build()
+            l2_of(solver.solve(max_iter=steps))
+            del solver
         torch.cuda.empty_cache()
 
         def new_solver():
@@ -129,10 +134,13 @@ def main():
 
         for kind, run in (("new", new_solver), ("same", same_solver)):
             before = {} if kind == "new" else solver.timers.as_dict()
+            graphs.reset_counts()
             (solver, res, l2), prof_row = profiled(run)
             phases = {k: v - before.get(k, 0.0) for k, v in res.timers.items()}
+            bind = {"made": graphs.ENTRIES, "rebound": graphs.REBINDS,
+                    "unshared": graphs.UNSHARED, "captures": graphs.CAPTURES}
             print(json.dumps({
-                **label, "solver": kind, **prof_row, "phase_seconds": phases,
+                **label, "solver": kind, "bind": bind, **prof_row, "phase_seconds": phases,
                 "test_l2": l2, "rungs": res.posterior.fp.rungs,
                 "cg_iters": res.state.cg_iters.tolist(),
             }), flush=True)

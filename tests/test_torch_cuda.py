@@ -1,7 +1,9 @@
 """The port on a CUDA card: the Gram kernel against its plain version (one
 block, and whole one-launch Gram and cross-Gram matrices), its wrapper's
 checks, the canonical solve and the other reference workloads through the
-kernel, and a Woodbury step against the direct one.
+kernel, a Woodbury step against the direct one, the Gauss-Newton loop
+recorded and replayed, and one recorded loop shared by new problems of one
+structure.
 
 These tests need a card and skip without one (the kernel has no CPU mode).
 The file imports nothing of JAX, so on a machine with a card and no JAX it
@@ -601,6 +603,65 @@ def test_gn_loop_replays_its_eager_steps(cuda, step):
         assert graphs.HOST_READS <= sum(iters) + len(iters) + 1
     else:
         assert graphs.HOST_READS == 0 and iters == [0] * 4
+
+
+def _sampled_canonical(seed, device, n_domain=900):
+    """The canonical configuration (sigma 0.2, 900/124 points) on a fresh
+    draw of the port's sampler."""
+    Xd, Xb = tpt.utils.sample_random(torch.Generator(device=device).manual_seed(seed), n_domain,
+                                     124)
+    return tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
+                                         tpt.workloads.elliptic_rhs(), tpt.workloads.u_elliptic,
+                                         seed=seed)
+
+
+@pytest.mark.cuda
+def test_new_problems_of_one_structure_share_one_loop(cuda):
+    """Three new problems of one structure, each on a new ``GPSolver`` (the
+    last one gone): the first makes the entry and runs its exact loop
+    eagerly, the second factors into its storage and records the loop, the
+    third replays it with no capture, bitwise its eager solve; its loop
+    replayed again under ``set_sync_debug_mode("error")``. A released
+    entry keeps its factor and data bytes and its graph pool until a
+    factorization of another layout frees them."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
+
+    tpt.clear_graph_cache()
+    seen = []
+    for k in range(3):
+        graphs.reset_counts()
+        solver = tpt.GPSolver(_sampled_canonical(k, cuda), nugget=1e-5)
+        binds = (graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED)
+        res = solver.solve(max_iter=4)
+        torch.cuda.synchronize()
+        seen.append((binds, graphs.CAPTURES, graphs.REPLAYS))
+        assert bool(res.state.converged_finite)
+        if k == 2:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = tpt.gn_solve(solver.fp, max_iter=4)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            with graphs.uncaptured():
+                eager = solver.solve(max_iter=4)
+            assert torch.equal(res.z, eager.z) and torch.equal(res.state.losses, eager.state.losses)
+            assert torch.equal(again.z, res.z)
+            del again, eager
+        del solver, res
+    assert seen == [((1, 0, 0), 0, 0), ((0, 1, 0), 1, 4), ((0, 1, 0), 0, 4)]
+    n, data = 2 * 900 + 124, 900 + 124  # Gram rows [lap u, u] at 900 points, u at 124
+    (entry,) = _reuse._ENTRIES.values()
+    pool = _reuse._pool_bytes([entry.pool])[tuple(entry.pool)]
+    assert pool > 0 and graphs.RETAINED_BYTES == 4 * (2 * n * n + n + data) + pool
+    del entry
+    other = tpt.GPSolver(_sampled_canonical(3, cuda, n_domain=901), nugget=1e-5)
+    assert graphs.RETAINED_BYTES == 0 and graphs.ENTRIES == 1
+    del other
+    n, data = n + 2, data + 1
+    assert graphs.RETAINED_BYTES == 4 * (2 * n * n + n + data)
+    tpt.clear_graph_cache()
+    assert graphs.RETAINED_BYTES == 0
 
 
 @pytest.mark.cuda

@@ -34,6 +34,7 @@ from nonlinpdes_gpsolver_tpu_torch.ops import graphs
 from nonlinpdes_gpsolver_tpu_torch.ops.assembly import Observable
 from nonlinpdes_gpsolver_tpu_torch.ops.operators import identity
 from nonlinpdes_gpsolver_tpu_torch.parallel import make_mesh
+from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
 from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
 from nonlinpdes_gpsolver_tpu_torch.solvers import gn as tgn
 from test_torch_krylov import _elliptic_pair, small_darcy
@@ -131,6 +132,26 @@ def test_gpsolver_deferred_quality_retries_escalation(monkeypatch, case):
     v = torch.as_tensor(rng.standard_normal(L.shape[0]), dtype=L.dtype)
     resid = W @ ((L @ v) / st.fp.col_scales["u"]) - v
     assert float(resid.abs().max()) < 1e-2 * float(v.abs().max())
+
+
+def test_gpsolver_redo_factors_into_the_released_storage(monkeypatch):
+    """A failed deferred verdict (the injected one of
+    :func:`test_gpsolver_deferred_quality_retries_escalation`) releases the
+    solver's factors: the redo factors into their storage, the same entry
+    of the shared loops (``solvers/_reuse.py``), and accepts the escalated
+    scale."""
+    rng = np.random.default_rng(0)
+    Xd = np.concatenate([rng.uniform(0, 1, (30, 2))] * 4)
+    Xb = rng.uniform(0, 1, (10, 2))
+    _, pt = _identity_pair(Xd, Xb, 0.5, np.sin(3.0 * Xb[:, 0]) * Xb[:, 1], torch.float64)
+    monkeypatch.setattr(tgn, "_whiten_quality", _fail_first(tgn._whiten_quality, []))
+    graphs.reset_counts()
+    st = tpt.GPSolver(pt, nugget=1e-6, defer_quality=True, solve_mode="inverse")
+    ptrs = {k: t.data_ptr() for k, t in (("L", st.fp.factors["u"]), ("inv", st.fp.inv_factors["u"]))}
+    rt = st.solve(max_iter=2)
+    assert st.fp.nugget_scales == {"u": 10.0} and bool(torch.isfinite(rt.z).all())
+    assert ptrs == {"L": st.fp.factors["u"].data_ptr(), "inv": st.fp.inv_factors["u"].data_ptr()}
+    assert (graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED) == (1, 1, 0)
 
 
 def test_deferred_non_finite_attempt_escalates_inside_the_call(monkeypatch):
@@ -344,13 +365,19 @@ class ReadCounter:
 @pytest.mark.parametrize("solve_mode,step", [("inverse", "structured"), ("trsm", "direct")])
 def test_fixed_loop_reads_nothing_per_step(monkeypatch, solve_mode, step):
     """A fixed-count exact loop reads the host only in its set-up: the
-    same count at 2 and at 6 steps."""
+    same count at 2 and at 6 steps (each call checking its structure, the
+    verdict cache cleared, as the first solve of a layout does)."""
     _, pt, z0 = _elliptic_pair(30, 12)
     fp = tpt.factorize(pt, 1e-8, solve_mode=solve_mode)
     z0 = torch.as_tensor(z0)
     reads = ReadCounter(monkeypatch)
-    st2, n2 = reads(lambda: tpt.gn_solve(fp, z0=z0, max_iter=2, step_solver=step))
-    st6, n6 = reads(lambda: tpt.gn_solve(fp, z0=z0, max_iter=6, step_solver=step))
+
+    def solve(max_iter):
+        _reuse.VERDICTS.clear()
+        return tpt.gn_solve(fp, z0=z0, max_iter=max_iter, step_solver=step)
+
+    st2, n2 = reads(lambda: solve(2))
+    st6, n6 = reads(lambda: solve(6))
     assert n2 == n6
     assert st6.step_solver == step and st6.cg_iters.tolist() == [0] * 6
     assert torch.equal(st6.losses[:2], st2.losses)
@@ -407,17 +434,24 @@ def test_krylov_reads_once_an_iteration(monkeypatch, step):
 def test_mesh_update_reads_once_a_step(monkeypatch, step):
     """The mesh loop reads the host once a step (the damped update's
     halving test, agreed across ranks), besides its CG exit reads and its
-    set-up: 2 and 5 steps differ by 3 reads for an exact step."""
+    set-up: 2 and 5 steps differ by 3 reads for an exact step. Each call
+    checks its structure (the verdict cache cleared), as the first solve
+    of a layout does."""
     from test_torch_distributed import elliptic_pair
 
     _, pt = elliptic_pair()
     dfp = tdist.factorize_distributed(pt, MESH, nugget=1e-8, block=16, superblock_cols=32)
     reads = ReadCounter(monkeypatch)
+
+    def solve(max_iter):
+        _reuse.VERDICTS.clear()
+        return tdist.gn_solve_distributed(dfp, max_iter=max_iter, step_solver=step)
+
     graphs.reset_counts()
-    st2, n2 = reads(lambda: tdist.gn_solve_distributed(dfp, max_iter=2, step_solver=step))
+    st2, n2 = reads(lambda: solve(2))
     reads2 = graphs.HOST_READS
     graphs.reset_counts()
-    st5, n5 = reads(lambda: tdist.gn_solve_distributed(dfp, max_iter=5, step_solver=step))
+    st5, n5 = reads(lambda: solve(5))
     it2, it5 = sum(st2.cg_iters.tolist()), sum(st5.cg_iters.tolist())
     assert n5 - n2 <= 3 + (it5 - it2) + 3
     if step == "structured":

@@ -3,8 +3,9 @@ sizes, so that a fault in them shows here before a call on the card:
 ``checkpoint`` (the dense round trip on the canonical solve; the mesh case
 on phase 4's problem cut to 300/60, reloaded in the child process that
 blocks jax), ``compat`` and ``perf_report`` (the driver as a subprocess,
-its sizes cut). Each phase's own checks run; the K1 launch counts are the
-card's and are not asserted here, where the plain version stands in."""
+its sizes cut); and slice 7's ``structure_reuse``, with the card's numerics
+(f32). Each phase's own checks run; the K1 launch counts are the card's and
+are not asserted here, where the plain version stands in."""
 
 import torch
 
@@ -49,3 +50,19 @@ def test_perf_report_phase_on_cpu():
     report = chip_smoke.perf_report_phase(runs, ["--device", "cpu", "--gn_steps", "2"])
     assert [len(r["rows"]) for r in report] == [2, 1]
     assert [r["N"] for r in report[0]["rows"]] == [100.0, 200.0]
+
+
+def test_structure_reuse_phase_on_cpu():
+    """Three new problems of each structure (the canonical problem, phase
+    4's and ``mesh_solve``'s cut to 500/100), with the card's numerics:
+    each later problem factors into the first one's storage, passes its
+    gate and equals its eager solve and an unshared solve of the same
+    problem (on the CPU nothing is recorded)."""
+    with tpt.ops.backend.card_numerics_on_cpu():
+        out = chip_smoke.structure_reuse(tpt, CPU, names=("canonical", "large", "mesh"), runs=3,
+                                         large_sizes=(500, 100), mesh_sizes=(500, 100))
+    for rows in out.values():
+        assert [r["bind"] for r in rows] == [["made"], ["rebound"], ["rebound"]]
+        assert all(r["bitwise_eager"] and r["captures"] == 0 for r in rows)
+        assert all(r["reference_unshared"] and r["bitwise_unshared"] for r in rows)
+    assert out["mesh"][1]["step_solver"] == "structured"
