@@ -107,8 +107,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     phase 9's 42,500 (:func:`structure_reuse`; the last two on their
     phase's draw, then on fresh draws): the second binds the first one's
     storage and records its loop, later ones replay it with no capture;
-    each run bitwise its eager solve and an unshared solve of the same
-    problem, under its gates;
+    ``two_pass``: three of phase 4's problems on the mesh path's two-pass
+    factorization, the second and third rebound; ``held``: six runs of the
+    canonical, Darcy, 16,200- and 42,500-row cases, each run's solver and
+    result kept until the next solve returns, bound made, made, then
+    rebound, with no capture from the fifth; each run bitwise an unshared
+    solve of the same problem (and, but for the held runs, its eager
+    solve), under its gates. Phases 3-5 and 9 report how each repeat
+    bound;
 19. the script's seconds so far (the build included), the kernel summary
     line (K1 with its mesh-path, checkpoint and compat launches, K2 with
     its rank-mapped ones), then the card's name and power limit, and last
@@ -642,97 +648,188 @@ def reuse_workloads(tpt, dev, names, large_sizes=(7800, 600), mesh_sizes=(20000,
 
 
 REUSE_LAUNCHES = {"canonical": 2, "burgers": 2, "eikonal": 2, "darcy": 4, "large": 2}
+HELD = ("canonical", "darcy", "large", "mesh")
+
+
+def bound_as():
+    """How the factorizations since the last ``graphs.reset_counts()``
+    bound (``solvers/_reuse.py``): ``made`` a new entry, ``rebound`` a
+    released one's storage, ``unshared`` (no layout key)."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+
+    return (["made"] * graphs.ENTRIES + ["rebound"] * graphs.REBINDS
+            + ["unshared"] * graphs.UNSHARED)
+
+
+class TwoPassSolver:
+    """``GPSolver``'s mesh path at P = 1 with the two-pass factorization
+    (``factorize_distributed(fused=False)``, which no facade takes): it
+    factors when made, and ``solve(max_iter)`` runs the Gauss-Newton loop
+    and the posterior weights, timed as ``GPSolver`` times its phases."""
+
+    def __init__(self, tpt, problem, nugget, mesh, block=512):
+        from nonlinpdes_gpsolver_tpu_torch.utils.metrics import PhaseTimers
+
+        self.tpt, self.timers = tpt, PhaseTimers(problem.device)
+        with self.timers.phase("factorize"):
+            self.fp = tpt.solvers.factorize_distributed(problem, mesh, nugget=nugget, block=block,
+                                                        fused=False)
+
+    def solve(self, max_iter):
+        D = self.tpt.solvers.distributed
+        with self.timers.phase("gauss_newton"):
+            state = D.gn_solve_distributed(self.fp, max_iter=max_iter)
+        with self.timers.phase("posterior_weights"):
+            post = D.DistributedPosterior(self.fp, state.z)
+        return self.tpt.api.SolveResult(state=state, posterior=post, timers=self.timers.as_dict())
 
 
 def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy", "large", "mesh"),
-                    runs=5, **sizes):
-    """Phase ``structure_reuse``: for each case of :func:`reuse_workloads`,
-    ``runs`` solves, each on a new problem and a new ``GPSolver`` (the last
-    one and its results gone), as a user's loop over problems of one
-    structure runs them. Per run: e2e and GN seconds, captures, replays,
-    host reads, K1 (and K2) launches, how the factorization bound
-    (``made`` a new entry, ``rebound`` a released one's storage, or
-    ``unshared``) and the peak memory, allocated and reserved (a retained
-    graph pool shows in the latter only), and once the run's solver is gone
-    the bytes its released entry keeps (``RETAINED_BYTES``: storage and
-    graph pool). The run's z and losses must equal bitwise those of two
-    solves with recording off (``graphs.uncaptured``): the same solver
-    solved again, and a second solver of the same problem made while the
-    first is alive, so that it shares nothing with the entry
-    (``unshared``: its own factor, data and loop state), which a bind that
-    left stale storage or state would fail. Every run must pass its gates,
-    the second and later ones rebind, and from the third on record
-    nothing."""
+                    runs=5, held=HELD, held_runs=6, two_pass_runs=3, **sizes):
+    """Phase ``structure_reuse``, new problems of one structure as users'
+    loops over them run. For each case of :func:`reuse_workloads`:
+
+    * ``runs`` solves, each on a new problem and a new ``GPSolver``, the
+      last one and its results gone first. The second rebinds the first
+      one's storage and records its loop, later ones replay it with no
+      capture; each run bitwise the same solver's eager solve;
+    * for the cases in ``held``, ``held_runs`` solves with each run's
+      solver and result kept until the next run's solve returns (``res =
+      GPSolver(p).solve()``): the first two make entries, later ones
+      rebind the entry released two runs back; from the fifth on nothing
+      is recorded (each entry eager at its first use, recorded at its
+      second);
+
+    and ``two_pass``: ``two_pass_runs`` solves of the ``large`` case on the
+    mesh path's two-pass factorization (:class:`TwoPassSolver`), each
+    solver gone before the next. Per run: e2e and GN seconds, captures,
+    replays, host reads, K1 (and K2) launches, how the factorization bound
+    (:func:`bound_as`), the peak memory, allocated and reserved (a
+    retained graph pool shows in the latter only), and once the run's
+    solver is gone the bytes the released entries keep
+    (``RETAINED_BYTES``: storage and graph pool). Every run must pass its
+    gates and equal bitwise, in z and losses, a solve of the same problem
+    that shares nothing with any entry (``_reuse._unshared``, recording
+    off: its own factor, data and loop state, none of its tensors an
+    entry's storage), which a bind that left stale storage or state would
+    fail."""
     import torch
 
     from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
+
+    cuda = torch.device(dev).type == "cuda"
+    makers = reuse_workloads(tpt, dev, set(names) | set(held) | {"large"}, **sizes)
+
+    def new_solver(w, two_pass=False):
+        mesh = tpt.parallel.make_mesh(1, device=dev) if w.mesh or two_pass else None
+        if two_pass:
+            return TwoPassSolver(tpt, w.problem, w.nugget, mesh)
+        return tpt.GPSolver(w.problem, nugget=w.nugget, mesh=mesh)
+
+    def stored(fp):
+        D = tpt.solvers.distributed
+        by_block = (D.mesh_tensors(fp) if isinstance(fp, D.DistributedFactoredProblem)
+                    else tpt.solvers.gn.dense_tensors(fp))
+        return [t for roles in by_block.values() for t in roles.values()]
+
+    def run(name, k, w, two_pass=False, eager=True):
+        """One solve of ``w`` on a new solver: ``(row, solver, result)``."""
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        graphs.reset_counts()
+        t0 = time.perf_counter()
+        solver = new_solver(w, two_pass)
+        res = solver.solve(max_iter=w.max_iter)
+        metrics = w.metrics(res)
+        sync(dev)
+        e2e = time.perf_counter() - t0
+        launches = counts()
+        row = {"e2e_seconds": e2e, "gn_seconds": res.timers["gauss_newton"],
+               "phase_seconds": res.timers, "captures": graphs.CAPTURES,
+               "replays": graphs.REPLAYS, "host_reads": graphs.HOST_READS,
+               "k1_launches": launches[0], "k2_launches": launches[1], "bind": bound_as(),
+               "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None,
+               "max_memory_reserved": torch.cuda.max_memory_reserved() if cuda else None,
+               "metrics": metrics,
+               "losses": res.state.losses.tolist(), "cg_iters": res.state.cg_iters.tolist(),
+               "rungs": res.posterior.fp.rungs, "step_solver": res.state.step_solver}
+        with graphs.uncaptured():
+            if eager:
+                again = solver.solve(max_iter=w.max_iter)
+                row["bitwise_eager"] = (bool(torch.equal(res.z, again.z)) and
+                                        bool(torch.equal(res.state.losses, again.state.losses)))
+                del again
+            with _reuse._unshared():
+                alone = new_solver(w, two_pass)
+            row["reference_unshared"] = not any(_reuse._in_entry(t) for t in stored(alone.fp))
+            ref = alone.solve(max_iter=w.max_iter)
+        row["bitwise_unshared"] = (bool(torch.equal(res.z, ref.z))
+                                   and bool(torch.equal(res.state.losses, ref.state.losses)))
+        del alone, ref
+        if cuda:  # the reference's freed blocks would show in the next run's reserved peak
+            torch.cuda.empty_cache()
+        failed = w.failures(metrics)
+        tag = f"structure_reuse {name} run {k + 1}"
+        check(not failed, f"{tag}: " + "; ".join(failed))
+        check(bool(res.state.converged_finite), f"{tag}: a GN step was rejected")
+        check(not eager or row["bitwise_eager"], f"{tag}: z or losses differ from the eager solve")
+        check(row["reference_unshared"] and row["bitwise_unshared"],
+              f"{tag}: z or losses differ from an unshared solve of the problem")
+        expected = None if two_pass else REUSE_LAUNCHES.get(name.split(" ")[0])
+        check(not cuda or (launches[0] == expected if expected else min(launches) > 0),
+              f"{tag}: K1 and K2 launched {launches} times")
+        return row, solver, res
 
     out = {}
-    cuda = torch.device(dev).type == "cuda"
     tpt.clear_graph_cache()  # each case's first problem makes its entry
-    for name, make in reuse_workloads(tpt, dev, names, **sizes).items():
+    for name in names:
         rows = []
         for k in range(runs):
             t0 = time.perf_counter()
-            w = make(k)
+            w = makers[name](k)
             sync(dev)
             build_s = time.perf_counter() - t0
-            if cuda:
-                torch.cuda.reset_peak_memory_stats()
-            zero_counts()
-            graphs.reset_counts()
-            t0 = time.perf_counter()
-            new_solver = lambda: tpt.GPSolver(  # noqa: E731
-                w.problem, nugget=w.nugget,
-                mesh=tpt.parallel.make_mesh(1, device=dev) if w.mesh else None)
-            solver = new_solver()
-            res = solver.solve(max_iter=w.max_iter)
-            metrics = w.metrics(res)
-            sync(dev)
-            e2e = time.perf_counter() - t0
-            launches = counts()
-            binds = {"made": graphs.ENTRIES, "rebound": graphs.REBINDS,
-                     "unshared": graphs.UNSHARED}
-            row = {"build_seconds": build_s, "e2e_seconds": e2e,
-                   "gn_seconds": res.timers["gauss_newton"], "phase_seconds": res.timers,
-                   "captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
-                   "host_reads": graphs.HOST_READS, "k1_launches": launches[0],
-                   "k2_launches": launches[1], "bind": [b for b, n in binds.items() for _ in
-                                                        range(n)],
-                   "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None,
-                   "max_memory_reserved": torch.cuda.max_memory_reserved() if cuda else None,
-                   "metrics": metrics,
-                   "losses": res.state.losses.tolist(), "cg_iters": res.state.cg_iters.tolist(),
-                   "rungs": res.posterior.fp.rungs, "step_solver": res.state.step_solver}
-            with graphs.uncaptured():
-                eager = solver.solve(max_iter=w.max_iter)
-                unshared_count = graphs.UNSHARED
-                alone = new_solver()
-                row["reference_unshared"] = graphs.UNSHARED == unshared_count + 1
-                ref = alone.solve(max_iter=w.max_iter)
-            row["bitwise_eager"] = (bool(torch.equal(res.z, eager.z))
-                                    and bool(torch.equal(res.state.losses, eager.state.losses)))
-            row["bitwise_unshared"] = (bool(torch.equal(res.z, ref.z))
-                                       and bool(torch.equal(res.state.losses, ref.state.losses)))
-            del alone, ref
-            if cuda:  # the reference's freed blocks would show in the next run's reserved peak
-                torch.cuda.empty_cache()
-            failed = w.failures(metrics)
-            rows.append(row)
+            row, solver, res = run(name, k, w)
+            row["build_seconds"] = build_s
             tag = f"structure_reuse {name} run {k + 1}"
-            check(not failed, f"{tag}: " + "; ".join(failed))
-            check(bool(res.state.converged_finite), f"{tag}: a GN step was rejected")
-            check(row["bitwise_eager"], f"{tag}: z or losses differ from the eager solve")
-            check(row["reference_unshared"] and row["bitwise_unshared"],
-                  f"{tag}: z or losses differ from an unshared solve of the problem")
             check(k == 0 or row["bind"] == ["rebound"], f"{tag}: bound as {row['bind']}")
             check(k < 2 or row["captures"] == 0, f"{tag}: {row['captures']} captures")
-            expected = REUSE_LAUNCHES.get(name)
-            check(not cuda or (launches[0] == expected if expected else min(launches) > 0),
-                  f"{tag}: K1 and K2 launched {launches} times")
-            del w, solver, res, eager
+            del w, solver, res
             row["retained_bytes"] = graphs.RETAINED_BYTES  # the run's entry, released
+            rows.append(row)
         out[name] = rows
+    rows = []
+    tpt.clear_graph_cache()  # cut to CPU sizes, the mesh case can have its layout
+    for k in range(two_pass_runs):
+        row, solver, res = run("two_pass", k, makers["large"](k), two_pass=True)
+        tag = f"structure_reuse two_pass run {k + 1}"
+        check(row["bind"] == (["made"] if k == 0 else ["rebound"]), f"{tag}: bound as {row['bind']}")
+        check(k < 1 or row["captures"] == 0, f"{tag}: {row['captures']} captures")
+        del solver, res
+        row["retained_bytes"] = graphs.RETAINED_BYTES
+        rows.append(row)
+    out["two_pass"] = rows
+    out["held"] = {}
+    for name in held:
+        tpt.clear_graph_cache()
+        rows, last = [], None
+        for k in range(held_runs):
+            w = makers[name](k)
+            sync(dev)
+            row, solver, res = run(f"{name} held", k, w, eager=False)
+            last = None  # the last run's solver and result, kept until this solve returned
+            row["retained_bytes"] = graphs.RETAINED_BYTES  # its entry, released
+            tag = f"structure_reuse {name} held run {k + 1}"
+            check(row["bind"] == (["made"] if k < 2 else ["rebound"]),
+                  f"{tag}: bound as {row['bind']}")
+            check(k < 4 or row["captures"] == 0, f"{tag}: {row['captures']} captures")
+            last = (solver, res)  # noqa: F841
+            del w, solver, res
+            rows.append(row)
+        del last
+        out["held"][name] = rows
     tpt.clear_graph_cache()
     if cuda:
         torch.cuda.empty_cache()
@@ -951,10 +1048,12 @@ def mesh_run(w, auto=False, mesh=None):
     """One solve of workload ``w`` on the mesh path and its metrics, with
     the extension timed: ``GPSolver(problem, nugget)`` (``auto``: routed by
     auto_mesh) or ``w.solve(mesh)`` (an explicit mesh: the card alone, or
-    ``mesh``)."""
+    ``mesh``); and how its factorization bound (:func:`bound_as`)."""
     import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
 
     dev = w.problem.device
+    graphs.reset_counts()
     t0 = time.perf_counter()
     res = (tpt.GPSolver(w.problem, nugget=w.nugget).solve(max_iter=w.max_iter) if auto
            else w.solve(mesh))
@@ -964,7 +1063,8 @@ def mesh_run(w, auto=False, mesh=None):
     sync(dev)
     t2 = time.perf_counter()
     return res, metrics, {"e2e_seconds": t2 - t0, "solve_seconds": t1 - t0,
-                          "extension_seconds": t2 - t1, "phase_seconds": res.timers}
+                          "extension_seconds": t2 - t1, "phase_seconds": res.timers,
+                          "bind": bound_as()}
 
 
 def mesh_report(res, metrics, timing, launches, peak):
@@ -1524,7 +1624,7 @@ def main():
     import numpy as np
 
     import nonlinpdes_gpsolver_tpu_torch as tpt
-    from nonlinpdes_gpsolver_tpu_torch.ops import _build, gram_tile
+    from nonlinpdes_gpsolver_tpu_torch.ops import _build, gram_tile, graphs
     from nonlinpdes_gpsolver_tpu_torch.ops.operators import d, d2, identity, laplacian
 
     dev = torch.device("cuda")
@@ -1654,15 +1754,17 @@ def main():
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches = gram_tile.LAUNCHES
-    repeats = []  # the spread of the warm time (the solve is host-bound at this size)
+    repeats, repeat_binds = [], []  # the spread of the warm time, the warm result alive
     for _ in range(5):
+        graphs.reset_counts()
         t0 = time.perf_counter()
         canonical()
         torch.cuda.synchronize()
         repeats.append(time.perf_counter() - t0)
+        repeat_binds.append(bound_as())
     emit("canonical_solve", n_domain=900, n_boundary=124, gram_rows=1924, dtype="float32",
          nugget=1e-5, gn_steps=4, e2e_seconds=warm_s, cold_seconds=cold_s,
-         repeat_e2e_seconds=repeats,
+         repeat_e2e_seconds=repeats, repeat_binds=repeat_binds,
          phase_seconds=res.timers, test_l2=err.l2, test_max=err.max,
          nugget_scales=res.posterior.fp.nugget_scales, rungs=res.posterior.fp.rungs,
          losses=res.state.losses.tolist(), k1_launches=launches, gate_l2=GATE_L2)
@@ -1745,10 +1847,12 @@ def main():
     peak = torch.cuda.max_memory_allocated()
     big_repeats = []  # the spread of the warm time: solve, factor and phase seconds
     for _ in range(2):
+        graphs.reset_counts()
         t0 = time.perf_counter()
         r, _, _ = large()
         torch.cuda.synchronize()
-        big_repeats.append({"e2e_seconds": time.perf_counter() - t0, "phase_seconds": r.timers})
+        big_repeats.append({"e2e_seconds": time.perf_counter() - t0, "phase_seconds": r.timers,
+                            "bind": bound_as()})
         del r
     finite = bool(torch.isfinite(big_pred).all()) and bool(torch.isfinite(big_res.z).all())
     emit("large_solve", n_domain=7800, n_boundary=600, gram_rows=16200, dtype="float32",
@@ -1807,10 +1911,12 @@ def main():
         w_peak = torch.cuda.max_memory_allocated()
         w_repeats = []
         for _ in range(3):
+            graphs.reset_counts()
             t0 = time.perf_counter()
             r, _ = run()
             torch.cuda.synchronize()
-            w_repeats.append({"e2e_seconds": time.perf_counter() - t0, "phase_seconds": r.timers})
+            w_repeats.append({"e2e_seconds": time.perf_counter() - t0, "phase_seconds": r.timers,
+                              "bind": bound_as()})
             del r
         fp = res.posterior.fp
         emit("workload", name=name, dtype="float32", card=card,
@@ -1983,7 +2089,8 @@ def main():
     # -- 18. new problems of one structure: one recorded loop ------------------------
     t_phase = time.perf_counter()
     reuse = structure_reuse(tpt, dev)
-    emit("structure_reuse", seconds=time.perf_counter() - t_phase, card=card, runs=5, **reuse)
+    emit("structure_reuse", seconds=time.perf_counter() - t_phase, card=card, runs=5,
+         held_runs=6, two_pass_runs=3, **reuse)
 
     # -- 19. summary ------------------------------------------------------------
     emit("done", seconds=time.perf_counter() - t_start, card=card)

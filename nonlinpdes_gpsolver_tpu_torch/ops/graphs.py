@@ -24,8 +24,8 @@ Counters for the chip smoke test: ``CAPTURES``, ``CAPTURE_SECONDS``,
 copies); and those of the loops shared by problems of one structure
 (``solvers/_reuse.py``): ``ENTRIES`` (entries made), ``REBINDS`` (problems
 whose factorization wrote into a released entry's storage), ``UNSHARED``
-(problems left on loops of their own because the entry of their layout was
-owned) and ``RETAINED_BYTES`` (the factor, data and graph-pool bytes that
+(problems without a layout key, left on loops of their own) and
+``RETAINED_BYTES`` (the factor, data and graph-pool bytes that
 released entries keep; a gauge, not reset). :func:`reset_counts` zeroes the others.
 """
 

@@ -9,7 +9,9 @@ package is imported), so only the numerical safeguards carry over:
 
 * the equilibrated factorization with nugget escalation, where a rung is
   accepted only if ``cholesky_ex`` reports success and the factor is finite
-  (the factorization runs in f64, see :func:`equilibrated_cholesky`);
+  (the factorization runs in f64, see :func:`equilibrated_cholesky`), and
+  the plain one of ``factorize(equilibrate=False)``
+  (:func:`cholesky_with_retry`);
 * the Newton refinement of the triangular inverse;
 * the ``1 + 32 eps`` floor on the unit diagonal of the equilibrated
   Gauss-Newton normal matrix, and of the small SPD inverse of the mesh
@@ -106,6 +108,36 @@ def equilibrated_cholesky(
     raise FloatingPointError(
         f"Cholesky failed after {MAX_ESCALATIONS} nugget escalations from "
         f"{s0:g}x (last scale {s / 10.0:g}x)"
+    )
+
+
+def cholesky_with_retry(
+    theta: torch.Tensor, nug_diag: torch.Tensor, max_retries: int = 6, escalation: float = 10.0,
+    out: Optional[torch.Tensor] = None, work: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, float]:
+    """``(L, s)``: the lower Cholesky factor of ``theta + s diag(nug)``,
+    unequilibrated, with ``s`` escalated tenfold from 1 until it succeeds,
+    for at most ``max_retries`` attempts (the JAX package's
+    ``ops/linalg.py::cholesky_with_retry``, its error text included).
+
+    The regularized matrix is formed and factored in f64 whatever
+    ``theta``'s dtype, as :func:`equilibrated_cholesky` does,
+    and ``L`` comes back in that dtype (written into ``out`` where given;
+    ``work``: an ``(n, n)`` f64 tensor to form the matrix in)."""
+    s = 1.0
+    for _ in range(max_retries):
+        M = theta.to(torch.float64, copy=True) if work is None else work.copy_(theta)
+        M.diagonal().add_(s * nug_diag.to(torch.float64))
+        L, ok = cholesky_f64(M)
+        del M
+        if bool(ok):
+            return (L.to(theta.dtype) if out is None else out.copy_(L)), s
+        del L
+        s *= escalation
+    raise FloatingPointError(
+        f"Cholesky failed after {max_retries} nugget escalations "
+        f"(final scale {s / escalation:g}); Gram matrix is numerically "
+        "indefinite - increase the nugget or the kernel lengthscale."
     )
 
 

@@ -153,23 +153,27 @@ def unshard_rows_blockcyclic(local: torch.Tensor, mesh: Mesh, axis: str, block: 
     return _interleave(comm.all_gather(mesh, local)).reshape(-1, local.shape[2])[:n, :n]
 
 
-def diag_inverses(local: torch.Tensor, mesh: Mesh, axis: str, block: int) -> torch.Tensor:
+def diag_inverses(local: torch.Tensor, mesh: Mesh, axis: str, block: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ``(nb, B, B)`` Newton-refined inverses of the factor's diagonal
     blocks (``:249``), for a factor that arrived without them: each rank
-    inverts its own blocks, then one ``all_gather``."""
+    inverts its own blocks, then one ``all_gather`` (written into ``out``
+    where given)."""
     nbl = local.shape[0]
     nb = nbl * mesh.size
     g = _global_blocks(mesh, nbl, local.device)
     blocks = local.view(nbl, block, nb, block)[torch.arange(nbl, device=local.device), :, g]
     mine = newton_refine_tri_inverse(blocks, tri_inverse(blocks))
-    return _interleave(comm.all_gather(mesh, mine))
+    winvs = _interleave(comm.all_gather(mesh, mine))
+    return winvs if out is None else out.copy_(winvs)
 
 
 def _chol_sharded(arranged: torch.Tensor, mesh: Mesh, axis: str, block: int,
-                  chunk_cols: int = 4096):
+                  chunk_cols: int = 4096, diag_inv: Optional[torch.Tensor] = None):
     """Factor the sharded SPD matrix in place (``:224``, the two-pass
-    path). Returns ``(factor, diag_inv)``; a failed factorization leaves
-    NaN in ``arranged``, as the JAX package's does, for the caller's quality
+    path). Returns ``(factor, diag_inv)``, the latter written into
+    ``diag_inv`` where given; a failed factorization leaves NaN in
+    ``arranged``, as the JAX package's does, for the caller's quality
     probe to reject.
 
     At P = 1: the f64 Cholesky of the dense view, cast back (no host read:
@@ -186,13 +190,14 @@ def _chol_sharded(arranged: torch.Tensor, mesh: Mesh, axis: str, block: int,
         L, ok = cholesky_f64(A)
         A.copy_(torch.where(ok, L, torch.full_like(L, float("nan"))))
         del L
-        return arranged, diag_inverses(arranged, mesh, axis, block)
+        return arranged, diag_inverses(arranged, mesh, axis, block, out=diag_inv)
     P_, p = mesh.size, mesh.rank
     nbl, _, n_pad = arranged.shape
     nb = nbl * P_
     dtype, dev = arranged.dtype, arranged.device
     f64 = torch.float64
-    winvs = torch.zeros((nb, B, B), dtype=dtype, device=dev)
+    winvs = (torch.zeros((nb, B, B), dtype=dtype, device=dev) if diag_inv is None
+             else diag_inv.zero_())
     L2 = arranged.view(nbl * B, n_pad)
     Wc = max(1, chunk_cols // B) * B
     for k in range(nb):

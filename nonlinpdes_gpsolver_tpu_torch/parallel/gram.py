@@ -90,11 +90,12 @@ def window_sets(plan, points):
 
 def assemble_gram_sharded(kernel, observables, points, mesh: Mesh, axis: str = "p",
                           block: int = 256, nugget: float = 1e-10,
-                          nugget_type: str = "adaptive", nugget_scale: float = 1.0):
+                          nugget_type: str = "adaptive", nugget_scale: float = 1.0, out=None):
     """This rank's ``(nbl, B, n_pad)`` shard of the equilibrated regularized
     Gram matrix, and ``d^{-1/2}`` (``:248``): one K2 launch writes
     ``1 if i == j else d_i d_j Theta_ij`` over the rank's rows of the padded
-    matrix, the identity tail included."""
+    matrix, the identity tail included; into ``out`` (contiguous, of the
+    shard's shape) where given."""
     from .fused import window_plan
 
     observables = tuple(observables)
@@ -107,6 +108,7 @@ def assemble_gram_sharded(kernel, observables, points, mesh: Mesh, axis: str = "
     d_pad = torch.cat([d_isqrt, d_isqrt.new_ones(n_pad - n)])
     plan = window_plan(kernel, observables, observable_sizes(observables, points), 0, n_pad,
                        n_pad, mesh.size, mesh.rank, block)
-    out = torch.empty(plan.shape, dtype=ref.dtype, device=mesh.device)
+    out = (torch.empty(plan.shape, dtype=ref.dtype, device=mesh.device) if out is None
+           else out.view(plan.shape))
     plan.run_equilibrated(window_sets(plan, points), d_pad, d_pad, out=out)
     return out.view(-1, block, n_pad), d_isqrt

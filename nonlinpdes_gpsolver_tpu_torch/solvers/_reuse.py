@@ -4,50 +4,59 @@ The JAX package compiles its Gauss-Newton loop once per problem
 *structure* (``solvers/gn.py::_gn_scan`` there takes the factors and data
 as arguments and is keyed on the residual functions, the misfit weights
 and the static options), so a problem rebuilt on fresh points and data
-reuses the executable. The port's counterpart of that executable is a loop
-recorded as CUDA graphs (``gn.py::_Loop``), and a recorded graph reads
-fixed storage. So the storage is shared too: an :class:`Entry`, one per
-*layout*, owns
+reuses the executable, whether or not another problem of that structure is
+still alive. The port's counterpart of that executable is a loop recorded
+as CUDA graphs (``gn.py::_Loop``), and a recorded graph reads fixed
+storage. So the storage goes with the loop: an :class:`Entry` owns
 
 * the storage its graphs read: each block's factor, whitening operator and
   column scales (the mesh path: the rank's factor rows, the diagonal-block
   inverses and the column scales), and its own copy of each ``data`` leaf;
 * its loops, one per *loop key* (the routed step solver and the static
-  options), sharing one graph memory pool;
+  options), sharing the entry's graph memory pool;
 * a weak reference to the factored problem *bound* to it, whose factors
   are that storage.
 
 The **layout key** (:func:`layout_key`) is what fixes that storage: per
 block its name, its residual function and the shapes of its stored
-tensors (which also say whether it whitens through an explicit inverse);
-per misfit its function and weight (``sqrt(weight)`` is recorded into the
-graph); each data leaf's name, shape and dtype; the latent size, the dtype
-and the device; on the mesh path the mesh (its size and this rank), the
-row block and the padded size. Points and kernels are in neither key: they
-act only through the factors. Model constructors build their residuals
-with ``lru_cache``'d factories, so one configuration gives one key.
+tensors (which also say whether it whitens through an explicit inverse and
+whether it is equilibrated); per misfit its function and weight
+(``sqrt(weight)`` is recorded into the graph); each data leaf's name, shape
+and dtype; the latent size, the dtype and the device; on the mesh path the
+mesh (its size and this rank), the row block and the padded size. Points
+and kernels are in neither key: they act only through the factors. Model
+constructors build their residuals with ``lru_cache``'d factories, so one
+configuration gives one key.
 
-Binding. A factorization first claims (:func:`claimed`) the entry of its layout; an
-entry is free once its bound problem is gone and nothing outside the entry
-still holds its storage. The factorization then writes its outputs
-straight into that storage (no second copy of a factor is ever resident)
-and the new problem binds (``REBINDS``). Without an entry the problem's own
-tensors become a new entry (``ENTRIES``). An entry that is not free (its
-bound problem is alive) is never shared: the second live problem of that
-layout keeps loops of its own in ``fp.graphs`` (``UNSHARED``), so two live
-solvers never read each other's factors. Before each solve the bound
-problem's ``data`` leaves are copied into the entry on the stream (the
+Binding: every live problem of a layout has an entry of its own. A
+factorization first claims (:func:`claimed`) a *free* entry of its layout,
+one whose bound problem is gone and whose storage nothing outside the
+entry still holds; among several it takes the one bound most recently,
+whose loops are the furthest recorded. The factorization then writes its
+outputs straight into that storage (no second copy of a factor is ever
+resident) and the new problem binds (``REBINDS``). Without a free entry
+the problem's own tensors become a new entry of the layout (``ENTRIES``),
+also while other entries of it are bound to live problems: two live
+problems never read each other's factors, and each reads its own. Only a
+problem without a layout key keeps loops of its own in ``fp.graphs``
+(``UNSHARED``): an unhashable residual, data that is not a dict of
+tensors, or a mesh whose loop is not recorded. Before each solve the bound
+problem's ``data`` leaves are copied into its entry on the stream (the
 problem's own ``data`` is never written), and a loop's per-problem state
 (the mesh path's deflation basis and ``'normal'`` inverse blocks) is
 computed again for each newly bound problem, into the same storage.
 
-Retention, with no knob: an entry lives while its bound problem does.
-After that each device keeps only its most recently bound entry, and a
+Retention, with no knob: a live entry costs what its problem holds anyway,
+plus its graph pool. Of its *released* entries a device keeps at most one,
+the most recently bound one of the layout bound most recently, so that a
+loop which keeps its last result while the next problem factors (``res =
+GPSolver(p).solve()``) alternates between two entries and replays both. A
 factorization of another layout on that device frees it (storage, pool and
 graphs) before it allocates. ``RETAINED_BYTES`` counts what the released
-entries keep: their storage and the segments of their graph pools. :func:`clear_graph_cache` (the counterpart of
-``jax.clear_caches()``) drops every entry and the set-up verdicts. On the
-CPU nothing is recorded, but entries work alike, so that the CPU tests
+entries keep: their storage and the segments of their graph pools. Each
+entry keeps a pool of its own. :func:`clear_graph_cache` (the counterpart
+of ``jax.clear_caches()``) drops every entry and the set-up verdicts. On
+the CPU nothing is recorded, but entries work alike, so that the CPU tests
 exercise the sharing.
 """
 
@@ -57,14 +66,15 @@ import contextlib
 import dataclasses
 import itertools
 import weakref
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..ops import graphs, linalg
 
-_ENTRIES: Dict[tuple, "Entry"] = {}
+_ENTRIES: Dict[tuple, List["Entry"]] = {}  # layout key -> its entries
 _CLOCK = itertools.count(1)
+_SHARING = True  # off inside _unshared()
 # the set-up verdicts (the structure checks), keyed on residual identities,
 # structure, dtype and device type, as the JAX package's _STRUCTURE_CACHE and
 # _IDENTITY_ROW_CACHE
@@ -108,7 +118,8 @@ def _alias(t: torch.Tensor) -> torch.Tensor:
 
 
 class Entry:
-    """The loops and storage of one layout (module docstring).
+    """The loops and storage of one problem of a layout at a time (module
+    docstring).
 
     ``tensors[block][role]`` is the stored tensor; ``data`` the entry's own
     data leaves; ``view`` the factored problem the loops run on, made of
@@ -192,9 +203,10 @@ def layout_key(problem, shapes: Dict[str, tuple], extra=()) -> Optional[tuple]:
     ``None`` where it cannot be formed: data that is not a dict of
     tensors, or an unhashable residual (validated and solved without
     sharing, as the JAX package validates such a residual without
-    caching)."""
+    caching); and inside :func:`_unshared`."""
     data = problem.data
-    if not isinstance(data, dict) or not all(torch.is_tensor(v) for v in data.values()):
+    if not _SHARING or not isinstance(data, dict) or not all(torch.is_tensor(v)
+                                                             for v in data.values()):
         return None
     key = (
         problem.device,  # first: claimed() reads it
@@ -219,19 +231,45 @@ def view_problem(problem, data):
 
 
 @contextlib.contextmanager
+def _unshared():
+    """Factorizations in the block form no layout key, so that their
+    problems share nothing with any entry: their own factors, data and
+    loops (``UNSHARED``). The independent reference a shared solve is held
+    to, as a solve under ``jax.disable_jit()`` is in the JAX package; a
+    test hook, not an option."""
+    global _SHARING
+    prev, _SHARING = _SHARING, False
+    try:
+        yield
+    finally:
+        _SHARING = prev
+
+
+def entries() -> List[Entry]:
+    """Every entry, of every layout."""
+    return [e for group in _ENTRIES.values() for e in group]
+
+
+def _in_entry(t: torch.Tensor) -> bool:
+    """Whether ``t``'s storage is some entry's storage."""
+    ptr = t.untyped_storage().data_ptr()
+    return any(s.untyped_storage().data_ptr() == ptr for e in entries() if e.tensors
+               for roles in e.tensors.values() for s in roles.values())
+
+
+@contextlib.contextmanager
 def claimed(key):
-    """The free entry of layout ``key``, reserved for the factorization in
-    the block (``None`` if there is none); first every other released
-    entry on the device is freed. An entry not bound by the end of the
-    block is released again."""
+    """A free entry of layout ``key`` (the one bound most recently),
+    reserved for the factorization in the block, or ``None`` if there is
+    none; first every released entry of another layout on the device is
+    freed. An entry not bound by the end of the block is released again."""
     entry = None
     if key is not None:
         _prune(key[0], keep=key)
-        entry = _ENTRIES.get(key)
-        if entry is not None and entry.free():
+        free = [e for e in _ENTRIES.get(key, ()) if e.free()]
+        if free:
+            entry = max(free, key=lambda e: e.stamp)
             entry.reserved = True
-        else:
-            entry = None
     try:
         yield entry
     finally:
@@ -244,21 +282,17 @@ def settle(fp, key, entry, tensors, make_view: Callable) -> None:
     """After a factorization of layout ``key``: bind ``fp`` to ``entry``,
     into whose storage it wrote; else make ``fp``'s ``tensors`` (as in
     :class:`Entry`; ``make_view(problem, tensors)`` makes the factored
-    problem its loops run on) a new entry, unless the layout's entry is
-    not free (then ``fp`` keeps loops of its own)."""
+    problem its loops run on) a new entry of the layout. Without a key
+    ``fp`` keeps loops of its own."""
     if key is None:
+        graphs.UNSHARED += 1
         return
     if entry is not None:
         graphs.REBINDS += 1
         entry.bind(fp)
         return
-    old = _ENTRIES.get(key)
-    if old is not None:
-        if not old.free():
-            graphs.UNSHARED += 1
-            return
-        _drop(old)
-    entry = _ENTRIES[key] = Entry(key, fp.problem, tensors, make_view)
+    entry = Entry(key, fp.problem, tensors, make_view)
+    _ENTRIES.setdefault(key, []).append(entry)
     graphs.ENTRIES += 1
     entry.bind(fp)
 
@@ -300,30 +334,39 @@ def loop_for(fp, key, make: Callable):
 
 
 def _drop(entry: Entry) -> None:
-    if _ENTRIES.get(entry.key) is entry:
-        del _ENTRIES[entry.key]
+    group = _ENTRIES.get(entry.key, [])
+    if entry in group:
+        group.remove(entry)
+        if not group:
+            del _ENTRIES[entry.key]
     entry.close()
 
 
-def _prune(device, keep=None) -> None:
-    """Free the released entries on ``device``: all but ``keep``'s (a
-    factorization of that layout is starting), or without ``keep`` all but
-    the most recently bound entry of the device."""
+def _prune(device, keep) -> None:
+    """Free the released entries on ``device`` of every layout but
+    ``keep`` (a factorization of that layout is starting)."""
     if graphs.capturing:  # no graph is freed during a capture: at the next event
         return
-    on_device = [e for e in _ENTRIES.values() if e.device == torch.device(device)]
-    if keep is None and on_device:
-        keep = max(on_device, key=lambda e: e.stamp).key
-    for e in on_device:
-        if e.key != keep and e.released:
+    for e in entries():
+        if e.device == torch.device(device) and e.key != keep and e.released:
             _drop(e)
     _count_retained()
 
 
 def _settle() -> None:
-    """After a bind or release: each device keeps its latest entry only."""
-    for device in {e.device for e in _ENTRIES.values()}:
-        _prune(device)
+    """After a bind or release: of its released entries each device keeps
+    the most recently bound one of its most recently bound layout only."""
+    if graphs.capturing:  # at the next event
+        return
+    every = entries()
+    for device in {e.device for e in every}:
+        on_device = [e for e in every if e.device == device]
+        latest = max(on_device, key=lambda e: e.stamp).key
+        kept = max((e for e in on_device if e.key == latest and e.released),
+                   key=lambda e: e.stamp, default=None)
+        for e in on_device:
+            if e.released and e is not kept:
+                _drop(e)
     _count_retained()
 
 
@@ -344,7 +387,7 @@ def _count_retained() -> None:
     entries."""
     if graphs.capturing:  # the allocator is not read during a capture: at the next event
         return
-    kept = [e for e in _ENTRIES.values() if e.released]
+    kept = [e for e in entries() if e.released]
     pools = _pool_bytes([e.pool for e in kept if e.pool is not None])
     graphs.RETAINED_BYTES = sum(e.nbytes + (0 if e.pool is None else pools[tuple(e.pool)])
                                 for e in kept)
@@ -355,7 +398,7 @@ def clear_graph_cache() -> None:
     it, its storage), the structure verdicts and the cached probes: the
     counterpart of ``jax.clear_caches()``. A live problem keeps its
     factors, and its next solve records its loop again."""
-    for entry in list(_ENTRIES.values()):
+    for entry in entries():
         _drop(entry)
     VERDICTS.clear()
     linalg._PROBES.clear()

@@ -18,8 +18,8 @@ across ranks) and the panels that are sharded by column bring the ranks
 together. A step is the dense path's (``solvers/gn.py::_Loop``): no host
 read inside it, recorded as CUDA graphs and replayed at P = 1 on the card
 (:func:`_records`), where a recorded loop serves every problem of one
-layout (``solvers/_reuse.py``: the fused factorization of a new problem
-writes into a released problem's factor, and the loop's deflation basis
+layout (``solvers/_reuse.py``: the factorization of a new problem, fused
+or two-pass, writes into a released problem's factor, and the loop's deflation basis
 and ``'normal'`` blocks are computed again for it). The loop reads the host once a step (whether the
 damped update must halve, and with ``tol`` whether the step ran), and the
 CG loop once an iteration, one iteration late; every such read, and every
@@ -215,14 +215,16 @@ def factorize_distributed(
     the non-finite class inside the call, as the JAX package's executable
     does.
 
-    Where the loop is recorded (:func:`_records`), the fused path factors
+    Where the loop is recorded (:func:`_records`), either path factors
     into the storage of a released problem of the same layout, whose
-    recorded loop then serves this one (``solvers/_reuse.py``).
+    recorded loop then serves this one (``solvers/_reuse.py``). The two
+    store the same tensors in the same layout, so they share one key, as
+    the JAX package's loop serves the factors of either.
     """
     if problem.device != mesh.device:
         raise ValueError(f"the problem lies on {problem.device}, the mesh on {mesh.device}")
     key = (_reuse.layout_key(problem, mesh_roles(problem, mesh, block), (mesh, axis, block))
-           if fused and _records(mesh) else None)
+           if _records(mesh) else None)
     with _reuse.claimed(key) as entry:
         dfp = _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_tol,
                                 max_attempts, guard, chunk_cols, fused, start_scales,
@@ -247,6 +249,12 @@ def mesh_roles(problem: CollocationProblem, mesh: Mesh, block: int) -> Dict[str,
     return out
 
 
+def mesh_storage(roles: tuple, dtype, device) -> Dict[str, torch.Tensor]:
+    """New storage of one block's :func:`mesh_roles`, contiguous as the
+    fused path makes it."""
+    return {role: torch.empty(shape, dtype=dtype, device=device) for role, shape in roles}
+
+
 def mesh_tensors(dfp: DistributedFactoredProblem) -> Dict[str, Dict[str, torch.Tensor]]:
     """``dfp``'s stored tensors by block and role (:func:`mesh_roles`)."""
     return {name: {"local": f.local, "diag_inv": f.diag_inv, "d": dfp.col_scales[name]}
@@ -267,14 +275,18 @@ def mesh_view(problem: CollocationProblem, tensors, mesh: Mesh, axis: str,
 def _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_tol,
                       max_attempts, guard, chunk_cols, fused, start_scales, superblock_cols,
                       defer_quality, out) -> DistributedFactoredProblem:
-    """:func:`factorize_distributed`'s ladder, the fused factors written
-    into ``out[block]`` where given."""
+    """:func:`factorize_distributed`'s ladder, the factors written into
+    ``out[block]`` where given (the two-pass path writes into new storage of
+    that layout otherwise)."""
     quality_tol = QUALITY_TOL if quality_tol is None else quality_tol
     factors, col_scales, scales, rungs, quality, stats = {}, {}, {}, {}, {}, {}
     s0 = _escalation_start(nugget, problem.dtype)
     defer = defer_quality and guard
+    roles = mesh_roles(problem, mesh, block)
     for b in problem.blocks:
         buf = out.get(b.name)
+        if buf is None and not fused:
+            buf = mesh_storage(roles[b.name], problem.dtype, mesh.device)
         s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
         fac = None
         q, attempts, superblocks = math.nan, 0, 0
@@ -302,14 +314,16 @@ def _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_t
             else:
                 arranged, d_isqrt = assemble_gram_sharded(
                     b.kernel, b.observables, problem.points, mesh, axis=axis, block=block,
-                    nugget=nugget, nugget_type=nugget_type, nugget_scale=s,
+                    nugget=nugget, nugget_type=nugget_type, nugget_scale=s, out=buf["local"],
                 )
+                d_isqrt = buf["d"].copy_(d_isqrt)
                 attempts += 1
                 n_pad = arranged.shape[2]
                 if guard:  # against the matrix, before the factorization overwrites it
                     v = probe_vector(n_pad, arranged.dtype, arranged.device)
                     y = matvec_blockcyclic(arranged, mesh, axis, block, v, n=n_pad)
-                lower, winvs = _chol_sharded(arranged, mesh, axis, block)
+                lower, winvs = _chol_sharded(arranged, mesh, axis, block,
+                                             diag_inv=buf["diag_inv"])
                 fac = BlockCyclicFactor(lower, mesh, axis, block, int(d_isqrt.shape[0]),
                                         n_pad, winvs)
                 if not guard:

@@ -51,6 +51,7 @@ from ..ops.backend import is_accelerator
 from ..ops.graphs import Flag, Recorder, to_host
 from ..ops.linalg import (
     MAX_ESCALATIONS,
+    cholesky_with_retry,
     equilibrated_cholesky,
     kernel_solve,
     newton_refine_tri_inverse,
@@ -72,8 +73,10 @@ class FactoredProblem:
 
     ``factors[name]`` is the lower Cholesky factor of the equilibrated
     regularized Gram matrix ``D^{-1/2} (Theta + nugget) D^{-1/2}``, with
-    ``col_scales[name] = d^{-1/2}``. ``inv_factors[name]`` holds the
-    whitening operator ``L~^{-1} D^{-1/2}`` when ``solve_mode='inverse'``.
+    ``col_scales[name] = d^{-1/2}``, or without ``col_scales[name]`` (from
+    ``factorize(equilibrate=False)``) of ``Theta + nugget`` itself.
+    ``inv_factors[name]`` holds the whitening operator ``L~^{-1} D^{-1/2}``
+    (``L^{-1}``) when ``solve_mode='inverse'``.
     ``nugget_scales[name]`` is the escalation factor the accepted factor
     used, and ``rungs[name]`` the number of tenfold escalations it took.
 
@@ -103,20 +106,21 @@ class FactoredProblem:
         also leaves the scale there, the port's eager one does not)."""
         return {n: self.nugget_scales[n] for n, q in self.quality.items() if torch.is_tensor(q)}
 
+    def _scale(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        s = self.col_scales.get(name)
+        return v if s is None else v * (s if v.dim() == 1 else s[:, None])
+
     def whiten(self, name: str, v: torch.Tensor) -> torch.Tensor:
         if name in self.inv_factors:
             return self.inv_factors[name] @ v
-        s = self.col_scales[name]
-        return whiten(self.factors[name], v * (s if v.dim() == 1 else s[:, None]))
+        return whiten(self.factors[name], self._scale(name, v))
 
     def kernel_solve(self, name: str, v: torch.Tensor) -> torch.Tensor:
-        """``Theta^{-1} v`` through the equilibrated factor."""
+        """``Theta^{-1} v`` through the (equilibrated) factor."""
         if name in self.inv_factors:
             W = self.inv_factors[name]
             return W.T @ (W @ v)
-        s = self.col_scales[name]
-        s = s if v.dim() == 1 else s[:, None]
-        return s * kernel_solve(self.factors[name], v * s)
+        return self._scale(name, kernel_solve(self.factors[name], self._scale(name, v)))
 
     def whitened_residual(self, z: torch.Tensor, misfits: bool = True) -> torch.Tensor:
         """``r(z)``: the whitened block residuals, then (with ``misfits``)
@@ -193,6 +197,7 @@ def factorize(
     nugget: float,
     nugget_type: str = "adaptive",
     solve_mode: str = "auto",
+    equilibrate: bool = True,
     defer_quality: bool = False,
     start_scales: Dict[str, float] | None = None,
 ) -> FactoredProblem:
@@ -214,6 +219,12 @@ def factorize(
     only the finite-but-corrupt class waits for the caller. ``'trsm'``
     blocks have no probe and nothing pending.
 
+    ``equilibrate=False`` (the JAX package's ``gn.py:487-490``): a plain
+    Cholesky of ``Theta + s diag(nug)`` with ``s`` escalated tenfold from 1,
+    at most 6 attempts (:func:`..ops.linalg.cholesky_with_retry`), and in
+    ``'inverse'`` mode its triangular inverse; no column scales, no quality
+    probe (``defer_quality`` and ``start_scales`` do not apply).
+
     The outputs go straight into the storage of a released problem of the
     same layout, whose recorded loop then serves this one
     (``solvers/_reuse.py``).
@@ -226,18 +237,27 @@ def factorize(
         raise ValueError(f"unknown solve_mode {solve_mode!r}")
     factors, inv_factors, scales, col_scales, rungs = {}, {}, {}, {}, {}
     quality = {}
+    inverse = solve_mode == "inverse"
     key = _reuse.layout_key(problem, {
-        b.name: dense_roles(sum(observable_sizes(b.observables, problem.points)),
-                            solve_mode == "inverse")
+        b.name: dense_roles(sum(observable_sizes(b.observables, problem.points)), inverse,
+                            equilibrate)
         for b in problem.blocks})
     with _reuse.claimed(key) as entry:
         out = entry.outputs() if entry is not None else {}
         for b in problem.blocks:
             theta = gram_matrix(b.kernel, b.observables, problem.points)
             sizes = observable_sizes(b.observables, problem.points)
-            buf = out.get(b.name) or dense_storage(int(theta.shape[0]), solve_mode == "inverse",
-                                                   dtype, device)
+            buf = out.get(b.name) or dense_storage(int(theta.shape[0]), inverse, dtype, device,
+                                                   equilibrate)
             nug = adaptive_nugget_diag(theta, b.observables, sizes, nugget, nugget_type)
+            if not equilibrate:
+                L, s = cholesky_with_retry(theta, nug, out=buf["L"], work=_equilibration_work(buf))
+                del theta
+                if inverse:
+                    inv_factors[b.name] = buf["inv"].copy_(tri_inverse(L))
+                factors[b.name], scales[b.name] = L, s
+                rungs[b.name] = round(math.log10(s))
+                continue
             s0 = _escalation_start(nugget, dtype)
             s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
             total_rungs = round(math.log10(s / s0))
@@ -274,15 +294,17 @@ def factorize(
     return fp
 
 
-def dense_roles(n: int, inverse: bool) -> tuple:
+def dense_roles(n: int, inverse: bool, equilibrated: bool = True) -> tuple:
     """The stored tensors of a dense block of ``n`` rows, as
-    ``((role, shape), ...)``: the factor, the column scales and, in
-    ``'inverse'`` mode, the whitening operator (``solvers/_reuse.py``)."""
-    roles = (("L", (n, n)), ("d", (n,)))
+    ``((role, shape), ...)``: the factor, the column scales (where it is
+    equilibrated) and, in ``'inverse'`` mode, the whitening operator
+    (``solvers/_reuse.py``)."""
+    roles = (("L", (n, n)),) + ((("d", (n,)),) if equilibrated else ())
     return roles + (("inv", (n, n)),) if inverse else roles
 
 
-def dense_storage(n: int, inverse: bool, dtype, device) -> Dict[str, torch.Tensor]:
+def dense_storage(n: int, inverse: bool, dtype, device,
+                  equilibrated: bool = True) -> Dict[str, torch.Tensor]:
     """New storage of a dense block of ``n`` rows (:func:`dense_roles`),
     the matrices column-major, as torch's factorizations return them. With
     the whitening operator, the factor and it are one buffer, factor first:
@@ -295,7 +317,8 @@ def dense_storage(n: int, inverse: bool, dtype, device) -> Dict[str, torch.Tenso
         out = {"L": flat[: n * n].view(n, n).t(), "inv": flat[n * n :].view(n, n).t()}
     else:
         out = {"L": torch.empty((n, n), **kw).t()}
-    out["d"] = torch.empty(n, **kw)
+    if equilibrated:
+        out["d"] = torch.empty(n, **kw)
     return out
 
 
@@ -315,7 +338,9 @@ def dense_tensors(fp: FactoredProblem) -> Dict[str, Dict[str, torch.Tensor]]:
     """``fp``'s stored tensors by block and role (:func:`dense_roles`)."""
     out = {}
     for b in fp.problem.blocks:
-        t = {"L": fp.factors[b.name], "d": fp.col_scales[b.name]}
+        t = {"L": fp.factors[b.name]}
+        if b.name in fp.col_scales:
+            t["d"] = fp.col_scales[b.name]
         if b.name in fp.inv_factors:
             t["inv"] = fp.inv_factors[b.name]
         out[b.name] = t
@@ -327,7 +352,7 @@ def dense_view(problem, tensors) -> FactoredProblem:
     return FactoredProblem(
         problem, {b: t["L"] for b, t in tensors.items()},
         {b: t["inv"] for b, t in tensors.items() if "inv" in t}, {},
-        {b: t["d"] for b, t in tensors.items()}, {})
+        {b: t["d"] for b, t in tensors.items() if "d" in t}, {})
 
 
 def _refined_inverse(L: torch.Tensor, refine: bool, d_isqrt: torch.Tensor,

@@ -16,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from ..ops.assembly import cross_gram
+from ..ops.assembly import cross_gram, observable_sizes
 from ..ops.gram_tile import gram_tile_pair_fn
 from ..ops.operators import LinearOp, identity
 from .gn import FactoredProblem
@@ -94,7 +94,7 @@ class Posterior:
         b, op = self._block_op(block, op)
         p, fp = self.fp.problem, self.fp
         X_test = X_test.to(device=p.device, dtype=p.dtype).contiguous()
-        n_train = int(fp.col_scales[b.name].shape[0])
+        n_train = sum(observable_sizes(b.observables, p.points))
         chunk = _serving_chunk(int(X_test.shape[0]), n_train)
         parts = []
         for xs in _row_chunks(X_test, chunk):

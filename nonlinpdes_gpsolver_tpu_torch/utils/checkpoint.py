@@ -243,17 +243,15 @@ def load_solver_state(path, problem: CollocationProblem
             if n_file != n_expected:
                 raise ValueError(f"block {b.name!r}: factor size {n_file} != problem size "
                                  f"{n_expected} (points changed?)")
-        scaled = all(b.name in meta.get("has_col_scales", []) for b in problem.blocks)
-        key = _reuse.layout_key(problem, {
-            b.name: dense_roles(_block_size(problem, b), b.name in meta["has_inverse"])
-            for b in problem.blocks}) if scaled else None
+        roles = {b.name: (_block_size(problem, b), b.name in meta["has_inverse"],
+                          b.name in meta.get("has_col_scales", [])) for b in problem.blocks}
+        key = _reuse.layout_key(problem, {name: dense_roles(*r) for name, r in roles.items()})
         with _reuse.claimed(key) as entry:
             if entry is not None:
                 out = entry.outputs()
             elif key is not None:  # the storage a factorization of the layout makes
-                out = {b.name: dense_storage(_block_size(problem, b), b.name in meta["has_inverse"],
-                                             problem.dtype, problem.device)
-                       for b in problem.blocks}
+                out = {name: dense_storage(n, inverse, problem.dtype, problem.device, scaled)
+                       for name, (n, inverse, scaled) in roles.items()}
             else:
                 out = {}
             put = _into(out, to)
@@ -324,8 +322,7 @@ def load_distributed_state(path, problem: CollocationProblem, mesh: Mesh, axis: 
                 nugget_scales={k: float(v) for k, v in meta["nugget_scales"].items()},
                 rungs=_rungs(meta), quality={}, stats={},
             )
-            if key is not None:
-                _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
-                              functools.partial(mesh_view, mesh=mesh, axis=axis, block=block))
+            _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
+                          functools.partial(mesh_view, mesh=mesh, axis=axis, block=block))
         state = _read_state(data, meta, to)
     return dfp, state

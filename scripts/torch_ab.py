@@ -4,6 +4,7 @@ another: an A/B of two commits on one card.
     python3 scripts/torch_ab.py --what ranks --roots OLD . . OLD [--repeats 2] \
         [--n_domain 20000 --n_boundary 2500] [--device cpu] [--out FILE]
     python3 scripts/torch_ab.py --what dense --roots OLD . . OLD [--repeats 5]
+    python3 scripts/torch_ab.py --what held --roots OLD . . OLD [--repeats 6]
 
 ``--roots`` lists source trees (each a checkout of the repo, e.g. a
 ``git archive`` of an older commit unpacked into a directory that
@@ -24,6 +25,13 @@ builds its kernels there first.
   of one structure does), once cold and ``--repeats`` times warm: each
   run's end-to-end and Gauss-Newton seconds and captures, and the last
   run's losses.
+* ``held``: the canonical problem, Darcy and the 16,200 rows, each
+  ``--repeats`` new problems of one structure (the canonical and 16,200-row
+  ones on fresh draws of the sampler, seeds 1, 2, ...), solved as ``res =
+  GPSolver(p).solve()``: each run's result kept until the next run's solve
+  returns. Per run: end-to-end and Gauss-Newton seconds, captures, how the
+  factorization bound (made, rebound, unshared), and the allocated and
+  reserved peaks; and the last run's losses.
 
 One JSON line a root goes to stdout and, with ``--out``, to that file.
 """
@@ -110,6 +118,56 @@ def dense_runs(tpt, device, repeats):
     return out
 
 
+def held_runs(tpt, device, runs, large=(7800, 600)):
+    """``--what held`` in one root: ``{name: {"runs": [{...}, ...],
+    "losses": [...]}}`` (``large``: the 16,200-row case's N_domain and
+    N_boundary)."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+
+    cuda = torch.device(device).type == "cuda"
+    W = tpt.workloads
+
+    def elliptic(n_domain, n_boundary):
+        def make(k):
+            Xd, Xb = tpt.utils.sample_random(torch.Generator(device=device).manual_seed(k),
+                                             n_domain, n_boundary)
+            return tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
+                                                 W.elliptic_rhs(), W.u_elliptic, seed=k)
+        return make, 1e-5, 4
+
+    darcy = W.darcy(device=device)
+    cases = {"canonical": elliptic(900, 124),
+             "darcy": (lambda k: W.darcy(device=device).problem, darcy.nugget, darcy.max_iter),
+             "large": elliptic(*large)}
+    out = {}
+    for name, (make, nugget, max_iter) in cases.items():
+        tpt.clear_graph_cache()
+        rows, res = [], None
+        for k in range(runs):
+            problem = make(1 + k)
+            if cuda:
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            graphs.reset_counts()
+            t0 = time.perf_counter()
+            res = tpt.GPSolver(problem, nugget=nugget, auto_mesh=False).solve(max_iter=max_iter)
+            if cuda:
+                torch.cuda.synchronize(device)
+            rows.append({
+                "e2e_seconds": time.perf_counter() - t0,
+                "gn_seconds": res.timers["gauss_newton"], "captures": graphs.CAPTURES,
+                "bind": (["made"] * graphs.ENTRIES + ["rebound"] * graphs.REBINDS
+                         + ["unshared"] * graphs.UNSHARED),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(device) if cuda else None,
+                "max_memory_reserved": torch.cuda.max_memory_reserved(device) if cuda else None})
+        out[name] = {"runs": rows, "losses": res.state.losses.tolist()}
+        del res
+    tpt.clear_graph_cache()
+    return out
+
+
 def child(what, root, device, n, nb, repeats):
     """One root: build its kernels, then run ``what``."""
     sys.path.insert(0, root)
@@ -121,9 +179,9 @@ def child(what, root, device, n, nb, repeats):
         from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
 
         gram_tile._kernel_lib()
-    if what == "dense":
+    if what in ("dense", "held"):
         t0 = time.perf_counter()
-        cases = dense_runs(tpt, device, repeats)
+        cases = (dense_runs if what == "dense" else held_runs)(tpt, device, repeats)
         print(json.dumps({"root": root, "package": os.path.dirname(tpt.__file__),
                           "seconds": time.perf_counter() - t0, "cases": cases}))
         return
@@ -144,18 +202,18 @@ def child(what, root, device, n, nb, repeats):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--what", choices=("ranks", "dense"), default="ranks")
+    ap.add_argument("--what", choices=("ranks", "dense", "held"), default="ranks")
     ap.add_argument("--roots", nargs="+", default=["."])
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--n_domain", type=int, default=20000)
     ap.add_argument("--n_boundary", type=int, default=2500)
     ap.add_argument("--repeats", type=int, default=None,
-                    help="warm runs a root (default: 2 for ranks, 5 for dense)")
+                    help="warm runs a root (default: 2 for ranks, 5 for dense, 6 for held)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.repeats is None:
-        args.repeats = 2 if args.what == "ranks" else 5
+        args.repeats = {"ranks": 2, "dense": 5, "held": 6}[args.what]
     if args.child is not None:
         child(args.what, args.child, args.device, args.n_domain, args.n_boundary, args.repeats)
         return

@@ -651,7 +651,7 @@ def test_new_problems_of_one_structure_share_one_loop(cuda):
         del solver, res
     assert seen == [((1, 0, 0), 0, 0), ((0, 1, 0), 1, 4), ((0, 1, 0), 0, 4)]
     n, data = 2 * 900 + 124, 900 + 124  # Gram rows [lap u, u] at 900 points, u at 124
-    (entry,) = _reuse._ENTRIES.values()
+    (entry,) = _reuse.entries()
     pool = _reuse._pool_bytes([entry.pool])[tuple(entry.pool)]
     assert pool > 0 and graphs.RETAINED_BYTES == 4 * (2 * n * n + n + data) + pool
     del entry
@@ -662,6 +662,34 @@ def test_new_problems_of_one_structure_share_one_loop(cuda):
     assert graphs.RETAINED_BYTES == 4 * (2 * n * n + n + data)
     tpt.clear_graph_cache()
     assert graphs.RETAINED_BYTES == 0
+
+
+@pytest.mark.cuda
+def test_held_loop_replays_from_its_fifth_run(cuda):
+    """Six new problems of one structure, each result kept until the next
+    solve returns: two entries alternate, each eager at its first use,
+    recorded at its second and replayed from its third, so that runs 5 and
+    6 record nothing; the last run bitwise a solve that shares nothing with
+    any entry."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
+
+    tpt.clear_graph_cache()
+    seen, res = [], None
+    for k in range(6):
+        graphs.reset_counts()
+        prob = _sampled_canonical(10 + k, cuda)
+        res = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4)
+        torch.cuda.synchronize()
+        seen.append(((graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED), graphs.CAPTURES))
+        assert bool(res.state.converged_finite)
+    assert seen == [((1, 0, 0), 0), ((1, 0, 0), 0), ((0, 1, 0), 1), ((0, 1, 0), 1),
+                    ((0, 1, 0), 0), ((0, 1, 0), 0)]
+    with graphs.uncaptured(), _reuse._unshared():
+        ref = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4)
+    assert torch.equal(res.z, ref.z) and torch.equal(res.state.losses, ref.state.losses)
+    del res, ref
+    tpt.clear_graph_cache()
 
 
 @pytest.mark.cuda

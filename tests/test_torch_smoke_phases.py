@@ -57,12 +57,22 @@ def test_structure_reuse_phase_on_cpu():
     4's and ``mesh_solve``'s cut to 500/100), with the card's numerics:
     each later problem factors into the first one's storage, passes its
     gate and equals its eager solve and an unshared solve of the same
-    problem (on the CPU nothing is recorded)."""
+    problem (on the CPU nothing is recorded); the same for phase 4's
+    problem on the two-pass mesh factorization; and six held runs of the
+    canonical and the mesh case (each result kept until the next solve
+    returns) bind made, made, then rebound, each bitwise an unshared
+    solve."""
     with tpt.ops.backend.card_numerics_on_cpu():
         out = chip_smoke.structure_reuse(tpt, CPU, names=("canonical", "large", "mesh"), runs=3,
-                                         large_sizes=(500, 100), mesh_sizes=(500, 100))
+                                         held=("canonical", "mesh"), large_sizes=(500, 100),
+                                         mesh_sizes=(500, 100))
+    held = out.pop("held")
     for rows in out.values():
         assert [r["bind"] for r in rows] == [["made"], ["rebound"], ["rebound"]]
         assert all(r["bitwise_eager"] and r["captures"] == 0 for r in rows)
         assert all(r["reference_unshared"] and r["bitwise_unshared"] for r in rows)
     assert out["mesh"][1]["step_solver"] == "structured"
+    assert set(held) == {"canonical", "mesh"}
+    for rows in held.values():
+        assert [r["bind"] for r in rows] == [["made"]] * 2 + [["rebound"]] * 4
+        assert all(r["reference_unshared"] and r["bitwise_unshared"] for r in rows)
