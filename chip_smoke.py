@@ -81,8 +81,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     ``'woodbury'`` under their gates, test L2 within 10% of phases 9 and
     11, z beside phase 9's, and the five step solvers of phase 12 in f64;
 14. ``mesh_nccl``: one rank per visible card over NCCL (:func:`mesh_nccl`),
-    phase 10's 16,200-row problem under its gate, z beside phase 10's; on a
-    machine with one card, a group of one, and it says so;
+    phase 10's 16,200-row problem under its gate, z beside phase 10's, the
+    loop recorded with its NCCL collectives inside: the replay against the
+    eager loop bitwise (host reads, agreements, collectives of each), and
+    a second problem that rebinds with no capture, bitwise its unshared
+    solve; on a machine with one card, a group of one, and it says so;
 15. ``checkpoint``: (a) phase 3's canonical factor and 4-step state
     through ``utils/checkpoint.py`` (the JAX package's file format): the
     factor, inverse and z bitwise, 2 GN steps resumed from the loaded z
@@ -127,6 +130,7 @@ the host's launch cost does not enter them; the wrapper's host cost is
 timed apart.
 """
 
+import gc
 import json
 import math
 import os
@@ -1133,6 +1137,12 @@ def _rank_entry(rank, fn, world, port, args):
         fn(rank, world, *args)
     finally:
         if dist.is_initialized():
+            from nonlinpdes_gpsolver_tpu_torch import clear_graph_cache
+
+            # NCCL's teardown waits for every CUDA graph that recorded its
+            # collectives: the recorded loops go first
+            clear_graph_cache()
+            gc.collect()
             dist.destroy_process_group()
 
 
@@ -1221,53 +1231,163 @@ def mesh_ranks_rank(rank, world, tmp, device, sizes):
     _write(tmp, f"rank{rank}.json", out)
 
 
+def gn_replayed_and_eager(fp, steps):
+    """The Gauss-Newton loop alone on the factored problem ``fp`` (its
+    loop recorded already): replayed, then run eagerly
+    (``graphs.uncaptured()``), each synchronized, with its seconds, ms a CG
+    iteration, host reads, captures, replays, and collectives (eager,
+    recorded) and host agreements; and whether the replay's z and losses
+    are the eager run's bits. ``expected_host_reads`` is the P = 1 count:
+    one a step and, for a Krylov step, each CG loop's lagged reads (its
+    iterations and one more, at most ``cg_maxiter``) and on the card one
+    for the CG counts."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.parallel import comm
+    from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import gn_solve_distributed
+
+    dev = fp.problem.device
+    out, states = {}, {}
+    for name in ("replayed", "eager"):
+        graphs.reset_counts()
+        comm.reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        if name == "eager":
+            with graphs.uncaptured():
+                st = gn_solve_distributed(fp, max_iter=steps)
+        else:
+            st = gn_solve_distributed(fp, max_iter=steps)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        iters = st.cg_iters.tolist()
+        reads = steps  # the step codes; a Krylov step's CG reads, and the counts' copy
+        if st.step_solver in ("cg", "woodbury"):
+            reads += sum(min(k + 1, 500) for k in iters) + (dev.type == "cuda")
+        out[name] = {"seconds": secs, "cg_iters": iters,
+                     "ms_per_cg_iter": secs / max(sum(iters), 1) * 1e3,
+                     "host_reads": graphs.HOST_READS, "captures": graphs.CAPTURES,
+                     "replays": graphs.REPLAYS, "eager_collectives": comm.COLLECTIVES,
+                     "recorded_collectives": comm.RECORDED,
+                     "host_agreements": comm.AGREEMENTS,
+                     "expected_host_reads": reads}
+        states[name] = st
+    rep, eag = states["replayed"], states["eager"]
+    out["bitwise"] = bool(torch.equal(rep.z, eag.z) and torch.equal(rep.losses, eag.losses))
+    return out, rep
+
+
 def mesh_nccl_rank(rank, world, tmp, backend, sizes, device=None):
     """One rank of phase ``mesh_nccl``: one rank per card over ``backend``
     (NCCL on the card), the 16,200-row elliptic problem of phase 4 on the
-    mesh path, cold then warm, with its L2 and its solution."""
+    mesh path. Cold: a new entry, its Gauss-Newton loop recorded with its
+    collectives inside (``'cg'`` records in its first call). Warm: a new
+    solver of the same problem rebinds the cold one's entry and replays,
+    with its L2, seconds and solution. Then on the warm solver's factors
+    the loop alone, replayed and eagerly (:func:`gn_replayed_and_eager`).
+    Then, the warm result gone, a second problem of the layout (the
+    sampler's seed 1), which must rebind with no capture, beside the same
+    problem solved unshared (``_reuse._unshared()``). Last the exact step
+    recorded (:func:`exact_step_recorded`)."""
     import torch
 
     import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
     from nonlinpdes_gpsolver_tpu_torch.parallel import comm, initialize_distributed, make_mesh
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
 
     check(initialize_distributed(backend=backend), f"the {backend} group did not start")
     mesh = make_mesh(world, device=device)
     dev = mesh.device
+    on_card = dev.type == "cuda"
     n, nb = sizes["nccl"]
-    Xd, Xb = tpt.utils.sample_random(torch.Generator(device=dev).manual_seed(0), n, nb)
-    prob = tpt.models.nonlinear_elliptic(tpt.SquaredExponential.gaussian(0.2), Xd, Xb,
-                                         tpt.workloads.elliptic_rhs(), tpt.workloads.u_elliptic,
-                                         seed=1)
+    steps = 4
+
+    def problem(seed):
+        return large_problem(tpt, dev, (n, nb), seed=seed)
+
+    prob = problem(0)
     Xt = tpt.utils.test_grid(60, 60, device=dev)
     truth = torch.func.vmap(tpt.workloads.u_elliptic)(Xt)
 
-    def run():
+    def run(p):
         t0 = time.perf_counter()
-        res = tpt.GPSolver(prob, nugget=1e-5, mesh=mesh).solve(max_iter=4)
+        res = tpt.GPSolver(p, nugget=1e-5, mesh=mesh).solve(max_iter=steps)
         err = tpt.GPSolver.errors(res.posterior.extend(Xt), truth)
         sync(dev)
         return res, err, time.perf_counter() - t0
 
-    cold = run()[2]
-    if dev.type == "cuda":
+    graphs.reset_counts()
+    comm.reset_counts()
+    cold = run(prob)[2]
+    cold_counts = {"captures": graphs.CAPTURES, "recorded_collectives": comm.RECORDED,
+                   "entries": graphs.ENTRIES}
+    if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    comm.COLLECTIVES = 0
-    res, err, secs = run()
+    graphs.reset_counts()
+    comm.reset_counts()
+    res, err, secs = run(prob)
     k1, k2 = counts()
     out = {"rank": rank, "ranks": mesh.size, "backend": mesh.backend, "device": str(dev),
-           "collectives": comm.COLLECTIVES,
+           "collectives": comm.COLLECTIVES, "cold": cold_counts,
+           "warm": {"captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
+                    "rebinds": graphs.REBINDS, "host_reads": graphs.HOST_READS},
            "group_of_one": mesh.size == 1, "gram_rows": 2 * n + nb, "cold_seconds": cold,
            "e2e_seconds": secs, "phase_seconds": res.timers, "test_l2": err.l2,
-           "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                    if dev.type == "cuda" else None),
+           "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None,
            "rungs": res.posterior.fp.rungs, "cg_iters": res.state.cg_iters.tolist(),
            "step_solver": res.state.step_solver, "k1_launches": k1, "k2_launches": k2,
            "converged_finite": bool(res.state.converged_finite)}
     if rank == 0:
         torch.save(res.z.cpu(), os.path.join(tmp, "z_nccl.pt"))
+    out["gn"], st = gn_replayed_and_eager(res.posterior.fp, steps)
+    out["gn"]["solve_bitwise"] = bool(torch.equal(st.z, res.z))
+    del res, st
+    graphs.reset_counts()
+    res, err, secs = run(problem(1))
+    z2 = res.z.clone()
+    out["second"] = {"rebinds": graphs.REBINDS, "entries": graphs.ENTRIES,
+                     "captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
+                     "e2e_seconds": secs, "test_l2": err.l2, "cg_iters": res.state.cg_iters.tolist()}
+    del res
+    with _reuse._unshared():
+        res, _, _ = run(problem(1))
+    out["second"]["unshared_bitwise"] = bool(torch.equal(res.z, z2))
+    del res
+    out["exact"] = exact_step_recorded(tpt, mesh)
     _write(tmp, f"rank{rank}.json", out)
+
+
+def exact_step_recorded(tpt, mesh):
+    """The exact ``'structured'`` step recorded on ``mesh`` (its ``ppermute``
+    ring and gathers inside the graph across ranks): 3 steps on a 3,000-row
+    mesh problem, called three times (eager warm-up, recorded, replayed),
+    the replay against an eager run (``graphs.uncaptured()``)."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.parallel import comm
+    from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import (
+        factorize_distributed, gn_solve_distributed)
+
+    w = tpt.workloads.mesh_elliptic(device=mesh.device, n_domain=1300, n_boundary=400)
+    fp = factorize_distributed(w.problem, mesh, nugget=1e-5, block=256)
+    kw = dict(max_iter=3, step_solver="structured")
+    gn_solve_distributed(fp, **kw)
+    graphs.reset_counts()
+    comm.reset_counts()
+    gn_solve_distributed(fp, **kw)
+    out = {"captures": graphs.CAPTURES, "recorded_collectives": comm.RECORDED}
+    graphs.reset_counts()
+    st = gn_solve_distributed(fp, **kw)
+    out.update(replays=graphs.REPLAYS, replay_captures=graphs.CAPTURES)
+    with graphs.uncaptured():
+        ref = gn_solve_distributed(fp, **kw)
+    out["bitwise"] = bool(torch.equal(st.z, ref.z) and torch.equal(st.losses, ref.losses))
+    return out
 
 
 def _z_diff(tmp, name, z1):
@@ -1321,7 +1441,15 @@ def mesh_nccl(dev, z1, sizes=FULL_SIZES, backend="nccl", world=None):
     """Phase ``mesh_nccl``: one rank per visible card over ``backend``
     (:func:`mesh_nccl_rank`): the 16,200-row problem's gate, and its
     solution within ``Z_REL_GATE`` of the one-device run's ``z1`` of the
-    same call. On the CPU (a rehearsal) ``world`` ranks, 1 by default."""
+    same call. On the card each rank's loop is recorded with its NCCL
+    collectives inside (a group of one too): the warm solve rebinds and
+    replays; the loop replayed gives the bits of its eager run, with no
+    capture, no host agreement but the route's one and the normal budget's
+    (set-up reads), and the P = 1 count of host reads; a second problem
+    rebinds with no capture and gives the bits of its unshared solve; the
+    exact ``'structured'`` step is recorded with its ring and replayed,
+    bitwise its eager run (:func:`exact_step_recorded`). On the CPU (a
+    rehearsal) ``world`` ranks, 1 by default."""
     import torch
 
     if world is None:
@@ -1332,12 +1460,34 @@ def mesh_nccl(dev, z1, sizes=FULL_SIZES, backend="nccl", world=None):
         ranks = [_read(tmp, f"rank{r}.json") for r in range(world)]
         z_rel = _z_diff(tmp, "z_nccl.pt", z1)
     for r in ranks:
-        check(r["test_l2"] <= GATE_L2, f"mesh_nccl rank {r['rank']}: test L2 {r['test_l2']:.4e}")
+        who = f"mesh_nccl rank {r['rank']}"
+        check(r["test_l2"] <= GATE_L2, f"{who}: test L2 {r['test_l2']:.4e}")
         check(dev.type != "cuda" or (r["k1_launches"] > 0 and r["k2_launches"] > 0),
-              f"mesh_nccl rank {r['rank']} launched K1/K2 {r['k1_launches']}/{r['k2_launches']}")
-        check(r["converged_finite"], f"mesh_nccl rank {r['rank']}: a GN step had no finite trial")
+              f"{who} launched K1/K2 {r['k1_launches']}/{r['k2_launches']}")
+        check(r["converged_finite"], f"{who}: a GN step had no finite trial")
         check(r["backend"] == backend, f"mesh_nccl ran over {r['backend']}")
-        check(r["collectives"] > 0, f"mesh_nccl rank {r['rank']} made no {backend} collective")
+        check(r["collectives"] > 0, f"{who} made no {backend} collective")
+        gn, second = r["gn"], r["second"]
+        check(gn["bitwise"] and gn["solve_bitwise"],
+              f"{who}: the replayed loop differs from its eager run or from the solve")
+        check(second["unshared_bitwise"], f"{who}: the rebound solve differs from its unshared one")
+        check(second["rebinds"] == 1 and second["entries"] == 0,
+              f"{who}: the second problem bound {second}")
+        exact = r["exact"]
+        check(exact["bitwise"], f"{who}: the replayed 'structured' step differs from its eager run")
+        rep = gn["replayed"]
+        check(rep["host_reads"] == rep["expected_host_reads"],
+              f"{who}: {rep['host_reads']} host reads, {rep['expected_host_reads']} at P = 1")
+        check(rep["host_agreements"] <= 2, f"{who}: {rep['host_agreements']} host agreements")
+        if dev.type == "cuda":
+            check(r["cold"]["captures"] > 0 and r["cold"]["recorded_collectives"] > 0,
+                  f"{who}: the cold solve recorded {r['cold']} (graphs, NCCL collectives)")
+            for what in (r["warm"], rep, second):
+                check(what["captures"] == 0 and what["replays"] > 0,
+                      f"{who}: recorded {what['captures']}, replayed {what['replays']} graphs")
+            check(exact["captures"] > 0 and exact["recorded_collectives"] > 0
+                  and exact["replay_captures"] == 0 and exact["replays"] > 0,
+                  f"{who}: the 'structured' step recorded and replayed {exact}")
     check(z_rel <= Z_REL_GATE, f"mesh_nccl z {z_rel:.3e} of its scale from one device")
     return {"ranks": ranks, "z_rel_diff_to_one_device": z_rel}
 
@@ -2059,9 +2209,9 @@ def main():
     emit("mesh_nccl", seconds=time.perf_counter() - t_phase, card=card, backend="nccl",
          world_size=len(nccl["ranks"]), one_device_test_l2=l2_mvd,
          note=("a group of one rank: one card is visible; its collectives run over NCCL "
-               "('collectives' a rank in the warm solve), except inside a recorded "
-               "Gauss-Newton step, which holds none" if len(nccl["ranks"]) == 1
-               else "one rank per visible card"), **nccl)
+               "('collectives' a rank in the warm solve), and the recorded Gauss-Newton "
+               "steps hold theirs ('recorded_collectives' at the cold solve's capture)"
+               if len(nccl["ranks"]) == 1 else "one rank per visible card"), **nccl)
 
     # -- 15. checkpoint: save and resume, dense and mesh ------------------------------
     t_phase = time.perf_counter()

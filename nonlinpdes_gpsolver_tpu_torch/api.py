@@ -25,7 +25,7 @@ its results in one host read, and factors and solves again in the rare
 case that one failed. The recorded loop is shared by every problem of one
 structure (``solvers/_reuse.py``): once a solver and its results are gone,
 a new ``GPSolver`` of the same structure factors into their storage and
-replays their loop.
+replays their loop, on one device or on every rank of an NCCL mesh.
 """
 
 from __future__ import annotations
@@ -98,7 +98,9 @@ class GPSolver:
     On a failed verdict it escalates the failing blocks' nugget tenfold
     past the attempted scale, drops the solve and releases the factors
     (``solvers/_reuse.py``), and factors and solves again into the same
-    storage, for at most 8 rounds.
+    storage, for at most 8 rounds. Across ranks the verdicts and results
+    are agreed on the device before that one read, so every rank reads the
+    same and a redo happens on all of them or on none.
     """
 
     def __init__(

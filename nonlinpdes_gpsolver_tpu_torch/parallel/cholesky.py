@@ -24,6 +24,12 @@ the ``diag_inv`` blocks:
   solve broadcasts the owner's row prefix, the transposed one gathers block
   column ``k``.
 
+The panel loops are what a recorded Gauss-Newton step replays across NCCL
+ranks (a kernel solve of a CG iteration makes ``2 nb`` collectives): they
+read nothing on the host and allocate only what each replay allocates
+again, and while the owner of a block computes and the others receive,
+every rank makes the same collectives in the same order.
+
 The two-pass factorization is the JAX package's right-looking panel
 algorithm across ranks (``:128-247``), each diagonal block factored in f64
 from the owner's broadcast; at P = 1 it is the dense path's f64 Cholesky.

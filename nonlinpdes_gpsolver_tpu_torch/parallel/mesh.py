@@ -121,7 +121,11 @@ def initialize_distributed(init_method: Optional[str] = None,
 
     ``backend`` defaults to ``nccl`` (one card per rank); pass ``gloo`` for
     ranks on the CPU or sharing one card. A group that is already running
-    is kept. Call it before :func:`make_mesh`.
+    is kept. Call it before :func:`make_mesh`. Before
+    ``torch.distributed.destroy_process_group()`` on NCCL ranks, drop the
+    recorded loops (``clear_graph_cache()``, and any factored problem kept
+    without an entry): NCCL's teardown waits for every CUDA graph that
+    holds its collectives.
     """
     if dist.is_initialized():
         return True

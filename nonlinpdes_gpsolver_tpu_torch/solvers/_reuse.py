@@ -40,7 +40,10 @@ also while other entries of it are bound to live problems: two live
 problems never read each other's factors, and each reads its own. Only a
 problem without a layout key keeps loops of its own in ``fp.graphs``
 (``UNSHARED``): an unhashable residual, data that is not a dict of
-tensors, or a mesh whose loop is not recorded. Before each solve the bound
+tensors, or gloo ranks that share a card, whose loop is not recorded.
+Across ranks every rank keeps its own entries, and the ranks agree on the
+one a factorization takes (:func:`claimed`), so that all of them replay
+the same recorded loop, collectives and all. Before each solve the bound
 problem's ``data`` leaves are copied into its entry on the stream (the
 problem's own ``data`` is never written), and a loop's per-problem state
 (the mesh path's deflation basis and ``'normal'`` inverse blocks) is
@@ -71,6 +74,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..ops import graphs, linalg
+from ..parallel import comm
 
 _ENTRIES: Dict[tuple, List["Entry"]] = {}  # layout key -> its entries
 _CLOCK = itertools.count(1)
@@ -258,17 +262,27 @@ def _in_entry(t: torch.Tensor) -> bool:
 
 
 @contextlib.contextmanager
-def claimed(key):
+def claimed(key, mesh=None):
     """A free entry of layout ``key`` (the one bound most recently),
     reserved for the factorization in the block, or ``None`` if there is
     none; first every released entry of another layout on the device is
-    freed. An entry not bound by the end of the block is released again."""
+    freed. An entry not bound by the end of the block is released again.
+
+    On a ``mesh`` of ranks each rank finds its own, and the ranks agree
+    (one host collective): they take it only if every rank found the entry
+    of the same bind (its ``stamp``), else every rank makes a new entry.
+    A rank that rebinds while another makes a new entry would record other
+    graphs than it, and their collectives would never meet."""
     entry = None
     if key is not None:
         _prune(key[0], keep=key)
         free = [e for e in _ENTRIES.get(key, ()) if e.free()]
         if free:
             entry = max(free, key=lambda e: e.stamp)
+        if mesh is not None and not comm.agree(mesh, 0 if entry is None else entry.stamp,
+                                               "same"):
+            entry = None
+        if entry is not None:
             entry.reserved = True
     try:
         yield entry

@@ -16,16 +16,21 @@ vectors) are replicated and computed on every rank; the factor's solves
 (``parallel/cholesky.py``: ``solve_triangular`` at P = 1, the panel loops
 across ranks) and the panels that are sharded by column bring the ranks
 together. A step is the dense path's (``solvers/gn.py::_Loop``): no host
-read inside it, recorded as CUDA graphs and replayed at P = 1 on the card
-(:func:`_records`), where a recorded loop serves every problem of one
-layout (``solvers/_reuse.py``: the factorization of a new problem, fused
-or two-pass, writes into a released problem's factor, and the loop's deflation basis
-and ``'normal'`` blocks are computed again for it). The loop reads the host once a step (whether the
-damped update must halve, and with ``tol`` whether the step ran), and the
-CG loop once an iteration, one iteration late; every such read, and every
-read that routes or probes, is agreed across the ranks first
-(``parallel/comm.py::agree``), so that no rank leaves a loop another stays
-in. The steps (``:516-1008``):
+read inside it, recorded on the card as CUDA graphs with its collectives
+inside and replayed, at P = 1 and across NCCL ranks (:func:`_records`; the
+JAX package's loop is one compiled region at every P), where a recorded
+loop serves every problem of one layout (``solvers/_reuse.py``: the
+factorization of a new problem, fused or two-pass, writes into a released
+problem's factor, and the loop's deflation basis and ``'normal'`` blocks
+are computed again for it). The loop reads the host once a step (whether
+the damped update must halve, and with ``tol`` whether the step ran), and
+the CG loop once an iteration, one iteration late. Each of those flags is
+agreed across the ranks on the device, inside the step
+(``parallel/comm.py::agree_device``), so the host reads a flag that is the
+same on every rank and makes no collective of its own; a read that routes
+or probes, outside the loop, is agreed on the host
+(``parallel/comm.py::agree``). Either way no rank leaves a loop another
+stays in. The steps (``:516-1008``):
 
 * ``'structured'``/``'direct'``: the whitened Jacobian panel, sharded by
   column (each rank its ``ceil(m/P)`` raw columns, from per-slice residual
@@ -132,9 +137,15 @@ class DistributedFactoredProblem:
 
     def resolve_pending(self, extra=()):
         """Read and settle the deferred verdicts in one host read (see
-        :meth:`.gn.FactoredProblem.resolve_pending`); every rank reads the
-        same verdicts (each is the largest over the ranks)."""
-        return resolve_verdicts(self.quality, extra)
+        :meth:`.gn.FactoredProblem.resolve_pending`). Across ranks the
+        values are agreed on the device first, each verdict the largest
+        over the ranks and each of ``extra`` rank 0's, so that every rank
+        reads the same and a redo happens on all of them or on none."""
+        mesh = self.mesh
+        self.quality = {n: comm.agree_device(mesh, q, "max") if torch.is_tensor(q) else q
+                        for n, q in self.quality.items()}
+        return resolve_verdicts(self.quality,
+                                [comm.agree_device(mesh, t, "first") for t in extra])
 
     @property
     def pending_scales(self) -> Dict[str, float]:
@@ -219,13 +230,14 @@ def factorize_distributed(
     into the storage of a released problem of the same layout, whose
     recorded loop then serves this one (``solvers/_reuse.py``). The two
     store the same tensors in the same layout, so they share one key, as
-    the JAX package's loop serves the factors of either.
+    the JAX package's loop serves the factors of either. Across ranks the
+    key holds the mesh (its size, this rank and the group), and the ranks
+    agree on the entry they take.
     """
     if problem.device != mesh.device:
         raise ValueError(f"the problem lies on {problem.device}, the mesh on {mesh.device}")
-    key = (_reuse.layout_key(problem, mesh_roles(problem, mesh, block), (mesh, axis, block))
-           if _records(mesh) else None)
-    with _reuse.claimed(key) as entry:
+    key = mesh_key(problem, mesh, axis, block)
+    with _reuse.claimed(key, mesh) as entry:
         dfp = _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_tol,
                                 max_attempts, guard, chunk_cols, fused, start_scales,
                                 superblock_cols, defer_quality,
@@ -233,6 +245,15 @@ def factorize_distributed(
         _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
                       functools.partial(mesh_view, mesh=mesh, axis=axis, block=block))
     return dfp
+
+
+def mesh_key(problem: CollocationProblem, mesh: Mesh, axis: str, block: int):
+    """The layout key of the fused factor's storage on ``mesh``
+    (``solvers/_reuse.py``), or ``None`` where the loop is not shared
+    (:func:`_records`)."""
+    if not _records(mesh):
+        return None
+    return _reuse.layout_key(problem, mesh_roles(problem, mesh, block), (mesh, axis, block))
 
 
 def mesh_roles(problem: CollocationProblem, mesh: Mesh, block: int) -> Dict[str, tuple]:
@@ -659,7 +680,7 @@ def _damped_update(step_size):
     """The guarded update (``:911``), its full step on the device: the full
     step unless it is non-finite or more than doubles the incoming loss.
     The step is recorded as taken; ``code`` tells the host whether it must
-    halve (:func:`_halve`)."""
+    halve (:func:`_halve`), rank 0's on every rank."""
 
     def update(fp, c: _MeshCarry, delta, iters):
         go = c.go.clone()
@@ -669,7 +690,8 @@ def _damped_update(step_size):
             buf.copy_(val)
         need = l1 > 2.0 * c.loss_in
         c.commit(z1, f1, torch.where(f1, l1, c.loss_in), iters)
-        c.code.copy_(need.to(torch.int64) + 2 * go.to(torch.int64))
+        code = need.to(torch.int64) + 2 * go.to(torch.int64)
+        c.code.copy_(comm.agree_device(fp.mesh, code, "first"))  # the same on every rank
 
     return update
 
@@ -699,12 +721,14 @@ def _halve(fp, c: _MeshCarry, step_size):
 
 
 def _records(mesh: Mesh) -> bool:
-    """Whether the mesh loop is recorded as CUDA graphs: at P = 1 (no
-    group, or a group of one, whose collectives are the identity). Across
-    ranks the same step runs unrecorded."""
-    if mesh.backend == "gloo" and mesh.size > 1:
-        return False  # every collective crosses host memory, which a graph cannot hold
-    return mesh.size == 1  # NCCL across ranks: its collectives are not recorded yet
+    """Whether the mesh loop is recorded as CUDA graphs on the card and
+    shared by the problems of a layout (``solvers/_reuse.py``): with no
+    group, and under NCCL at any P, whose collectives a graph holds. Not
+    for gloo ranks on a card, which stage every collective through host
+    memory that no graph can hold: their loop runs eagerly, unshared.
+    gloo ranks on the CPU record nothing, as no CPU loop does, and share
+    their entries as the card's ranks do."""
+    return not (mesh.backend == "gloo" and mesh.device.type == "cuda")
 
 
 def _any_anisotropic(p: CollocationProblem) -> bool:
@@ -842,7 +866,7 @@ def gn_solve_distributed(
         for _ in range(max_iter):
             loop.step(fp)
             flag.post(c.code)
-            code = int(fp.agree(flag.read(), "first"))
+            code = flag.read()  # agreed over the ranks inside the step
             if not code & 2:  # the step followed the tol stop: it changed nothing
                 break
             if code & 1:
@@ -878,7 +902,8 @@ def _mesh_loop(fp, z, solver, structure, cand, valid, wants, deflation_rank, max
 
     carry = _MeshCarry(z, max_iter, tol)
     kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter, capture=_records(fp.mesh), pool=pool,
-              exit_agree=lambda fp, stop: fp.agree(stop, "all"), prepare=prepare)
+              flag_agree=lambda fp, flag: comm.agree_device(fp.mesh, flag, "any"),
+              prepare=prepare)
     update = _damped_update(step_size)
     if solver == "cg":
         def system_fn(fp, c):

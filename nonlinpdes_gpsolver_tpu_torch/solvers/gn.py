@@ -551,9 +551,12 @@ class _CGState:
     ``X``, residual ``R``, direction ``P``, ``gamma = R.M(R)`` per column,
     the squared stopping radii ``tol2``, the ``active`` columns, the count
     of iterations in which any column was active, and ``flag``, whether
-    any column still is (the exit test the host reads)."""
+    any column still is (the exit test the host reads). ``agree`` maps that
+    test to the one every rank of a mesh takes, on the device (the mesh
+    loop's :func:`..parallel.comm.agree_device`); ``None``: as it is."""
 
-    def __init__(self, normal_op, B, tol, M=None, X0=None):
+    def __init__(self, normal_op, B, tol, M=None, X0=None, agree=None):
+        self.agree = agree
         self.tol2 = float(tol) ** 2 * torch.sum(B * B, dim=0)
         if X0 is None:
             self.X, self.R = torch.zeros_like(B), B.clone()
@@ -564,12 +567,18 @@ class _CGState:
         self.gamma = torch.sum(self.R * Z, dim=0)
         self.active = torch.sum(self.R * self.R, dim=0) > self.tol2
         self.iters = torch.zeros((), dtype=torch.int64, device=B.device)
-        self.flag = self.active.any()
+        self.flag = torch.empty((), dtype=torch.bool, device=B.device)
+        self.set_flag()
+
+    def set_flag(self) -> None:
+        """``flag``: whether any column is active (on any rank)."""
+        flag = self.active.any()
+        self.flag.copy_(flag if self.agree is None else self.agree(flag))
 
     def mask(self, go: torch.Tensor) -> None:
         """Freeze every column unless ``go`` (a skipped Gauss-Newton step)."""
         self.active &= go
-        self.flag.copy_(self.active.any())
+        self.set_flag()
 
 
 def _cg_iteration(st: _CGState, normal_op, M=None) -> None:
@@ -590,30 +599,27 @@ def _cg_iteration(st: _CGState, normal_op, M=None) -> None:
     st.gamma.copy_(gamma_new)
     st.iters.add_(active.any().to(torch.int64))
     st.active.copy_(torch.sum(st.R * st.R, dim=0) > st.tol2)
-    st.flag.copy_(st.active.any())
+    st.set_flag()
 
 
-def _cg_loop(iterate, st: _CGState, maxiter: int, exit_agree=None) -> None:
+def _cg_loop(iterate, st: _CGState, maxiter: int) -> None:
     """Run ``iterate()`` (one CG iteration on ``st``) until no column is
     active, at most ``maxiter`` times. The exit flag is read one iteration
     late (:class:`..ops.graphs.Flag`): iteration i + 1 is queued before
     iteration i's flag is read, so the card never waits on the host, and
     the one iteration queued after the last active one changes nothing.
-    ``exit_agree`` maps the host's decision to stop to the decision every
-    rank of a mesh takes."""
+    On a mesh the flag is agreed on the device (``st.agree``), so every
+    rank reads the same one."""
     flag = Flag(st.flag.device)
     flag.post(st.flag)
     for _ in range(int(maxiter)):
         iterate()
-        stop = not flag.read()
-        if exit_agree is not None:
-            stop = exit_agree(stop)
-        if stop:
+        if not flag.read():
             break
         flag.post(st.flag)
 
 
-def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None, exit_agree=None):
+def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None):
     """Conjugate gradients on a matrix of right-hand sides sharing one SPD
     operator: the inner solve of the ``'cg'`` and ``'woodbury'`` steps.
 
@@ -628,7 +634,7 @@ def _batched_cg(normal_op, B, tol, maxiter, M=None, X0=None, exit_agree=None):
     the exit test is read as :func:`_cg_loop` says.
     """
     st = _CGState(normal_op, B, tol, M, X0)
-    _cg_loop(lambda: _cg_iteration(st, normal_op, M), st, maxiter, exit_agree)
+    _cg_loop(lambda: _cg_iteration(st, normal_op, M), st, maxiter)
     return st.X, st.iters
 
 
@@ -842,8 +848,9 @@ class _Loop:
     ``update(fp, carry, delta, iters)`` applies the step. Recorded, an
     exact step is one graph; a Krylov step three (the system and CG set-up,
     one CG iteration, the update) sharing one pool, with the CG loop's
-    lagged exit reads between them (``exit_agree(fp, stop)``: see
-    :func:`_cg_loop`).
+    lagged exit reads between them (:func:`_cg_loop`); on a mesh
+    ``flag_agree(fp, flag)`` agrees the exit flag over the ranks on the
+    device, inside the recorded set-up and iteration.
 
     When to record: an exact step at the start of the loop's second call,
     its first call being the warm-up (a handful of exact steps cost less
@@ -862,10 +869,10 @@ class _Loop:
     recorded; ``bound`` says for which bind it last did."""
 
     def __init__(self, carry: _Carry, update, delta_fn=None, system_fn=None, cg_tol=0.0,
-                 cg_maxiter=0, exit_agree=None, capture=True, pool=None, prepare=None):
+                 cg_maxiter=0, flag_agree=None, capture=True, pool=None, prepare=None):
         self.carry, self.update = carry, update
         self.delta_fn, self.system_fn = delta_fn, system_fn
-        self.cg_tol, self.cg_maxiter, self.exit_agree = cg_tol, cg_maxiter, exit_agree
+        self.cg_tol, self.cg_maxiter, self.flag_agree = cg_tol, cg_maxiter, flag_agree
         self.rec = Recorder(carry.z.device, capture, pool)
         self.cg = None  # the recorded step's CG state
         self.steps = 0
@@ -881,7 +888,9 @@ class _Loop:
 
     def _setup(self, fp):
         op, B, M, X0, finish = self.system_fn(fp, self.carry)
-        st = _CGState(op, B, self.cg_tol, M, X0)
+        agree = (None if self.flag_agree is None
+                 else functools.partial(self.flag_agree, fp))
+        st = _CGState(op, B, self.cg_tol, M, X0, agree)
         st.mask(self.carry.go)
         return st, (op, M, finish)
 
@@ -910,19 +919,18 @@ class _Loop:
         warm_up = 1 if self.krylov else self.carry.max_iter
         if live and not rec.captured and self.steps >= warm_up:
             self._record(fp)
-        agree = None if self.exit_agree is None else (lambda stop: self.exit_agree(fp, stop))
         if live and rec.captured:
             if not self.krylov:
                 rec.replay("step")
             else:
                 rec.replay("setup")
-                _cg_loop(lambda: rec.replay("iteration"), self.cg, self.cg_maxiter, agree)
+                _cg_loop(lambda: rec.replay("iteration"), self.cg, self.cg_maxiter)
                 rec.replay("finish")
         elif not self.krylov:
             self._exact(fp)
         else:
             st, (op, M, finish) = self._setup(fp)
-            _cg_loop(lambda: _cg_iteration(st, op, M), st, self.cg_maxiter, agree)
+            _cg_loop(lambda: _cg_iteration(st, op, M), st, self.cg_maxiter)
             self.update(fp, self.carry, finish(st.X), st.iters)
         if live:
             self.steps += 1

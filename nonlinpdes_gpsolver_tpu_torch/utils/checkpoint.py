@@ -56,8 +56,7 @@ from ..parallel.mesh import Mesh
 from ..solvers import _reuse
 from ..solvers.distributed import (
     DistributedFactoredProblem,
-    _records,
-    mesh_roles,
+    mesh_key,
     mesh_tensors,
     mesh_view,
 )
@@ -297,13 +296,12 @@ def load_distributed_state(path, problem: CollocationProblem, mesh: Mesh, axis: 
                 raise ValueError(f"block {b.name!r}: factor size {bm['n']} != problem size "
                                  f"{n_expected} (points changed?)")
         key, block = None, {int(by_name[b.name]["block"]) for b in problem.blocks}
-        if len(block) == 1 and _records(mesh):  # the fused factor's layout (mesh_roles)
+        if len(block) == 1:  # the fused factor's layout (mesh_roles)
             block = block.pop()
             if all(by_name[b.name]["n_pad"] == pad_to_blocks(by_name[b.name]["n"], block, mesh.size)
                    and b.name in meta.get("has_col_scales", []) for b in problem.blocks):
-                key = _reuse.layout_key(problem, mesh_roles(problem, mesh, block),
-                                        (mesh, axis, block))
-        with _reuse.claimed(key) as entry:
+                key = mesh_key(problem, mesh, axis, block)
+        with _reuse.claimed(key, mesh) as entry:
             put = _into(entry.outputs() if entry is not None else {}, to)
             factors, col_scales = {}, {}
             for b in problem.blocks:

@@ -6,14 +6,19 @@
 On a machine with P cards: the elliptic problem of ``chip_smoke.py``'s
 phase ``mesh_nccl`` (sigma 0.2, nugget 1e-5, 4 GN steps, the port's sampler
 with seed 0; 2 N_domain + N_boundary Gram rows) first on card 0 alone
-(``make_mesh(1)``, cold then warm), then on P ranks over NCCL
-(``chip_smoke.mesh_nccl``: each rank on its own card, cold then warm). It
-prints one JSON line: each run's seconds (end to end and by phase), test L2,
-peak memory a rank and CG iterations, and the P-rank solution's distance
-from the one-card one; then the cards' names and power limits. The
-default size is ``mesh_elliptic``'s, 42,500 Gram rows. ``--device cpu``
-rehearses it on the CPU over gloo with 4 ranks (CPU seconds, not device
-times).
+(``make_mesh(1)``, cold then warm, then its Gauss-Newton loop alone,
+replayed and eagerly: ``chip_smoke.gn_replayed_and_eager``), then on P
+ranks over NCCL (``chip_smoke.mesh_nccl``: each rank on its own card, its
+loop recorded with the NCCL collectives inside; cold, warm, the loop
+replayed against its eager run, bitwise, and a second problem of the
+layout that rebinds with no capture, bitwise its unshared solve). It
+prints one JSON line: each run's seconds (end to end and by phase), GN
+seconds and ms a CG iteration replayed and eager, captures, replays, host
+reads and collectives, test L2, peak memory a rank and CG iterations, and
+the P-rank solution's distance from the one-card one; then the cards'
+names and power limits. The default size is ``mesh_elliptic``'s, 42,500
+Gram rows. ``--device cpu`` rehearses it on the CPU over gloo with 4 ranks
+(CPU seconds, not device times).
 """
 
 import argparse
@@ -67,6 +72,7 @@ def main():
               "test_l2": err.l2, "cg_iters": res.state.cg_iters.tolist(),
               "step_solver": res.state.step_solver,
               "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None}
+    single["gn"], _ = chip_smoke.gn_replayed_and_eager(res.posterior.fp, 4)
     z1 = res.z
     del res
     if on_card:

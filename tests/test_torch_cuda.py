@@ -720,14 +720,16 @@ def _nccl_group_of_one(rank, world, port, out_dir):
     try:
         got = _mesh_cg_twice(make_mesh(1, device="cuda:0"))
         torch.save({**got, "collectives": comm.COLLECTIVES, "captures": graphs.CAPTURES,
-                    "replays": graphs.REPLAYS}, os.path.join(out_dir, "rank0.pt"))
+                    "replays": graphs.REPLAYS, "agreements": comm.AGREEMENTS},
+                   os.path.join(out_dir, "rank0.pt"))
     finally:
         dist.destroy_process_group()
 
 
 def _mesh_cg_twice(mesh):
     """Factor the 3,000-row mesh problem on ``mesh``, solve its ``'cg'``
-    loop once (recorded there), then count a second solve."""
+    loop once (recorded there, with the collectives it records), then
+    count a second solve."""
     from nonlinpdes_gpsolver_tpu_torch.ops import graphs
     from nonlinpdes_gpsolver_tpu_torch.parallel import comm
     from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import (
@@ -736,20 +738,23 @@ def _mesh_cg_twice(mesh):
     w = tpt.workloads.mesh_elliptic(device=mesh.device, n_domain=1300, n_boundary=400)
     fp = factorize_distributed(w.problem, mesh, nugget=1e-5, block=256)
     kw = dict(max_iter=3, step_solver="cg")
+    comm.reset_counts()
     gn_solve_distributed(fp, **kw)
+    recorded = comm.RECORDED
     graphs.reset_counts()
-    comm.COLLECTIVES = 0
+    comm.reset_counts()
     st = gn_solve_distributed(fp, **kw)
     torch.cuda.synchronize()
-    return {"z": st.z.cpu(), "losses": st.losses.cpu()}
+    return {"z": st.z.cpu(), "losses": st.losses.cpu(), "recorded": recorded,
+            "recorded_in_replay": comm.RECORDED}
 
 
 @pytest.mark.cuda
 def test_group_of_one_over_nccl_records_its_loop(cuda, tmp_path):
     """A group of one over NCCL records its mesh loop as a P = 1 mesh
     without a group does, and gives its z and losses bitwise; its replayed
-    solve still makes NCCL collectives outside the graphs (the lagged CG
-    exit and the damped update's read)."""
+    solve still makes NCCL collectives outside the graphs (the route's
+    host agreement)."""
     import socket
 
     import torch.multiprocessing as mp
@@ -762,3 +767,23 @@ def test_group_of_one_over_nccl_records_its_loop(cuda, tmp_path):
     one = _mesh_cg_twice(tpt.parallel.make_mesh(1, device=cuda))
     assert got["captures"] == 0 and got["replays"] > 0 and got["collectives"] > 0
     assert torch.equal(got["z"], one["z"]) and torch.equal(got["losses"], one["losses"])
+
+
+@pytest.mark.cuda
+def test_group_of_one_records_its_nccl_collectives(cuda, tmp_path):
+    """The recorded loop of a group of one holds its NCCL collectives (the
+    step code and the CG exit flag agreed on the device), where a mesh
+    without a group records none; its replayed solve records nothing more
+    and agrees nothing on the host but the route's structure verdict."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_nccl_group_of_one, args=(1, port, str(tmp_path)), nprocs=1, join=True)
+    got = torch.load(tmp_path / "rank0.pt")
+    one = _mesh_cg_twice(tpt.parallel.make_mesh(1, device=cuda))
+    assert got["recorded"] > 0 and one["recorded"] == 0
+    assert got["recorded_in_replay"] == 0 and got["agreements"] == 1

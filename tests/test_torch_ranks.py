@@ -469,3 +469,43 @@ def test_jax_factor_dealt_to_ranks(ranks):
         np.testing.assert_array_equal(o["interop/local"], inp["jf_local"][r * nbl : (r + 1) * nbl])
     r_ref = ref["interop_r"]
     _close(_replicated(out[2], "interop/r"), r_ref, 1e-12 * np.abs(r_ref).max())
+
+
+# -- the loop's agreements and its sharing across ranks ------------------------------------
+
+
+@pytest.mark.parametrize("solver", ["structured", "cg"])
+def test_mesh_loop_makes_no_host_agreement_a_step(ranks, solver):
+    """At P = 2 the loop's step code and the CG exit flag are agreed on the
+    device, inside the step: a solve makes one host agreement, the route's
+    structure verdict, whether it takes 1 step or 3 (the host agreed each
+    step's code and each CG iteration's exit flag before)."""
+    out, _, _ = ranks
+    for steps in (1, 3):
+        assert int(_replicated(out[2], f"shared_loop/agreements_{solver}_{steps}")) == 1
+
+
+def test_second_problem_rebinds_on_every_rank(ranks):
+    """gloo ranks on the CPU form layout keys: a second problem of the
+    layout, after the first is gone, factors into the first one's storage
+    on both ranks (no entry made, one rebound, none unshared), and its
+    solution and losses are the bits of the same problem solved unshared
+    (``_reuse._unshared()``), the same on both ranks."""
+    out, _, _ = ranks
+    for o in out[2]:
+        assert o["shared_loop/second/binds"].tolist() == [0, 1, 0]
+        assert bool(o["shared_loop/second/in_entry"])
+    z = _replicated(out[2], "shared_loop/second/z")
+    np.testing.assert_array_equal(z, _replicated(out[2], "shared_loop/unshared/z"))
+    np.testing.assert_array_equal(_replicated(out[2], "shared_loop/second/losses"),
+                                  _replicated(out[2], "shared_loop/unshared/losses"))
+
+
+def test_storage_held_on_one_rank_makes_new_entries_on_all(ranks):
+    """Rank 1 alone holds a piece of a released factor: its entry is not
+    free there, and the ranks' agreement makes both make a new entry for
+    the next problem (a rank that rebinds while another makes an entry
+    would record other graphs and collectives than it)."""
+    out, _, _ = ranks
+    for o in out[2]:
+        assert o["shared_loop/held/binds"].tolist() == [1, 0, 0]

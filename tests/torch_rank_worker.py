@@ -354,6 +354,61 @@ def interop(c):
     return {"r": np_(fp.whitened_residual(c.t("jf_z"))), "local": np_(fac.local)}
 
 
+@case()
+def shared_loop(c):
+    """The mesh loop across ranks (the elliptic step problem, f scaled per
+    problem so that each is a new problem of one layout): the host
+    agreements of a solve of 1 and of 3 steps (``'structured'`` and
+    ``'cg'``); a second problem after the first is gone, its binds, its
+    solution and the same problem solved unshared; then a third problem
+    whose factor rank 1 alone still holds a piece of, and the binds of the
+    fourth problem that follows it."""
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.parallel import comm
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
+    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
+
+    i = c.inp
+
+    def factor(scale):
+        prob = tpt.interop.problem_from_numpy(i["sXd"], i["sXb"], scale * i["sf"], i["sg"],
+                                              i["sz0"], i["sinv_sq"], device="cpu")
+        return td.factorize_distributed(prob, c.mesh, nugget=NUGGET["elliptic"], **FACTOR_KW)
+
+    def solve(fp):
+        return td.gn_solve_distributed(fp, max_iter=3, step_solver="cg")
+
+    _reuse.clear_graph_cache()
+    out = {}
+    fp = factor(1.0)
+    for solver in ("structured", "cg"):
+        for steps in (1, 3):
+            comm.reset_counts()
+            td.gn_solve_distributed(fp, max_iter=steps, step_solver=solver)
+            out[f"agreements_{solver}_{steps}"] = np.asarray(comm.AGREEMENTS)
+    solve(fp)
+    del fp
+    graphs.reset_counts()
+    fp = factor(1.1)
+    out["second/binds"] = np.asarray([graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED])
+    out["second/in_entry"] = np.asarray(_reuse._in_entry(fp.factors["u"].local))
+    st = solve(fp)
+    out["second/z"], out["second/losses"] = np_(st.z), np_(st.losses)
+    del fp
+    with _reuse._unshared():
+        st = solve(factor(1.1))
+    out["unshared/z"], out["unshared/losses"] = np_(st.z), np_(st.losses)
+    fp = factor(1.2)
+    held = fp.factors["u"].local[:1] if c.rank == 1 else None
+    del fp
+    graphs.reset_counts()
+    fp = factor(1.3)
+    out["held/binds"] = np.asarray([graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED])
+    del fp, held
+    return out
+
+
 # -- utils/checkpoint.py across ranks: tests/test_torch_checkpoint.py -----------------
 
 @case(4, group="checkpoint")
