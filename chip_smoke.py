@@ -85,6 +85,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     loop recorded with its NCCL collectives inside: the replay against the
     eager loop bitwise (host reads, agreements, collectives of each), and
     a second problem that rebinds with no capture, bitwise its unshared
+    solve, and a third live problem, a guest on every rank, its loop
+    recorded on the guest entry with its collectives, bitwise its unshared
     solve; on a machine with one card, a group of one, and it says so;
 15. ``checkpoint``: (a) phase 3's canonical factor and 4-step state
     through ``utils/checkpoint.py`` (the JAX package's file format): the
@@ -114,10 +116,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     factorization, the second and third rebound; ``held``: six runs of the
     canonical, Darcy, 16,200- and 42,500-row cases, each run's solver and
     result kept until the next solve returns, bound made, made, then
-    rebound, with no capture from the fifth; each run bitwise an unshared
-    solve of the same problem (and, but for the held runs, its eager
-    solve), under its gates. Phases 3-5 and 9 report how each repeat
-    bound;
+    rebound, with no capture from the fifth; ``sweep``: the canonical,
+    Darcy and 16,200-row cases six times and the 42,500-row case four
+    times, every solver and result kept to the end, bound made, made, then
+    guest (one copy of each guest's factors into the layout's guest
+    entry), with no capture from the fifth (the 42,500-row Krylov loop
+    from the fourth), at most three entries and graph pools, and one
+    released entry once the results are gone; each run bitwise an
+    unshared solve of the same problem (and, but for the held and sweep
+    runs, its eager solve), under its gates. Phases 3-5 and 9 report how
+    each repeat bound;
 19. the script's seconds so far (the build included), the kernel summary
     line (K1 with its mesh-path, checkpoint and compat launches, K2 with
     its rank-mapped ones), then the card's name and power limit, and last
@@ -653,16 +661,20 @@ def reuse_workloads(tpt, dev, names, large_sizes=(7800, 600), mesh_sizes=(20000,
 
 REUSE_LAUNCHES = {"canonical": 2, "burgers": 2, "eikonal": 2, "darcy": 4, "large": 2}
 HELD = ("canonical", "darcy", "large", "mesh")
+# problems a sweep keeps alive, by case: the 42,500-row mesh case four (about 7.4 GB
+# of factor each, and the guest entry's as much)
+SWEEP = {"canonical": 6, "darcy": 6, "large": 6, "mesh": 4}
 
 
 def bound_as():
     """How the factorizations since the last ``graphs.reset_counts()``
     bound (``solvers/_reuse.py``): ``made`` a new entry, ``rebound`` a
-    released one's storage, ``unshared`` (no layout key)."""
+    released one's storage, ``unshared`` (no layout key), ``guest`` (a
+    guest of its layout's guest entry)."""
     from nonlinpdes_gpsolver_tpu_torch.ops import graphs
 
     return (["made"] * graphs.ENTRIES + ["rebound"] * graphs.REBINDS
-            + ["unshared"] * graphs.UNSHARED)
+            + ["unshared"] * graphs.UNSHARED + ["guest"] * graphs.GUESTS)
 
 
 class TwoPassSolver:
@@ -689,7 +701,7 @@ class TwoPassSolver:
 
 
 def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy", "large", "mesh"),
-                    runs=5, held=HELD, held_runs=6, two_pass_runs=3, **sizes):
+                    runs=5, held=HELD, held_runs=6, two_pass_runs=3, sweep=None, **sizes):
     """Phase ``structure_reuse``, new problems of one structure as users'
     loops over them run. For each case of :func:`reuse_workloads`:
 
@@ -703,6 +715,16 @@ def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy",
       rebind the entry released two runs back; from the fifth on nothing
       is recorded (each entry eager at its first use, recorded at its
       second);
+    * for the cases in ``sweep`` (a dict, :data:`SWEEP` in the phase),
+      ``sweep[name]`` solves with every
+      solver and result kept to the end (a sweep): the first two make
+      entries and every later problem is a guest of the layout's guest
+      entry, its factors copied in once (``GUEST_LOADS``); an exact loop
+      records at the guest entry's second use (the fourth solve) and
+      replays from the fifth, a Krylov loop (the mesh case) records at
+      its first and replays from the fourth; the live entries and graph
+      pools are counted after each solve (three of each at most), and
+      once the results are gone the released entries' bytes;
 
     and ``two_pass``: ``two_pass_runs`` solves of the ``large`` case on the
     mesh path's two-pass factorization (:class:`TwoPassSolver`), each
@@ -711,7 +733,7 @@ def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy",
     (:func:`bound_as`), the peak memory, allocated and reserved (a
     retained graph pool shows in the latter only), and once the run's
     solver is gone the bytes the released entries keep
-    (``RETAINED_BYTES``: storage and graph pool). Every run must pass its
+    (``RETAINED_BYTES``: storage and graph pool) and the guest loads. Every run must pass its
     gates and equal bitwise, in z and losses, a solve of the same problem
     that shares nothing with any entry (``_reuse._unshared``, recording
     off: its own factor, data and loop state, none of its tensors an
@@ -723,7 +745,8 @@ def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy",
     from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
 
     cuda = torch.device(dev).type == "cuda"
-    makers = reuse_workloads(tpt, dev, set(names) | set(held) | {"large"}, **sizes)
+    sweep = sweep or {}
+    makers = reuse_workloads(tpt, dev, set(names) | set(held) | set(sweep) | {"large"}, **sizes)
 
     def new_solver(w, two_pass=False):
         mesh = tpt.parallel.make_mesh(1, device=dev) if w.mesh or two_pass else None
@@ -754,6 +777,7 @@ def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy",
                "phase_seconds": res.timers, "captures": graphs.CAPTURES,
                "replays": graphs.REPLAYS, "host_reads": graphs.HOST_READS,
                "k1_launches": launches[0], "k2_launches": launches[1], "bind": bound_as(),
+               "guest_loads": graphs.GUEST_LOADS,
                "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None,
                "max_memory_reserved": torch.cuda.max_memory_reserved() if cuda else None,
                "metrics": metrics,
@@ -834,9 +858,68 @@ def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy",
             rows.append(row)
         del last
         out["held"][name] = rows
+    if sweep:
+        out["sweep"] = {name: sweep_case(tpt, dev, name, n, makers[name], run)
+                        for name, n in sweep.items()}
     tpt.clear_graph_cache()
     if cuda:
         torch.cuda.empty_cache()
+    return out
+
+
+def sweep_case(tpt, dev, name, n, make, run):
+    """``n`` solves of ``structure_reuse``'s case ``name`` (``make(k)``,
+    ``run`` as there) with every solver and result kept to the end. Around
+    each solve: the live entries before it, then the bind (``made`` twice,
+    then ``guest``), one guest load a guest, the captures (none from the
+    fifth solve of an exact loop, the fourth of a Krylov one, which
+    replay), at most three live entries and graph pools, and z and losses
+    bitwise an unshared solve (``run``). Then, the results gone, the
+    released entries and their bytes."""
+    import torch
+
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
+
+    cuda = torch.device(dev).type == "cuda"
+    tpt.clear_graph_cache()
+    if cuda:
+        torch.cuda.empty_cache()
+    rows, alive = [], []
+    for k in range(n):
+        tag = f"structure_reuse {name} sweep run {k + 1}"
+        check(len(_reuse.entries()) == min(k, 2) + (k >= 3), f"{tag}: "
+              f"{len(_reuse.entries())} entries before the solve")
+        w = make(k)
+        sync(dev)
+        row, solver, res = run(f"{name} sweep", k, w, eager=False)
+        krylov = row["step_solver"] in ("cg", "woodbury")
+        pools = {tuple(e.pool) for e in _reuse.entries() if e.pool is not None}
+        row.update(entries=len(_reuse.entries()), graph_pools=len(pools),
+                   graph_pool_bytes=sum(_reuse._pool_bytes(pools).values()) if cuda else 0,
+                   memory_allocated=torch.cuda.memory_allocated() if cuda else None,
+                   memory_reserved=torch.cuda.memory_reserved() if cuda else None)
+        check(row["bind"] == (["made"] if k < 2 else ["guest"]), f"{tag}: bound as {row['bind']}")
+        check(row["guest_loads"] == (k >= 2), f"{tag}: {row['guest_loads']} guest loads")
+        check(row["entries"] == min(k + 1, 2) + (k >= 2) and row["graph_pools"] <= 3,
+              f"{tag}: {row['entries']} entries, {row['graph_pools']} graph pools")
+        if cuda and k >= (3 if krylov else 4):
+            check(row["captures"] == 0 and row["replays"] > 0,
+                  f"{tag}: recorded {row['captures']}, replayed {row['replays']} graphs")
+        host = _reuse.serving(solver.fp)
+        check((k >= 2) == (host is not None and host.hosting and _reuse.bound_entry(solver.fp)
+                           is None), f"{tag}: served by {host}")
+        rows.append(row)
+        alive.append((solver, res))
+        del w, solver, res
+    del alive
+    released = [e for e in _reuse.entries() if e.released]
+    out = {"runs": rows, "released_entries": len(released),
+           "retained_bytes": graphs.RETAINED_BYTES,
+           "retained_entry_bytes": sum(e.nbytes for e in released)}
+    check(len(_reuse.entries()) == len(released) == 1,
+          f"structure_reuse {name} sweep: {len(_reuse.entries())} entries once the results "
+          f"are gone, {len(released)} released")
     return out
 
 
@@ -1288,8 +1371,11 @@ def mesh_nccl_rank(rank, world, tmp, backend, sizes, device=None):
     the loop alone, replayed and eagerly (:func:`gn_replayed_and_eager`).
     Then, the warm result gone, a second problem of the layout (the
     sampler's seed 1), which must rebind with no capture, beside the same
-    problem solved unshared (``_reuse._unshared()``). Last the exact step
-    recorded (:func:`exact_step_recorded`)."""
+    problem solved unshared (``_reuse._unshared()``). Then a sweep: two
+    results kept (seeds 2 and 3), and a third live problem (seed 4), a
+    guest on every rank, its loop recorded on the guest entry with its
+    collectives and replayed, beside its unshared solve. Last the exact
+    step recorded (:func:`exact_step_recorded`)."""
     import torch
 
     import nonlinpdes_gpsolver_tpu_torch as tpt
@@ -1356,6 +1442,24 @@ def mesh_nccl_rank(rank, world, tmp, backend, sizes, device=None):
     with _reuse._unshared():
         res, _, _ = run(problem(1))
     out["second"]["unshared_bitwise"] = bool(torch.equal(res.z, z2))
+    del res
+    # a sweep on the group: two results kept, then a third live problem, a guest
+    kept = [run(problem(seed))[0] for seed in (2, 3)]
+    graphs.reset_counts()
+    comm.reset_counts()
+    res, err, secs = run(problem(4))
+    zg = res.z.clone()
+    out["guest"] = {"guests": graphs.GUESTS, "guest_loads": graphs.GUEST_LOADS,
+                    "entries": graphs.ENTRIES, "rebinds": graphs.REBINDS,
+                    "captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
+                    "recorded_collectives": comm.RECORDED, "host_agreements": comm.AGREEMENTS,
+                    "e2e_seconds": secs, "test_l2": err.l2, "cg_iters": res.state.cg_iters.tolist(),
+                    "bound": _reuse.bound_entry(res.posterior.fp) is not None,
+                    "live_entries": len(_reuse.entries())}
+    del res, kept
+    with _reuse._unshared():
+        res, _, _ = run(problem(4))
+    out["guest"]["unshared_bitwise"] = bool(torch.equal(res.z, zg))
     del res
     out["exact"] = exact_step_recorded(tpt, mesh)
     _write(tmp, f"rank{rank}.json", out)
@@ -1446,8 +1550,10 @@ def mesh_nccl(dev, z1, sizes=FULL_SIZES, backend="nccl", world=None):
     replays; the loop replayed gives the bits of its eager run, with no
     capture, no host agreement but the route's one and the normal budget's
     (set-up reads), and the P = 1 count of host reads; a second problem
-    rebinds with no capture and gives the bits of its unshared solve; the
-    exact ``'structured'`` step is recorded with its ring and replayed,
+    rebinds with no capture and gives the bits of its unshared solve; a
+    third live problem is a guest on every rank, whose guest entry records
+    its loop with the collectives and replays it, the bits of its unshared
+    solve; the exact ``'structured'`` step is recorded with its ring and replayed,
     bitwise its eager run (:func:`exact_step_recorded`). On the CPU (a
     rehearsal) ``world`` ranks, 1 by default."""
     import torch
@@ -1473,6 +1579,12 @@ def mesh_nccl(dev, z1, sizes=FULL_SIZES, backend="nccl", world=None):
         check(second["unshared_bitwise"], f"{who}: the rebound solve differs from its unshared one")
         check(second["rebinds"] == 1 and second["entries"] == 0,
               f"{who}: the second problem bound {second}")
+        guest = r["guest"]
+        check(guest["guests"] == 1 and guest["guest_loads"] == 1 and not guest["bound"]
+              and guest["entries"] == guest["rebinds"] == 0 and guest["live_entries"] == 3,
+              f"{who}: the third live problem bound {guest}")
+        check(guest["unshared_bitwise"], f"{who}: the guest's solve differs from its unshared one")
+        check(guest["test_l2"] <= GATE_L2, f"{who}: the guest's test L2 {guest['test_l2']:.4e}")
         exact = r["exact"]
         check(exact["bitwise"], f"{who}: the replayed 'structured' step differs from its eager run")
         rep = gn["replayed"]
@@ -1485,6 +1597,9 @@ def mesh_nccl(dev, z1, sizes=FULL_SIZES, backend="nccl", world=None):
             for what in (r["warm"], rep, second):
                 check(what["captures"] == 0 and what["replays"] > 0,
                       f"{who}: recorded {what['captures']}, replayed {what['replays']} graphs")
+            check(guest["captures"] > 0 and guest["recorded_collectives"] > 0
+                  and guest["replays"] > 0,
+                  f"{who}: the guest entry's loop recorded and replayed {guest}")
             check(exact["captures"] > 0 and exact["recorded_collectives"] > 0
                   and exact["replay_captures"] == 0 and exact["replays"] > 0,
                   f"{who}: the 'structured' step recorded and replayed {exact}")
@@ -2238,9 +2353,9 @@ def main():
 
     # -- 18. new problems of one structure: one recorded loop ------------------------
     t_phase = time.perf_counter()
-    reuse = structure_reuse(tpt, dev)
+    reuse = structure_reuse(tpt, dev, sweep=SWEEP)
     emit("structure_reuse", seconds=time.perf_counter() - t_phase, card=card, runs=5,
-         held_runs=6, two_pass_runs=3, **reuse)
+         held_runs=6, two_pass_runs=3, sweep_runs=SWEEP, **reuse)
 
     # -- 19. summary ------------------------------------------------------------
     emit("done", seconds=time.perf_counter() - t_start, card=card)

@@ -24,8 +24,9 @@ Counters for the chip smoke test: ``CAPTURES``, ``CAPTURE_SECONDS``,
 copies); and those of the loops shared by problems of one structure
 (``solvers/_reuse.py``): ``ENTRIES`` (entries made), ``REBINDS`` (problems
 whose factorization wrote into a released entry's storage), ``UNSHARED``
-(problems without a layout key, left on loops of their own) and
-``RETAINED_BYTES`` (the factor, data and graph-pool bytes that
+(problems without a layout key, left on loops of their own), ``GUESTS``
+(problems served by their layout's guest entry), ``GUEST_LOADS`` (copies
+of a guest's factors into the guest entry) and ``RETAINED_BYTES`` (the factor, data and graph-pool bytes that
 released entries keep; a gauge, not reset). :func:`reset_counts` zeroes the others.
 """
 
@@ -44,6 +45,8 @@ HOST_READS = 0
 ENTRIES = 0
 REBINDS = 0
 UNSHARED = 0
+GUESTS = 0
+GUEST_LOADS = 0
 RETAINED_BYTES = 0
 
 _enabled = True
@@ -52,8 +55,9 @@ capturing = False  # a capture is in progress (no graph may be freed meanwhile)
 
 def reset_counts() -> None:
     global CAPTURES, CAPTURE_SECONDS, REPLAYS, HOST_READS, ENTRIES, REBINDS, UNSHARED
+    global GUESTS, GUEST_LOADS
     CAPTURES, CAPTURE_SECONDS, REPLAYS, HOST_READS = 0, 0.0, 0, 0
-    ENTRIES, REBINDS, UNSHARED = 0, 0, 0
+    ENTRIES, REBINDS, UNSHARED, GUESTS, GUEST_LOADS = 0, 0, 0, 0, 0
 
 
 @contextlib.contextmanager

@@ -28,36 +28,64 @@ and kernels are in neither key: they act only through the factors. Model
 constructors build their residuals with ``lru_cache``'d factories, so one
 configuration gives one key.
 
-Binding: every live problem of a layout has an entry of its own. A
-factorization first claims (:func:`claimed`) a *free* entry of its layout,
-one whose bound problem is gone and whose storage nothing outside the
-entry still holds; among several it takes the one bound most recently,
-whose loops are the furthest recorded. The factorization then writes its
-outputs straight into that storage (no second copy of a factor is ever
-resident) and the new problem binds (``REBINDS``). Without a free entry
-the problem's own tensors become a new entry of the layout (``ENTRIES``),
-also while other entries of it are bound to live problems: two live
-problems never read each other's factors, and each reads its own. Only a
-problem without a layout key keeps loops of its own in ``fp.graphs``
-(``UNSHARED``): an unhashable residual, data that is not a dict of
-tensors, or gloo ranks that share a card, whose loop is not recorded.
+Binding: each live problem of a layout has an entry of its own, up to
+two of them. A factorization first claims (:func:`claimed`) a *free*
+entry of its layout, one whose bound problem is gone and whose storage
+nothing outside the entry still holds; among several it takes the one
+bound most recently, whose loops are the furthest recorded. The
+factorization then writes its outputs straight into that storage (no
+second copy of a factor is ever resident) and the new problem binds
+(``REBINDS``). Without a free entry, and while fewer than two entries of
+the layout are bound to live problems, the problem's own tensors become a
+new entry of the layout (``ENTRIES``): two live problems never read each
+other's factors, and each reads its own. Only a problem without a layout
+key keeps loops of its own in ``fp.graphs`` (``UNSHARED``): an
+unhashable residual, data that is not a dict of tensors, or gloo ranks
+that share a card, whose loop is not recorded.
+
+Guests: a problem that would make a third live entry of its layout
+becomes a *guest* instead (``GUESTS``, :class:`Guest`). It keeps its own
+factors, and its solves run the loops of the layout's one *guest entry*,
+made at the first guest solve by the factorization's own storage
+constructor (so that its strides, offsets and the one buffer of a factor
+and its whitening operator are a factorization's, and its loops compute
+the bits a factorization's entry would). Before a guest's solve its
+stored tensors are copied into the guest entry on the stream
+(``GUEST_LOADS``), unless the entry holds that guest already, and the
+loops' per-problem state is computed again. The guest entry is bound to
+its guests: it is released only once none of them is alive, so no
+factorization claims it before. Why two: a loop that keeps its last
+result while the next problem factors (``res = GPSolver(p).solve()``)
+holds two live problems at once, and two entries serve it with no copy. A
+caller that keeps a third keeps its results (a sweep), where an entry per
+problem would be used once: its exact loop never recorded (it records at
+its second call), a graph pool and a copy of the data kept per result.
+The JAX package serves every live problem of a structure from one
+executable; the guest entry does the same at the cost of one copy of the
+guest's factors per change of guest, bandwidth-bound.
+
 Across ranks every rank keeps its own entries, and the ranks agree on the
-one a factorization takes (:func:`claimed`), so that all of them replay
-the same recorded loop, collectives and all. Before each solve the bound
-problem's ``data`` leaves are copied into its entry on the stream (the
-problem's own ``data`` is never written), and a loop's per-problem state
-(the mesh path's deflation basis and ``'normal'`` inverse blocks) is
-computed again for each newly bound problem, into the same storage.
+entry a factorization takes (:func:`claimed`), on whether it becomes a
+guest (:func:`settle`) and on the guest entry a guest first uses
+(:func:`_guest_entry`), so that all of them replay the same recorded loop,
+collectives and all. Before each solve the problem's ``data`` leaves are
+copied into its entry on the stream (the problem's own ``data`` is never
+written), and a loop's per-problem state (the mesh path's deflation basis
+and ``'normal'`` inverse blocks) is computed again for each newly bound or
+loaded problem, into the same storage.
 
 Retention, with no knob: a live entry costs what its problem holds anyway,
-plus its graph pool. Of its *released* entries a device keeps at most one,
+plus its graph pool (the guest entry: one layout's storage more, while
+guests live). Of its *released* entries a device keeps at most one,
 the most recently bound one of the layout bound most recently, so that a
 loop which keeps its last result while the next problem factors (``res =
 GPSolver(p).solve()``) alternates between two entries and replays both. A
 factorization of another layout on that device frees it (storage, pool and
 graphs) before it allocates. ``RETAINED_BYTES`` counts what the released
 entries keep: their storage and the segments of their graph pools. Each
-entry keeps a pool of its own. :func:`clear_graph_cache` (the counterpart
+entry keeps a pool of its own. A released guest entry is an entry like
+the others: retained or freed by this rule, and claimed by a
+factorization of its layout. :func:`clear_graph_cache` (the counterpart
 of ``jax.clear_caches()``) drops every entry and the set-up verdicts. On
 the CPU nothing is recorded, but entries work alike, so that the CPU tests
 exercise the sharing.
@@ -128,7 +156,10 @@ class Entry:
     ``tensors[block][role]`` is the stored tensor; ``data`` the entry's own
     data leaves; ``view`` the factored problem the loops run on, made of
     the two; ``loops`` the loops by loop key; ``generation`` counts binds
-    (a loop computes its per-problem state again when it differs)."""
+    and guest loads (a loop computes its per-problem state again when it
+    differs). The guest entry of a layout (``hosting``) has no bound
+    problem: ``guests`` are weak references to the guests it serves and
+    ``loaded`` one to the guest whose tensors it holds."""
 
     def __init__(self, key, problem, tensors, make_view: Callable):
         self.key = key
@@ -142,6 +173,9 @@ class Entry:
         self.reserved = False  # claimed by a factorization in progress
         self.generation = 0
         self.stamp = 0
+        self.hosting = False
+        self.guests: List[weakref.ref] = []
+        self.loaded = None
         self.nbytes = sum(t.numel() * t.element_size() for roles in self.tensors.values()
                           for t in roles.values())
         self.nbytes += sum(t.numel() * t.element_size() for t in self.data.values())
@@ -154,7 +188,8 @@ class Entry:
 
     @property
     def released(self) -> bool:
-        return not self.reserved and (self.owner is None or self.owner() is None)
+        return (not self.reserved and (self.owner is None or self.owner() is None)
+                and not any(g() is not None for g in self.guests))
 
     def free(self) -> bool:
         """Released, and no tensor outside the entry holds its storage."""
@@ -175,6 +210,7 @@ class Entry:
     def bind(self, fp) -> None:
         self.owner = weakref.ref(fp, self._owner_gone)
         self.reserved = False
+        self.hosting, self.guests, self.loaded = False, [], None
         self.generation += 1
         self.stamp = next(_CLOCK)
         object.__setattr__(fp, "entry", self)
@@ -186,9 +222,24 @@ class Entry:
             if _settle is not None:  # None while the interpreter shuts down
                 _settle()
 
+    def _guest_gone(self, ref) -> None:
+        if ref in self.guests:
+            self.guests.remove(ref)
+            if not self.guests and _settle is not None:
+                _settle()
+
     def load(self, fp) -> None:
-        """Copy the bound problem's data leaves into the entry (on the
-        stream: no host read)."""
+        """Copy the problem's data leaves into the entry and, for a guest
+        the entry does not hold yet, its stored tensors (on the stream: no
+        host read)."""
+        if self.hosting and (self.loaded is None or self.loaded() is not fp):
+            for b, roles in fp.entry.tensors.items():
+                for r, t in roles.items():
+                    self.tensors[b][r].copy_(t, non_blocking=True)
+            self.loaded = weakref.ref(fp)
+            self.generation += 1
+            self.stamp = next(_CLOCK)
+            graphs.GUEST_LOADS += 1
         for k, v in self.data.items():
             v.copy_(fp.problem.data[k], non_blocking=True)
 
@@ -292,18 +343,51 @@ def claimed(key, mesh=None):
             _settle()
 
 
-def settle(fp, key, entry, tensors, make_view: Callable) -> None:
+@dataclasses.dataclass(eq=False)
+class Guest:
+    """``fp.entry`` of a guest (module docstring): its layout ``key``, its
+    stored ``tensors`` (as in :class:`Entry`), what a guest entry is made
+    with (``make_view`` as in :func:`settle`; ``storage(roles, dtype,
+    device)``, new storage of one block's roles, the factorization's own
+    constructor), the ``mesh`` its ranks agree over, and the guest entry
+    that serves it from its first solve on."""
+
+    key: tuple
+    tensors: Dict[str, Dict[str, torch.Tensor]]
+    make_view: Callable
+    storage: Callable
+    mesh: object = None
+    entry: Optional[Entry] = None
+
+
+def _live(key) -> int:
+    """Entries of layout ``key`` bound to a live problem."""
+    return sum(1 for e in _ENTRIES.get(key, ()) if e.owner is not None and e.owner() is not None)
+
+
+def settle(fp, key, entry, tensors, make_view: Callable, storage: Callable, mesh=None) -> None:
     """After a factorization of layout ``key``: bind ``fp`` to ``entry``,
-    into whose storage it wrote; else make ``fp``'s ``tensors`` (as in
+    into whose storage it wrote; else, while fewer than two entries of the
+    layout are bound to live problems, make ``fp``'s ``tensors`` (as in
     :class:`Entry`; ``make_view(problem, tensors)`` makes the factored
-    problem its loops run on) a new entry of the layout. Without a key
-    ``fp`` keeps loops of its own."""
+    problem its loops run on) a new entry of the layout; else ``fp``
+    becomes a guest (``storage(roles, dtype, device)`` makes one block's
+    storage for the guest entry). On a ``mesh`` of ranks the ranks agree
+    on the guest (one host collective): a guest on every rank or on none.
+    Without a key ``fp`` keeps loops of its own."""
     if key is None:
         graphs.UNSHARED += 1
         return
     if entry is not None:
         graphs.REBINDS += 1
         entry.bind(fp)
+        return
+    guest = _live(key) >= 2
+    if mesh is not None:
+        guest = comm.agree(mesh, guest, "all")
+    if guest:
+        graphs.GUESTS += 1
+        object.__setattr__(fp, "entry", Guest(key, tensors, make_view, storage, mesh))
         return
     entry = Entry(key, fp.problem, tensors, make_view)
     _ENTRIES.setdefault(key, []).append(entry)
@@ -313,16 +397,54 @@ def settle(fp, key, entry, tensors, make_view: Callable) -> None:
 
 def bound_entry(fp) -> Optional[Entry]:
     entry = getattr(fp, "entry", None)
-    if entry is None or entry.owner is None or entry.owner() is not fp:
+    if not isinstance(entry, Entry) or entry.owner is None or entry.owner() is not fp:
         return None
     return entry
 
 
+def serving(fp) -> Optional[Entry]:
+    """The entry whose loops serve ``fp``: its bound entry, or a guest's
+    guest entry (``None`` before the guest's first solve)."""
+    entry = getattr(fp, "entry", None)
+    return entry.entry if isinstance(entry, Guest) else bound_entry(fp)
+
+
+def _guest_entry(fp) -> Entry:
+    """The guest entry that serves the guest ``fp``: the one it was served
+    by, else its layout's, else a new one (storage made as a
+    factorization's, after every released entry of another layout on the
+    device is freed). On a mesh of ranks the ranks agree on the layout's
+    guest entry (its ``stamp``, one host collective): each rank whose own
+    differs from the others' drops it, and all make a new one."""
+    g: Guest = fp.entry
+    if g.entry is not None:
+        return g.entry
+    entry = next((e for e in _ENTRIES.get(g.key, ()) if e.hosting), None)
+    if g.mesh is not None and comm.agree(g.mesh, 0 if entry is None else entry.stamp,
+                                         "same") is None:
+        if entry is not None:
+            _drop(entry)  # its live guests keep it, as a bound problem keeps its entry
+        entry = None
+    if entry is None:
+        _prune(g.key[0], keep=g.key)
+        device, dtype = g.key[0], g.key[5]  # layout_key's order
+        tensors = {name: g.storage(roles, dtype, device) for name, _, roles in g.key[1]}
+        entry = Entry(g.key, fp.problem, tensors, g.make_view)
+        entry.hosting = True
+        entry.stamp = next(_CLOCK)
+        _ENTRIES.setdefault(g.key, []).append(entry)
+    entry.guests.append(weakref.ref(fp, entry._guest_gone))
+    g.entry = entry
+    _settle()
+    return entry
+
+
 def loops_of(fp):
-    """``(loops, run_fp)``: the loops that serve ``fp`` (its entry's when
-    it is bound, else its own ``graphs``) and the factored problem they run
-    on (the entry's view, or ``fp``)."""
-    entry = bound_entry(fp)
+    """``(loops, run_fp)``: the loops that serve ``fp`` (:func:`serving`'s
+    entry's, else its own ``graphs``) and the factored problem they run on
+    (the entry's view, which holds a guest's tensors from its solve on
+    until another guest's, or ``fp``)."""
+    entry = serving(fp)
     return (fp.graphs, fp) if entry is None else (entry.loops, entry.view)
 
 
@@ -330,8 +452,9 @@ def loop_for(fp, key, make: Callable):
     """``(loop, run_fp)``: the loop ``key`` that serves ``fp``, made by
     ``make(run_fp, pool)`` the first time, with its per-problem state
     computed for ``fp`` (``loop.prepare(loop, run_fp)``) when ``fp`` is
-    newly bound."""
-    entry = bound_entry(fp)
+    newly bound or loaded into the guest entry."""
+    entry = _guest_entry(fp) if isinstance(getattr(fp, "entry", None), Guest) else (
+        bound_entry(fp))
     if entry is None:
         loops, run_fp, pool, generation = fp.graphs, fp, None, 0
     else:

@@ -243,7 +243,8 @@ def factorize_distributed(
                                 superblock_cols, defer_quality,
                                 entry.outputs() if entry is not None else {})
         _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
-                      functools.partial(mesh_view, mesh=mesh, axis=axis, block=block))
+                      functools.partial(mesh_view, mesh=mesh, axis=axis, block=block),
+                      mesh_storage, mesh)
     return dfp
 
 

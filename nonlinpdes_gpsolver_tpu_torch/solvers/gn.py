@@ -84,9 +84,10 @@ class FactoredProblem:
     block's whitening-quality verdict, a device scalar until
     :meth:`resolve_pending` reads it; :attr:`pending_scales` names the
     blocks still pending. ``entry`` is the shared loops' entry whose
-    storage these factors are (``solvers/_reuse.py``), or ``None``;
-    ``graphs`` holds the loops of a problem that is not bound to one
-    (``gn_solve``), which go with it.
+    storage these factors are (``solvers/_reuse.py``), a guest's
+    ``_reuse.Guest`` (its factors its own, its loops the guest entry's),
+    or ``None``; ``graphs`` holds the loops of a problem that is not bound
+    to one (``gn_solve``), which go with it.
     """
 
     problem: CollocationProblem
@@ -290,7 +291,7 @@ def factorize(
             scales[b.name] = s
             rungs[b.name] = total_rungs
         fp = FactoredProblem(problem, factors, inv_factors, scales, col_scales, rungs, quality)
-        _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view)
+        _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view, dense_role_storage)
     return fp
 
 
@@ -320,6 +321,12 @@ def dense_storage(n: int, inverse: bool, dtype, device,
     if equilibrated:
         out["d"] = torch.empty(n, **kw)
     return out
+
+
+def dense_role_storage(roles: tuple, dtype, device) -> Dict[str, torch.Tensor]:
+    """:func:`dense_storage` of one block's :func:`dense_roles`."""
+    shapes = dict(roles)
+    return dense_storage(shapes["L"][0], "inv" in shapes, dtype, device, "d" in shapes)
 
 
 def _equilibration_work(buf: Dict[str, torch.Tensor]):

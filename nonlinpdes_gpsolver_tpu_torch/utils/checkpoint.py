@@ -35,7 +35,8 @@ What the port holds and the format does not, bridged:
 A loaded factor is a factorization like any other for the Gauss-Newton
 loops shared by problems of one structure (``solvers/_reuse.py``): it is
 read into the storage of a released problem of its layout, whose recorded
-loop it then replays, or its tensors make a new entry.
+loop it then replays, or its tensors make a new entry, or it is a guest
+of its layout's guest entry.
 """
 
 from __future__ import annotations
@@ -57,12 +58,14 @@ from ..solvers import _reuse
 from ..solvers.distributed import (
     DistributedFactoredProblem,
     mesh_key,
+    mesh_storage,
     mesh_tensors,
     mesh_view,
 )
 from ..solvers.gn import (
     FactoredProblem,
     GNState,
+    dense_role_storage,
     dense_roles,
     dense_storage,
     dense_tensors,
@@ -266,7 +269,7 @@ def load_solver_state(path, problem: CollocationProblem
                 nugget_scales={k: float(v) for k, v in meta["nugget_scales"].items()},
                 col_scales=col_scales, rungs=_rungs(meta),
             )
-            _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view)
+            _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view, dense_role_storage)
         state = _read_state(data, meta, to)
     return fp, state
 
@@ -321,6 +324,7 @@ def load_distributed_state(path, problem: CollocationProblem, mesh: Mesh, axis: 
                 rungs=_rungs(meta), quality={}, stats={},
             )
             _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
-                          functools.partial(mesh_view, mesh=mesh, axis=axis, block=block))
+                          functools.partial(mesh_view, mesh=mesh, axis=axis, block=block),
+                          mesh_storage, mesh)
         state = _read_state(data, meta, to)
     return dfp, state

@@ -5,6 +5,7 @@ another: an A/B of two commits on one card.
         [--n_domain 20000 --n_boundary 2500] [--device cpu] [--out FILE]
     python3 scripts/torch_ab.py --what dense --roots OLD . . OLD [--repeats 5]
     python3 scripts/torch_ab.py --what held --roots OLD . . OLD [--repeats 6]
+    python3 scripts/torch_ab.py --what sweep --roots OLD . . OLD [--repeats 6]
 
 ``--roots`` lists source trees (each a checkout of the repo, e.g. a
 ``git archive`` of an older commit unpacked into a directory that
@@ -32,6 +33,12 @@ builds its kernels there first.
   returns. Per run: end-to-end and Gauss-Newton seconds, captures, how the
   factorization bound (made, rebound, unshared), and the allocated and
   reserved peaks; and the last run's losses.
+* ``sweep``: the same cases solved as a sweep that keeps every solver and
+  result to the end, ``--repeats`` problems each, and the 42,500-row mesh
+  case (``workloads.mesh_elliptic`` at ``--n_domain``/``--n_boundary``, on
+  seeds 1, 2, ...) with four. Per run
+  the same numbers (a guest counts as ``guest``), the allocated and
+  reserved memory after it, and the guest loads.
 
 One JSON line a root goes to stdout and, with ``--out``, to that file.
 """
@@ -118,10 +125,10 @@ def dense_runs(tpt, device, repeats):
     return out
 
 
-def held_runs(tpt, device, runs, large=(7800, 600)):
-    """``--what held`` in one root: ``{name: {"runs": [{...}, ...],
-    "losses": [...]}}`` (``large``: the 16,200-row case's N_domain and
-    N_boundary)."""
+def held_runs(tpt, device, runs, large=(7800, 600), sweep=False, mesh=(20000, 2500)):
+    """``--what held`` (``sweep``: ``--what sweep``) in one root: ``{name:
+    {"runs": [{...}, ...], "losses": [...]}}`` (``large``, ``mesh``: the
+    16,200- and 42,500-row cases' N_domain and N_boundary)."""
     import torch
 
     from nonlinpdes_gpsolver_tpu_torch.ops import graphs
@@ -141,29 +148,42 @@ def held_runs(tpt, device, runs, large=(7800, 600)):
     cases = {"canonical": elliptic(900, 124),
              "darcy": (lambda k: W.darcy(device=device).problem, darcy.nugget, darcy.max_iter),
              "large": elliptic(*large)}
+    if sweep:  # four problems: about 7.4 GB of factor each
+        cases["mesh"] = (lambda k: W.mesh_elliptic(device=device, n_domain=mesh[0],
+                                                   n_boundary=mesh[1], seed=k).problem, 1e-5, 4)
     out = {}
     for name, (make, nugget, max_iter) in cases.items():
         tpt.clear_graph_cache()
-        rows, res = [], None
-        for k in range(runs):
+        if cuda:
+            torch.cuda.empty_cache()
+        rows, res, kept = [], None, []
+        for k in range(4 if name == "mesh" else runs):
             problem = make(1 + k)
             if cuda:
                 torch.cuda.synchronize(device)
                 torch.cuda.reset_peak_memory_stats(device)
             graphs.reset_counts()
             t0 = time.perf_counter()
-            res = tpt.GPSolver(problem, nugget=nugget, auto_mesh=False).solve(max_iter=max_iter)
+            res = tpt.GPSolver(problem, nugget=nugget,
+                               auto_mesh=name == "mesh").solve(max_iter=max_iter)
             if cuda:
                 torch.cuda.synchronize(device)
             rows.append({
                 "e2e_seconds": time.perf_counter() - t0,
                 "gn_seconds": res.timers["gauss_newton"], "captures": graphs.CAPTURES,
+                "replays": graphs.REPLAYS,
                 "bind": (["made"] * graphs.ENTRIES + ["rebound"] * graphs.REBINDS
-                         + ["unshared"] * graphs.UNSHARED),
+                         + ["unshared"] * graphs.UNSHARED
+                         + ["guest"] * getattr(graphs, "GUESTS", 0)),
+                "guest_loads": getattr(graphs, "GUEST_LOADS", None),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(device) if cuda else None,
-                "max_memory_reserved": torch.cuda.max_memory_reserved(device) if cuda else None})
+                "max_memory_reserved": torch.cuda.max_memory_reserved(device) if cuda else None,
+                "memory_allocated": torch.cuda.memory_allocated(device) if cuda else None,
+                "memory_reserved": torch.cuda.memory_reserved(device) if cuda else None})
+            if sweep:
+                kept.append(res)
         out[name] = {"runs": rows, "losses": res.state.losses.tolist()}
-        del res
+        del res, kept
     tpt.clear_graph_cache()
     return out
 
@@ -179,9 +199,10 @@ def child(what, root, device, n, nb, repeats):
         from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
 
         gram_tile._kernel_lib()
-    if what in ("dense", "held"):
+    if what in ("dense", "held", "sweep"):
         t0 = time.perf_counter()
-        cases = (dense_runs if what == "dense" else held_runs)(tpt, device, repeats)
+        cases = (dense_runs(tpt, device, repeats) if what == "dense"
+                 else held_runs(tpt, device, repeats, sweep=what == "sweep", mesh=(n, nb)))
         print(json.dumps({"root": root, "package": os.path.dirname(tpt.__file__),
                           "seconds": time.perf_counter() - t0, "cases": cases}))
         return
@@ -202,18 +223,19 @@ def child(what, root, device, n, nb, repeats):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--what", choices=("ranks", "dense", "held"), default="ranks")
+    ap.add_argument("--what", choices=("ranks", "dense", "held", "sweep"), default="ranks")
     ap.add_argument("--roots", nargs="+", default=["."])
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--n_domain", type=int, default=20000)
     ap.add_argument("--n_boundary", type=int, default=2500)
     ap.add_argument("--repeats", type=int, default=None,
-                    help="warm runs a root (default: 2 for ranks, 5 for dense, 6 for held)")
+                    help="warm runs a root (default: 2 for ranks, 5 for dense, 6 for held "
+                         "and sweep)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.repeats is None:
-        args.repeats = {"ranks": 2, "dense": 5, "held": 6}[args.what]
+        args.repeats = {"ranks": 2, "dense": 5, "held": 6, "sweep": 6}[args.what]
     if args.child is not None:
         child(args.what, args.child, args.device, args.n_domain, args.n_boundary, args.repeats)
         return

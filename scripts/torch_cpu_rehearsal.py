@@ -75,7 +75,7 @@ def main():
             t0 = time.perf_counter()
             reuse = chip_smoke.structure_reuse(
                 tpt, torch.device("cpu"), names=("canonical", "darcy", "large", "mesh"),
-                large_sizes=(700, 100), mesh_sizes=(500, 100))
+                sweep=chip_smoke.SWEEP, large_sizes=(700, 100), mesh_sizes=(500, 100))
             print(json.dumps({"structure_reuse_cpu": reuse,
                               "cpu_seconds": time.perf_counter() - t0}), flush=True)
     if args.ranks:

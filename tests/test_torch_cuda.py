@@ -693,6 +693,36 @@ def test_held_loop_replays_from_its_fifth_run(cuda):
 
 
 @pytest.mark.cuda
+def test_sweep_replays_from_its_fifth_run(cuda):
+    """Six new problems of one structure, every result kept: two entries,
+    then four guests of the guest entry, which runs eagerly at its first
+    use, records at its second and replays from its third, so that runs 5
+    and 6 record nothing; each guest's factors copied in once; each run
+    bitwise a solve that shares nothing with any entry."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
+
+    tpt.clear_graph_cache()
+    seen, kept = [], []
+    for k in range(6):
+        graphs.reset_counts()
+        prob = _sampled_canonical(20 + k, cuda)
+        res = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4)
+        torch.cuda.synchronize()
+        seen.append(((graphs.ENTRIES, graphs.GUESTS, graphs.GUEST_LOADS), graphs.CAPTURES))
+        assert bool(res.state.converged_finite)
+        kept.append((prob, res))
+    assert seen == [((1, 0, 0), 0), ((1, 0, 0), 0), ((0, 1, 1), 0), ((0, 1, 1), 1),
+                    ((0, 1, 1), 0), ((0, 1, 1), 0)]
+    for prob, res in kept:
+        with graphs.uncaptured(), _reuse._unshared():
+            ref = tpt.GPSolver(prob, nugget=1e-5).solve(max_iter=4)
+        assert torch.equal(res.z, ref.z) and torch.equal(res.state.losses, ref.state.losses)
+    del kept, res, ref
+    tpt.clear_graph_cache()
+
+
+@pytest.mark.cuda
 def test_gpsolver_defers_on_card(cuda):
     """On the card ``GPSolver`` defers its quality verdict and ``solve``
     settles it: the canonical problem's verdict passes in one round."""

@@ -509,3 +509,39 @@ def test_storage_held_on_one_rank_makes_new_entries_on_all(ranks):
     out, _, _ = ranks
     for o in out[2]:
         assert o["shared_loop/held/binds"].tolist() == [1, 0, 0]
+
+
+def test_third_live_problem_is_a_guest_on_every_rank(ranks):
+    """Three live mesh problems of one layout at P = 2, every one kept: the
+    first two make an entry each and the third is a guest on both ranks
+    (the ranks agree on it), its factors its own; its first solve loads
+    it into the guest entry, one more host agreement than a bound
+    problem's solve (the guest entry, agreed once); its solution and
+    losses are the bits of the same problem solved unshared, the same on
+    both ranks, and so is its next solve, which copies nothing."""
+    out, _, _ = ranks
+    for o in out[2]:
+        assert [o[f"sweep/binds{k}"].tolist() for k in range(3)] == [
+            [1, 0, 0, 0], [1, 0, 0, 0], [0, 0, 0, 1]]
+        assert [int(o[f"sweep/loads{k}"]) for k in range(3)] == [0, 0, 1]
+        assert int(o["sweep/agreements2"]) == int(o["sweep/agreements0"]) + 1
+        assert not bool(o["sweep/guest/bound"]) and not bool(o["sweep/guest/in_entry"])
+        assert int(o["sweep/again/loads"]) == 0 and int(o["sweep/entries"]) == 3
+    z = _replicated(out[2], "sweep/guest/z")
+    np.testing.assert_array_equal(z, _replicated(out[2], "sweep/unshared/z"))
+    np.testing.assert_array_equal(z, _replicated(out[2], "sweep/again/z"))
+    np.testing.assert_array_equal(_replicated(out[2], "sweep/guest/losses"),
+                                  _replicated(out[2], "sweep/unshared/losses"))
+
+
+def test_ranks_that_disagree_on_the_guest_entry_make_a_new_one(ranks):
+    """Rank 0 keeps a released guest entry that rank 1 has dropped: the
+    next guest's first solve finds the ranks disagree on the layout's guest
+    entry (its stamp), so rank 0 drops its own and both make a new one, and
+    the guest's solve is the bits of its unshared solve on both ranks."""
+    out, _, _ = ranks
+    assert [int(o["sweep/disagree/kept"]) for o in out[2]] == [1, 0]
+    for o in out[2]:
+        assert bool(o["sweep/disagree/new"]) and int(o["sweep/disagree/hosting"]) == 1
+    np.testing.assert_array_equal(_replicated(out[2], "sweep/disagree/z"),
+                                  _replicated(out[2], "sweep/disagree/unshared_z"))

@@ -76,3 +76,26 @@ def test_structure_reuse_phase_on_cpu():
     for rows in held.values():
         assert [r["bind"] for r in rows] == [["made"]] * 2 + [["rebound"]] * 4
         assert all(r["reference_unshared"] and r["bitwise_unshared"] for r in rows)
+
+
+def test_structure_reuse_sweep_on_cpu():
+    """The phase's ``sweep`` case with the card's numerics, cut: six
+    canonical problems and four of ``mesh_solve``'s cut to 500/100, every
+    solver and result kept to the end: made, made, then guests of the
+    guest entry, one guest load each, three entries at most, each solve
+    bitwise an unshared solve and under its gate; once the results are
+    gone the device keeps one released entry, and ``RETAINED_BYTES`` is
+    its bytes (no graph pool on the CPU)."""
+    with tpt.ops.backend.card_numerics_on_cpu():
+        out = chip_smoke.structure_reuse(tpt, CPU, names=(), held=(), two_pass_runs=0,
+                                         sweep={"canonical": 6, "mesh": 4},
+                                         large_sizes=(500, 100), mesh_sizes=(500, 100))
+    for name, n in (("canonical", 6), ("mesh", 4)):
+        case = out["sweep"][name]
+        rows = case["runs"]
+        assert [r["bind"] for r in rows] == [["made"]] * 2 + [["guest"]] * (n - 2)
+        assert [r["guest_loads"] for r in rows] == [0, 0] + [1] * (n - 2)
+        assert [r["entries"] for r in rows] == [1, 2] + [3] * (n - 2)
+        assert all(r["reference_unshared"] and r["bitwise_unshared"] for r in rows)
+        assert case["released_entries"] == 1
+        assert case["retained_bytes"] == case["retained_entry_bytes"] > 0

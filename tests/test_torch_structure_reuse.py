@@ -80,7 +80,7 @@ def _bound(fp):
 def _bound_as():
     """How the factorizations since the last ``graphs.reset_counts`` bound."""
     return (["made"] * graphs.ENTRIES + ["rebound"] * graphs.REBINDS
-            + ["unshared"] * graphs.UNSHARED)
+            + ["unshared"] * graphs.UNSHARED + ["guest"] * graphs.GUESTS)
 
 
 def _stored(fp):
@@ -195,17 +195,19 @@ def test_second_problem_binds_and_matches_jax(kind):
 
 
 def test_live_solvers_never_share():
-    """Three live solvers of one structure, solved alternately: each is
-    bound to an entry of its own, their storage is disjoint, and each solve
-    equals bitwise that problem's solve on a solver that shares nothing
-    with any entry."""
+    """Three live solvers of one structure, solved alternately: the first
+    two are bound to an entry each and the third is a guest of the
+    layout's guest entry (``solvers/_reuse.py``), with no entry bound;
+    their storage is disjoint, and each solve equals bitwise that
+    problem's solve on a solver that shares nothing with any entry."""
     tpt.clear_graph_cache()
     graphs.reset_counts()
     pt = [_elliptic(_elliptic_arrays(80, 24, s))[1] for s in (1, 2, 3)]
     solvers = [tpt.GPSolver(p, nugget=1e-8, solve_mode="inverse") for p in pt]
-    assert (graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED) == (3, 0, 0)
+    assert (graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED, graphs.GUESTS) == (2, 0, 0, 1)
     entries = [_bound(s.fp) for s in solvers]
-    assert all(e is not None for e in entries) and len({id(e) for e in entries}) == 3
+    assert all(e is not None for e in entries[:2]) and len({id(e) for e in entries[:2]}) == 2
+    assert entries[2] is None
     ptrs = [_storages(s.fp) for s in solvers]
     assert all(len(p) == 2 for p in ptrs)  # the factor and inverse buffer, the column scales
     assert len(set().union(*ptrs)) == 6

@@ -409,6 +409,72 @@ def shared_loop(c):
     return out
 
 
+@case()
+def sweep(c):
+    """Three live mesh problems of one layout (the elliptic step problem, f
+    scaled per problem), every one kept: the binds, guest loads and the
+    solve's host agreements of each; the third one's solution and losses,
+    and again after the first one's solve; and the same problem solved
+    unshared."""
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.parallel import comm
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
+    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
+
+    i = c.inp
+
+    def factor(scale):
+        prob = tpt.interop.problem_from_numpy(i["sXd"], i["sXb"], scale * i["sf"], i["sg"],
+                                              i["sz0"], i["sinv_sq"], device="cpu")
+        return td.factorize_distributed(prob, c.mesh, nugget=NUGGET["elliptic"], **FACTOR_KW)
+
+    def solve(fp):
+        return td.gn_solve_distributed(fp, max_iter=3, step_solver="cg")
+
+    _reuse.clear_graph_cache()
+    out, live = {}, []
+    for k, scale in enumerate((1.0, 1.1, 1.2)):
+        graphs.reset_counts()
+        live.append(factor(scale))
+        out[f"binds{k}"] = np.asarray([graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED,
+                                       graphs.GUESTS])
+        comm.reset_counts()
+        st = solve(live[-1])
+        out[f"loads{k}"] = np.asarray(graphs.GUEST_LOADS)
+        out[f"agreements{k}"] = np.asarray(comm.AGREEMENTS)
+    guest = live[2]
+    out["guest/bound"] = np.asarray(_reuse.bound_entry(guest) is not None)
+    out["guest/in_entry"] = np.asarray(_reuse._in_entry(guest.factors["u"].local))
+    out["guest/z"], out["guest/losses"] = np_(st.z), np_(st.losses)
+    graphs.reset_counts()
+    solve(live[0])
+    st = solve(guest)  # the guest entry holds it still: no copy
+    out["again/loads"] = np.asarray(graphs.GUEST_LOADS)
+    out["again/z"] = np_(st.z)
+    with _reuse._unshared():
+        st = solve(factor(1.2))
+    out["unshared/z"], out["unshared/losses"] = np_(st.z), np_(st.losses)
+    out["entries"] = np.asarray(len(_reuse.entries()))
+    del live, guest, st
+    # the sweep gone, rank 0 keeps the released guest entry and rank 1 none:
+    # the next guest's ranks disagree on it, and both make a new one
+    if c.rank == 1:
+        _reuse.clear_graph_cache()
+    live = [factor(s) for s in (1.3, 1.4)]
+    guest = factor(1.5)
+    out["disagree/kept"] = np.asarray([e.hosting for e in _reuse.entries()].count(True))
+    st = solve(guest)
+    host = _reuse.serving(guest)
+    out["disagree/new"] = np.asarray(host in _reuse.entries() and host.generation == 1)
+    out["disagree/hosting"] = np.asarray([e.hosting for e in _reuse.entries()].count(True))
+    out["disagree/z"] = np_(st.z)
+    del live, guest, host
+    with _reuse._unshared():
+        out["disagree/unshared_z"] = np_(solve(factor(1.5)).z)
+    return out
+
+
 # -- utils/checkpoint.py across ranks: tests/test_torch_checkpoint.py -----------------
 
 @case(4, group="checkpoint")
