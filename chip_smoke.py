@@ -684,20 +684,21 @@ class TwoPassSolver:
     and the posterior weights, timed as ``GPSolver`` times its phases."""
 
     def __init__(self, tpt, problem, nugget, mesh, block=512):
-        from nonlinpdes_gpsolver_tpu_torch.utils.metrics import PhaseTimers
-
-        self.tpt, self.timers = tpt, PhaseTimers(problem.device)
-        with self.timers.phase("factorize"):
+        self.tpt, self.device = tpt, problem.device
+        self.trace = tpt.utils.tracing.Record.continuing(problem.trace)
+        with self.trace.solving(), self.trace.phase("factorize", self.device):
             self.fp = tpt.solvers.factorize_distributed(problem, mesh, nugget=nugget, block=block,
                                                         fused=False)
 
     def solve(self, max_iter):
         D = self.tpt.solvers.distributed
-        with self.timers.phase("gauss_newton"):
-            state = D.gn_solve_distributed(self.fp, max_iter=max_iter)
-        with self.timers.phase("posterior_weights"):
-            post = D.DistributedPosterior(self.fp, state.z)
-        return self.tpt.api.SolveResult(state=state, posterior=post, timers=self.timers.as_dict())
+        with self.trace.solving():
+            with self.trace.phase("gauss_newton", self.device):
+                state = D.gn_solve_distributed(self.fp, max_iter=max_iter)
+            with self.trace.phase("posterior_weights", self.device):
+                post = D.DistributedPosterior(self.fp, state.z)
+        return self.tpt.api.SolveResult(state=state, posterior=post, timers=self.trace.timers(),
+                                        trace=self.trace)
 
 
 def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy", "large", "mesh"),

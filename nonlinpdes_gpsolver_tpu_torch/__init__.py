@@ -22,7 +22,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from . import compat, interop, models, ops, parallel, solvers, utils, workloads  # noqa: E402
+# utils first: its tracing module is imported by ops/ and solvers/, which
+# utils' checkpoint module imports in turn
+from . import utils  # noqa: E402
+from . import compat, interop, models, ops, parallel, solvers, workloads  # noqa: E402
 from .api import GPSolver, SolveResult  # noqa: E402
 from .ops import SquaredExponential  # noqa: E402
 from .solvers import Posterior, clear_graph_cache, factorize, gn_solve  # noqa: E402

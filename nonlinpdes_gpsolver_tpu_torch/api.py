@@ -26,6 +26,12 @@ case that one failed. The recorded loop is shared by every problem of one
 structure (``solvers/_reuse.py``): once a solver and its results are gone,
 a new ``GPSolver`` of the same structure factors into their storage and
 replays their loop, on one device or on every rank of an NCCL mesh.
+
+Each solver continues its problem's :class:`~.utils.tracing.Record`
+(``trace``): the phases ``factorize``, ``gauss_newton`` and
+``posterior_weights``, timed on the card by CUDA events and read after the
+solve's one host read (no synchronize), their pieces, and the host's waits.
+``SolveResult.timers`` holds them in seconds (``utils/tracing.py::KEYS``).
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from .parallel.mesh import Mesh, make_mesh
 from .solvers.distributed import DistributedPosterior, factorize_distributed, gn_solve_distributed
 from .solvers.gn import GNState, factorize, gn_solve
 from .solvers.posterior import Posterior
-from .utils.metrics import ErrorStats, PhaseTimers, error_stats
+from .utils import tracing
+from .utils.metrics import ErrorStats, error_stats
 
 log = logging.getLogger("nonlinpdes_gpsolver_tpu_torch")
 
@@ -59,7 +66,8 @@ _AUTO_MESH_GRAM_ROWS = 16384
 class SolveResult:
     state: GNState
     posterior: Posterior  # a DistributedPosterior on the mesh path
-    timers: dict
+    timers: dict  # seconds by utils/tracing.py's KEYS
+    trace: Optional[tracing.Record] = None
 
     @property
     def z(self) -> torch.Tensor:
@@ -114,28 +122,29 @@ class GPSolver:
         mesh_block: int = 512,
         defer_quality: Optional[bool] = None,
     ):
-        if mesh is None and auto_mesh:
-            n_max = largest_gram_rows(problem)
-            if n_max >= _AUTO_MESH_GRAM_ROWS:
-                mesh = make_mesh(1, device=problem.device)
-                log.info(
-                    "auto_mesh: largest Gram block has %d rows (>= %d); the mesh path "
-                    "on %s", n_max, _AUTO_MESH_GRAM_ROWS, problem.device,
-                )
-        self.problem = problem
-        self.mesh = mesh
-        self.timers = PhaseTimers(problem.device)
-        if defer_quality is None:
-            defer_quality = is_accelerator(problem.device)
-        self._defer = bool(defer_quality)
-        self._fact_args = dict(nugget=nugget, nugget_type=nugget_type, solve_mode=solve_mode,
-                               block=mesh_block)
-        self._start_scales: dict = {}
-        self._factorize()
+        self.trace = tracing.Record.continuing(problem.trace)
+        with self.trace.solving():
+            if mesh is None and auto_mesh:
+                n_max = largest_gram_rows(problem)
+                if n_max >= _AUTO_MESH_GRAM_ROWS:
+                    mesh = make_mesh(1, device=problem.device)
+                    log.info(
+                        "auto_mesh: largest Gram block has %d rows (>= %d); the mesh path "
+                        "on %s", n_max, _AUTO_MESH_GRAM_ROWS, problem.device,
+                    )
+            self.problem = problem
+            self.mesh = mesh
+            if defer_quality is None:
+                defer_quality = is_accelerator(problem.device)
+            self._defer = bool(defer_quality)
+            self._fact_args = dict(nugget=nugget, nugget_type=nugget_type,
+                                   solve_mode=solve_mode, block=mesh_block)
+            self._start_scales: dict = {}
+            self._factorize()
 
     def _factorize(self):
         a = self._fact_args
-        with self.timers.phase("factorize"):
+        with self.trace.phase("factorize", self.problem.device):
             if self.mesh is not None:
                 self.fp = factorize_distributed(
                     self.problem, self.mesh, nugget=a["nugget"], nugget_type=a["nugget_type"],
@@ -172,15 +181,28 @@ class GPSolver:
         (the class docstring)."""
         kw = dict(z0=z0, max_iter=max_iter, step_size=step_size, hessian_jitter=hessian_jitter,
                   step_solver=step_solver, tol=tol)
+        with self.trace.solving():
+            state, post, finite, losses = self._solve(kw)
+        if not finite:
+            log.warning(
+                "problem %r: at least one GN step was rejected as non-finite "
+                "(nugget may be too small)", self.problem.name,
+            )
+        log.info("problem %r: GN losses %s", self.problem.name, losses)
+        return SolveResult(state=state, posterior=post, timers=self.trace.timers(),
+                           trace=self.trace)
+
+    def _solve(self, kw):
         on_mesh = self.mesh is not None
+        dev = self.problem.device
         for _ in range(8):
-            with self.timers.phase("gauss_newton"):
+            with self.trace.phase("gauss_newton", dev):
                 state = (gn_solve_distributed if on_mesh else gn_solve)(self.fp, **kw)
-            with self.timers.phase("posterior_weights"):
+            with self.trace.phase("posterior_weights", dev):
                 post = (DistributedPosterior if on_mesh else Posterior)(self.fp, state.z)
             bad, (finite, *losses) = self.fp.resolve_pending((state.converged_finite, state.losses))
             if not bad:
-                break
+                return state, post, finite, losses
             for name in bad:
                 self._start_scales[name] = 10.0 * self.fp.nugget_scales[name]
             log.warning(
@@ -193,18 +215,10 @@ class GPSolver:
             post = state = None  # noqa: F841
             self.fp = None
             self._factorize()
-        else:
-            raise FloatingPointError(
-                f"problem {self.problem.name!r}: factorization quality still bad after "
-                f"nugget escalation to {self._start_scales}"
-            )
-        if not finite:
-            log.warning(
-                "problem %r: at least one GN step was rejected as non-finite "
-                "(nugget may be too small)", self.problem.name,
-            )
-        log.info("problem %r: GN losses %s", self.problem.name, losses)
-        return SolveResult(state=state, posterior=post, timers=self.timers.as_dict())
+        raise FloatingPointError(
+            f"problem {self.problem.name!r}: factorization quality still bad after "
+            f"nugget escalation to {self._start_scales}"
+        )
 
     @staticmethod
     def errors(pred, truth) -> ErrorStats:

@@ -19,6 +19,7 @@ import torch
 from ..ops.assembly import Observable
 from ..ops.kernels import SquaredExponential
 from ..ops.operators import d, d2, identity
+from ..utils import tracing
 from .elliptic import Values, _eval_on, _latent_init
 from .spec import CollocationProblem, GPBlock
 
@@ -51,7 +52,9 @@ def burgers(
     ``init='random'`` draws ``z0`` from a ``torch.Generator`` seeded with
     ``seed`` on that device (not the JAX package's draw)."""
     N_d = int(X_domain.shape[0])
-    data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
+    trace = tracing.Record()
+    with trace.span("build"):
+        data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
     residual = _burgers_residual(float(alpha), float(nu), N_d)
     observables = (
         Observable("domain", d(0)),        # u_t
@@ -67,4 +70,5 @@ def burgers(
         data=data,
         latent_dim=3 * N_d,
         latent_init=_latent_init(init, 3 * N_d, seed, X_domain),
+        trace=trace,
     )

@@ -26,6 +26,7 @@ import torch
 from ..ops.assembly import Observable
 from ..ops.kernels import SquaredExponential
 from ..ops.operators import d, identity, laplacian
+from ..utils import tracing
 from .elliptic import Values, _eval_on, _latent_init
 from .spec import CollocationProblem, GPBlock, Misfit
 
@@ -69,11 +70,13 @@ def darcy_flow(
     """``data_u``: noisy observations of ``u`` at ``X_domain[:N_data]``. The
     problem lives on the device and dtype of ``X_domain``."""
     N_d = int(X_domain.shape[0])
-    data = {
-        "f": _eval_on(rhs_f, X_domain),
-        "g": _eval_on(bdy_g, X_boundary),
-        "obs": data_u.to(device=X_domain.device, dtype=X_domain.dtype),
-    }
+    trace = tracing.Record()
+    with trace.span("build"):
+        data = {
+            "f": _eval_on(rhs_f, X_domain),
+            "g": _eval_on(bdy_g, X_boundary),
+            "obs": data_u.to(device=X_domain.device, dtype=X_domain.dtype),
+        }
     residual_a, residual_u, data_misfit = _darcy_residuals(N_d, int(data_u.shape[0]))
 
     obs_a = (
@@ -99,4 +102,5 @@ def darcy_flow(
         latent_dim=6 * N_d,
         misfits=(Misfit("data", data_misfit, 1.0 / float(noise_level) ** 2),),
         latent_init=_latent_init(init, 6 * N_d, seed, X_domain),
+        trace=trace,
     )

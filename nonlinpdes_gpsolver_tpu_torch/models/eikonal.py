@@ -18,6 +18,7 @@ import torch
 from ..ops.assembly import Observable
 from ..ops.kernels import SquaredExponential
 from ..ops.operators import d, identity, laplacian
+from ..utils import tracing
 from .elliptic import Values, _eval_on, _latent_init
 from .spec import CollocationProblem, GPBlock
 
@@ -46,7 +47,9 @@ def eikonal(
 ) -> CollocationProblem:
     """The problem lives on the device and dtype of ``X_domain``."""
     N_d = int(X_domain.shape[0])
-    data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
+    trace = tracing.Record()
+    with trace.span("build"):
+        data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
     residual = _eikonal_residual(float(eps), N_d)
     observables = (
         Observable("domain", d(0)),
@@ -62,4 +65,5 @@ def eikonal(
         data=data,
         latent_dim=3 * N_d,
         latent_init=_latent_init(init, 3 * N_d, seed, X_domain),
+        trace=trace,
     )

@@ -28,6 +28,7 @@ import torch
 from ..ops.assembly import Observable
 from ..ops.kernels import SquaredExponential
 from ..ops.operators import identity, laplacian
+from ..utils import tracing
 from .spec import CollocationProblem, GPBlock, Misfit
 
 Values = Union[Callable[[torch.Tensor], torch.Tensor], torch.Tensor, None]
@@ -104,7 +105,9 @@ def nonlinear_elliptic(
     :func:`..interop.problem_from_numpy`).
     """
     N_d = X_domain.shape[0]
-    data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
+    trace = tracing.Record()
+    with trace.span("build"):
+        data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
     residual = _elliptic_residual(float(alpha), int(m))
     return CollocationProblem(
         name="nonlinear_elliptic",
@@ -113,6 +116,7 @@ def nonlinear_elliptic(
         data=data,
         latent_dim=N_d,
         latent_init=_latent_init(init, N_d, seed, X_domain),
+        trace=trace,
     )
 
 
@@ -133,7 +137,9 @@ def nonlinear_elliptic_relaxed(
     Loss: ``||L^{-1}[v; w; g]||^2 + (1/pen_lambda)||-v + alpha w^m - f||^2``.
     """
     N_d = int(X_domain.shape[0])
-    data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
+    trace = tracing.Record()
+    with trace.span("build"):
+        data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
     residual, pde_penalty = _elliptic_relaxed_residuals(float(alpha), int(m), N_d)
     return CollocationProblem(
         name="nonlinear_elliptic_relaxed",
@@ -143,4 +149,5 @@ def nonlinear_elliptic_relaxed(
         latent_dim=2 * N_d,
         misfits=(Misfit("pde", pde_penalty, 1.0 / pen_lambda),),
         latent_init=_latent_init(init, 2 * N_d, seed, X_domain),
+        trace=trace,
     )

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.assembly import Observable
 from ..ops.kernels import SquaredExponential
+from ..utils.tracing import Record
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +50,9 @@ class CollocationProblem:
 
     Every tensor (points, data) lies on one device in one dtype; the solver
     runs there. ``latent_dim`` is the length of the free latent vector ``z``.
+    ``trace`` is the :class:`..utils.tracing.Record` its model constructor
+    started (its ``build`` span), which no comparison, layout or cache key
+    reads.
     """
 
     name: str
@@ -58,6 +62,7 @@ class CollocationProblem:
     latent_dim: int
     misfits: Tuple[Misfit, ...] = ()
     latent_init: Optional[Callable[[], torch.Tensor]] = None
+    trace: Optional[Record] = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def device(self) -> torch.device:

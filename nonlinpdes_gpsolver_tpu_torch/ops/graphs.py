@@ -28,6 +28,11 @@ whose factorization wrote into a released entry's storage), ``UNSHARED``
 (problems served by their layout's guest entry), ``GUEST_LOADS`` (copies
 of a guest's factors into the guest entry) and ``RETAINED_BYTES`` (the factor, data and graph-pool bytes that
 released entries keep; a gauge, not reset). :func:`reset_counts` zeroes the others.
+
+The current solve's record (``utils/tracing.py``) takes a capture's span
+``gauss_newton.record``, the host's time to queue replays
+(``gauss_newton.replay``) and the waits of the flag reads and copies
+(``host_wait``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ import time
 from typing import Callable, Dict
 
 import torch
+
+from ..utils import tracing
 
 CAPTURES = 0
 CAPTURE_SECONDS = 0.0
@@ -137,7 +144,7 @@ class Recorder:
         graph = torch.cuda.CUDAGraph()
         capturing = True
         try:
-            with torch.cuda.stream(self.stream):
+            with tracing.span("gauss_newton.record"), torch.cuda.stream(self.stream):
                 # thread-local: another thread's queries (a process group's
                 # watchdog polling its events) do not void the capture
                 graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
@@ -156,7 +163,9 @@ class Recorder:
 
     def replay(self, name: str) -> None:
         global REPLAYS
+        t0 = time.perf_counter()
         self.graphs[name].replay()
+        tracing.accrue("gauss_newton.replay", t0)
         REPLAYS += 1
 
 
@@ -188,7 +197,9 @@ class Flag:
         global HOST_READS
         HOST_READS += 1
         if self.cuda:
+            t0 = time.perf_counter()
             self.event.synchronize()
+            tracing.waited(t0)
             return int(self.host.item())
         return int(self.value.item())
 
@@ -204,5 +215,7 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
     out.copy_(t, non_blocking=True)
     ev = torch.cuda.Event()
     ev.record()
+    t0 = time.perf_counter()
     ev.synchronize()
+    tracing.waited(t0)
     return out

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .backend import is_accelerator
 
 MAX_ESCALATIONS = 8
@@ -99,7 +100,7 @@ def equilibrated_cholesky(
         M, d_isqrt = equilibrate(theta, nug_diag, s, out=work)
         L, ok = cholesky_f64(M)
         del M
-        if bool(ok):
+        if tracing.read(bool, ok):
             if out is None:
                 return L.to(theta.dtype), d_isqrt, s, rung
             return out[0].copy_(L), out[1].copy_(d_isqrt), s, rung
@@ -130,7 +131,7 @@ def cholesky_with_retry(
         M.diagonal().add_(s * nug_diag.to(torch.float64))
         L, ok = cholesky_f64(M)
         del M
-        if bool(ok):
+        if tracing.read(bool, ok):
             return (L.to(theta.dtype) if out is None else out.copy_(L)), s
         del L
         s *= escalation

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import cholesky_f64, newton_refine_tri_inverse, tri_inverse
+from ..utils import tracing
 from . import comm
 from .mesh import Mesh
 
@@ -211,7 +212,7 @@ def _chol_sharded(arranged: torch.Tensor, mesh: Mesh, axis: str, block: int,
         cand = arranged[slot, :, kB : kB + B] if p == owner else arranged.new_empty((B, B))
         A_kk = comm.broadcast(mesh, cand, owner)
         L_kk, ok = cholesky_f64(A_kk)
-        if not comm.agree(mesh, bool(ok), "all"):
+        if not comm.agree(mesh, tracing.read(bool, ok), "all"):
             arranged.fill_(float("nan"))
             return arranged, winvs
         W_kk = newton_refine_tri_inverse(L_kk, tri_inverse(L_kk))

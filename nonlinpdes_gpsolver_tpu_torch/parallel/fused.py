@@ -60,6 +60,7 @@ import torch
 from ..ops.assembly import cross_gram, observable_sizes
 from ..ops.gram_tile import GramPlan
 from ..ops.linalg import cholesky_f64, newton_refine_tri_inverse, probe_vector, tri_inverse
+from ..utils import tracing
 from . import comm
 from .cholesky import BlockCyclicFactor, first_slot, local_row, matvec_blockcyclic, pad_to_blocks
 from .gram import _diag_const, _equilibration_parts, _segments, window_sets
@@ -211,7 +212,7 @@ def _superblock(L, winvs, d_pad, kb0: int, F: int, B: int, mesh: Mesh, plan, set
         del R
     D = acc[:S] if P_ == 1 else _gather_rows(mesh, acc[:mine], kb0, F, B)
     L_sup, ok = cholesky_f64(D)
-    if not comm.agree(mesh, bool(ok), "all"):
+    if not comm.agree(mesh, tracing.read(bool, ok), "all"):
         return False
     W_sup = newton_refine_tri_inverse(L_sup, tri_inverse(L_sup))
     winvs[kb0 : kb0 + F] = W_sup.view(F, B, F, B).diagonal(dim1=0, dim2=2).permute(2, 0, 1)

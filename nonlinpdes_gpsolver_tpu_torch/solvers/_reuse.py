@@ -103,6 +103,7 @@ import torch
 
 from ..ops import graphs, linalg
 from ..parallel import comm
+from ..utils import tracing
 
 _ENTRIES: Dict[tuple, List["Entry"]] = {}  # layout key -> its entries
 _CLOCK = itertools.count(1)
@@ -282,7 +283,7 @@ def view_problem(problem, data):
     same device and dtype (the loops read residuals and data only; points
     act through the factors)."""
     points = {k: v.new_empty((0, *v.shape[1:])) for k, v in problem.points.items()}
-    return dataclasses.replace(problem, points=points, data=data, latent_init=None)
+    return dataclasses.replace(problem, points=points, data=data, latent_init=None, trace=None)
 
 
 @contextlib.contextmanager
@@ -326,15 +327,16 @@ def claimed(key, mesh=None):
     graphs than it, and their collectives would never meet."""
     entry = None
     if key is not None:
-        _prune(key[0], keep=key)
-        free = [e for e in _ENTRIES.get(key, ()) if e.free()]
-        if free:
-            entry = max(free, key=lambda e: e.stamp)
-        if mesh is not None and not comm.agree(mesh, 0 if entry is None else entry.stamp,
-                                               "same"):
-            entry = None
-        if entry is not None:
-            entry.reserved = True
+        with tracing.span("factorize.bind"):
+            _prune(key[0], keep=key)
+            free = [e for e in _ENTRIES.get(key, ()) if e.free()]
+            if free:
+                entry = max(free, key=lambda e: e.stamp)
+            if mesh is not None and not comm.agree(mesh, 0 if entry is None else entry.stamp,
+                                                   "same"):
+                entry = None
+            if entry is not None:
+                entry.reserved = True
     try:
         yield entry
     finally:

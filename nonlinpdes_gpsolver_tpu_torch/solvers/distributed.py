@@ -80,6 +80,7 @@ from ..parallel.fused import assemble_factor_fused, sampled_row_quality
 from ..parallel.gram import assemble_gram_sharded
 from ..parallel.mesh import Mesh
 from ..ops.graphs import Flag, to_host
+from ..utils import tracing
 from . import _reuse
 from .gn import (
     QUALITY_TOL,
@@ -236,15 +237,17 @@ def factorize_distributed(
     """
     if problem.device != mesh.device:
         raise ValueError(f"the problem lies on {problem.device}, the mesh on {mesh.device}")
-    key = mesh_key(problem, mesh, axis, block)
+    with tracing.span("factorize.bind"):
+        key = mesh_key(problem, mesh, axis, block)
     with _reuse.claimed(key, mesh) as entry:
         dfp = _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_tol,
                                 max_attempts, guard, chunk_cols, fused, start_scales,
                                 superblock_cols, defer_quality,
                                 entry.outputs() if entry is not None else {})
-        _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
-                      functools.partial(mesh_view, mesh=mesh, axis=axis, block=block),
-                      mesh_storage, mesh)
+        with tracing.span("factorize.bind"):
+            _reuse.settle(dfp, key, entry, mesh_tensors(dfp),
+                          functools.partial(mesh_view, mesh=mesh, axis=axis, block=block),
+                          mesh_storage, mesh)
     return dfp
 
 
@@ -316,12 +319,14 @@ def _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_t
             # no reference to a failed attempt's factor survives into the next one
             fac = res = arranged = lower = None
             if fused:
-                res = assemble_factor_fused(
-                    b.kernel, b.observables, problem.points, mesh, axis=axis, block=block,
-                    nugget=nugget, nugget_type=nugget_type, nugget_scale=s,
-                    chunk_cols=chunk_cols, superblock_cols=superblock_cols,
-                    out=None if buf is None else (buf["local"], buf["diag_inv"], buf["d"]),
-                )
+                # K2 assembles inside the factorization: one span for both
+                with tracing.span("factorize.cholesky"):
+                    res = assemble_factor_fused(
+                        b.kernel, b.observables, problem.points, mesh, axis=axis, block=block,
+                        nugget=nugget, nugget_type=nugget_type, nugget_scale=s,
+                        chunk_cols=chunk_cols, superblock_cols=superblock_cols,
+                        out=None if buf is None else (buf["local"], buf["diag_inv"], buf["d"]),
+                    )
                 fac, d_isqrt, s = res.factor, res.d_isqrt, res.scale
                 attempts += res.attempts
                 superblocks += res.superblocks
@@ -332,7 +337,9 @@ def _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_t
                     )
                 if not guard:
                     break
-                q = sampled_row_quality(fac, b.kernel, b.observables, problem.points, d_isqrt)
+                with tracing.span("factorize.quality"):
+                    q = sampled_row_quality(fac, b.kernel, b.observables, problem.points,
+                                            d_isqrt)
             else:
                 arranged, d_isqrt = assemble_gram_sharded(
                     b.kernel, b.observables, problem.points, mesh, axis=axis, block=block,
@@ -357,7 +364,7 @@ def _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_t
                 q = torch.max(torch.abs(w - y)) / torch.max(torch.abs(y))  # the same on every rank
             if defer:
                 break
-            q = float(q)
+            q = tracing.read(float, q)
             if math.isfinite(q) and q < quality_tol:
                 break
             s *= 10.0  # finite but corrupt: escalate anyway
@@ -981,9 +988,9 @@ class DistributedPosterior(Posterior):
     def _whiten(self, name, C):
         return self.fp.whiten(name, C, shard_cols=True)
 
-    def extend(self, X_test, block=None, op=None):
+    def _extend(self, X_test, block, op):
         mine, t = self._my_points(X_test)
-        return self._gathered(super().extend(mine, block, op), t)
+        return self._gathered(super()._extend(mine, block, op), t)
 
     def variance(self, X_test, block=None, op=None):
         mine, t = self._my_points(X_test)

@@ -60,6 +60,7 @@ from ..ops.linalg import (
     tri_inverse,
     whiten,
 )
+from ..utils import tracing
 from . import _reuse
 
 # Whitening-quality acceptance threshold of the JAX package, shared by every
@@ -239,23 +240,28 @@ def factorize(
     factors, inv_factors, scales, col_scales, rungs = {}, {}, {}, {}, {}
     quality = {}
     inverse = solve_mode == "inverse"
-    key = _reuse.layout_key(problem, {
-        b.name: dense_roles(sum(observable_sizes(b.observables, problem.points)), inverse,
-                            equilibrate)
-        for b in problem.blocks})
+    with tracing.span("factorize.bind"):
+        key = _reuse.layout_key(problem, {
+            b.name: dense_roles(sum(observable_sizes(b.observables, problem.points)), inverse,
+                                equilibrate)
+            for b in problem.blocks})
     with _reuse.claimed(key) as entry:
         out = entry.outputs() if entry is not None else {}
         for b in problem.blocks:
-            theta = gram_matrix(b.kernel, b.observables, problem.points)
-            sizes = observable_sizes(b.observables, problem.points)
-            buf = out.get(b.name) or dense_storage(int(theta.shape[0]), inverse, dtype, device,
-                                                   equilibrate)
-            nug = adaptive_nugget_diag(theta, b.observables, sizes, nugget, nugget_type)
+            with tracing.span("factorize.assemble"):
+                theta = gram_matrix(b.kernel, b.observables, problem.points)
+                sizes = observable_sizes(b.observables, problem.points)
+                buf = out.get(b.name) or dense_storage(int(theta.shape[0]), inverse, dtype,
+                                                       device, equilibrate)
+                nug = adaptive_nugget_diag(theta, b.observables, sizes, nugget, nugget_type)
             if not equilibrate:
-                L, s = cholesky_with_retry(theta, nug, out=buf["L"], work=_equilibration_work(buf))
+                with tracing.span("factorize.cholesky"):
+                    L, s = cholesky_with_retry(theta, nug, out=buf["L"],
+                                               work=_equilibration_work(buf))
                 del theta
                 if inverse:
-                    inv_factors[b.name] = buf["inv"].copy_(tri_inverse(L))
+                    with tracing.span("factorize.inverse"):
+                        inv_factors[b.name] = buf["inv"].copy_(tri_inverse(L))
                 factors[b.name], scales[b.name] = L, s
                 rungs[b.name] = round(math.log10(s))
                 continue
@@ -263,18 +269,21 @@ def factorize(
             s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
             total_rungs = round(math.log10(s / s0))
             for _ in range(MAX_ESCALATIONS):
-                L, d_isqrt, s, r = equilibrated_cholesky(theta, nug, s, out=(buf["L"], buf["d"]),
-                                                         work=_equilibration_work(buf))
+                with tracing.span("factorize.cholesky"):
+                    L, d_isqrt, s, r = equilibrated_cholesky(
+                        theta, nug, s, out=(buf["L"], buf["d"]), work=_equilibration_work(buf))
                 total_rungs += r
                 if solve_mode == "trsm":
                     break
-                inv = _refined_inverse(L, on_accelerator, d_isqrt, out=buf["inv"])
-                v = probe_vector(L.shape[0], dtype, device)
-                q = _whiten_quality(inv, L, d_isqrt, v)
+                with tracing.span("factorize.inverse"):
+                    inv = _refined_inverse(L, on_accelerator, d_isqrt, out=buf["inv"])
+                with tracing.span("factorize.quality"):
+                    v = probe_vector(L.shape[0], dtype, device)
+                    q = _whiten_quality(inv, L, d_isqrt, v)
                 if defer_quality:
                     inv_factors[b.name], quality[b.name] = inv, q
                     break
-                q = float(q)
+                q = tracing.read(float, q)
                 if math.isfinite(q) and q < QUALITY_TOL:
                     inv_factors[b.name] = inv
                     break
@@ -291,7 +300,8 @@ def factorize(
             scales[b.name] = s
             rungs[b.name] = total_rungs
         fp = FactoredProblem(problem, factors, inv_factors, scales, col_scales, rungs, quality)
-        _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view, dense_role_storage)
+        with tracing.span("factorize.bind"):
+            _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view, dense_role_storage)
     return fp
 
 

@@ -19,6 +19,7 @@ import torch
 from ..ops.assembly import cross_gram, observable_sizes
 from ..ops.gram_tile import gram_tile_pair_fn
 from ..ops.operators import LinearOp, identity
+from ..utils import tracing
 from .gn import FactoredProblem
 
 
@@ -66,7 +67,11 @@ class Posterior:
         op: LinearOp | None = None,
     ) -> torch.Tensor:
         """Posterior mean of ``op`` (default: point evaluation) applied to
-        the block's GP at ``X_test``."""
+        the block's GP at ``X_test`` (span ``extend``)."""
+        with tracing.span("extend"):
+            return self._extend(X_test, block, op)
+
+    def _extend(self, X_test, block, op):
         b, op = self._block_op(block, op)
         p = self.fp.problem
         w = self._weights[b.name]

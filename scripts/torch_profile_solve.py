@@ -133,7 +133,7 @@ def main():
             return solver, res, l2_of(res)
 
         for kind, run in (("new", new_solver), ("same", same_solver)):
-            before = {} if kind == "new" else solver.timers.as_dict()
+            before = {} if kind == "new" else solver.trace.timers()
             graphs.reset_counts()
             (solver, res, l2), prof_row = profiled(run)
             phases = {k: v - before.get(k, 0.0) for k, v in res.timers.items()}

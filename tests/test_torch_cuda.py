@@ -817,3 +817,34 @@ def test_group_of_one_records_its_nccl_collectives(cuda, tmp_path):
     one = _mesh_cg_twice(tpt.parallel.make_mesh(1, device=cuda))
     assert got["recorded"] > 0 and one["recorded"] == 0
     assert got["recorded_in_replay"] == 0 and got["agreements"] == 1
+
+
+@pytest.mark.cuda
+def test_warm_solves_never_synchronize_the_card(cuda, monkeypatch):
+    """A warm dense solve (the canonical structure on a fresh draw) and a
+    warm mesh solve run with ``torch.cuda.synchronize`` made to raise: the
+    phases are timed by CUDA events, read after the solve's one host read,
+    and their timers hold every key, the phases above zero."""
+    mesh = tpt.parallel.make_mesh(1, device=cuda)
+    w = tpt.workloads.mesh_elliptic(device=cuda, n_domain=1300, n_boundary=400)
+    cases = {
+        "dense": lambda k: tpt.GPSolver(_sampled_canonical(k, cuda), nugget=1e-5).solve(
+            max_iter=4),
+        "mesh": lambda k: tpt.GPSolver(w.problem, nugget=1e-5, mesh=mesh,
+                                       mesh_block=256).solve(max_iter=4),
+    }
+    for run in cases.values():  # warm: entries made, loops recorded
+        for k in range(3):
+            run(k)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("torch.cuda.synchronize on a solve's path")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", forbidden)
+    for name, run in cases.items():
+        res = run(7)
+        t = res.timers
+        assert set(t) == set(tpt.utils.tracing.KEYS), name
+        assert min(t["factorize"], t["gauss_newton"], t["posterior_weights"]) > 0.0, (name, t)
+        assert t["host_wait"] > 0.0 and t["solver_host"] > 0.0, (name, t)
+        assert bool(res.state.converged_finite), name
