@@ -53,7 +53,7 @@ def burgers(
     ``seed`` on that device (not the JAX package's draw)."""
     N_d = int(X_domain.shape[0])
     trace = tracing.Record()
-    with trace.span("build"):
+    with trace.building():
         data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
     residual = _burgers_residual(float(alpha), float(nu), N_d)
     observables = (

@@ -71,7 +71,7 @@ def darcy_flow(
     problem lives on the device and dtype of ``X_domain``."""
     N_d = int(X_domain.shape[0])
     trace = tracing.Record()
-    with trace.span("build"):
+    with trace.building():
         data = {
             "f": _eval_on(rhs_f, X_domain),
             "g": _eval_on(bdy_g, X_boundary),

@@ -48,7 +48,7 @@ def eikonal(
     """The problem lives on the device and dtype of ``X_domain``."""
     N_d = int(X_domain.shape[0])
     trace = tracing.Record()
-    with trace.span("build"):
+    with trace.building():
         data = {"f": _eval_on(rhs_f, X_domain), "g": _eval_on(bdy_g, X_boundary)}
     residual = _eikonal_residual(float(eps), N_d)
     observables = (

@@ -534,11 +534,13 @@ def _count_retained() -> None:
 
 def clear_graph_cache() -> None:
     """Drop every entry (its recorded loops, pool and, once no problem holds
-    it, its storage), the structure verdicts and the cached probes: the
-    counterpart of ``jax.clear_caches()``. A live problem keeps its
-    factors, and its next solve records its loop again."""
+    it, its storage), the structure verdicts, the cached probes and the
+    recorded data evaluations: the counterpart of ``jax.clear_caches()``.
+    A live problem keeps its factors, and its next solve records its loop
+    again."""
     for entry in entries():
         _drop(entry)
+    graphs.clear_evaluations()
     VERDICTS.clear()
     linalg._PROBES.clear()
     _count_retained()

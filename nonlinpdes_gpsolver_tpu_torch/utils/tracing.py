@@ -1,7 +1,9 @@
 """Spans of one solve on the host clock, and the solver's phase times.
 
 A :class:`Record` holds the spans of one solve. The model constructor
-starts it (its ``build`` span) and the problem carries it
+starts it (its ``build`` span, with the record current inside it, so that
+the recorded data evaluation adds ``build.record`` and ``build.replay``)
+and the problem carries it
 (``CollocationProblem.trace``); each :class:`..api.GPSolver` continues a
 copy of it, and ``SolveResult`` carries it with its :meth:`Record.timers`.
 While a solver factors or solves, its record is the current one (a
@@ -14,9 +16,9 @@ arguments:
   when they are read, not while the solve runs.
 * :func:`read` ``(convert, value)`` and :func:`waited` ``(t0)``: the
   seconds of each blocking read of a device value added to ``host_wait``;
-  :func:`accrue` the same under another name (``gauss_newton.replay``,
-  the host's time to queue a recorded graph). Two clock reads and no span
-  object, as these sit inside per-iteration loops.
+  :func:`accrue` the same under another name (``gauss_newton.replay`` and
+  ``build.replay``, the host's time to queue a recorded graph). Two clock
+  reads and no span object, as these sit inside per-iteration loops.
 * :meth:`Record.phase` ``(name, device)``: a span that on a CUDA device
   also records a timing event on the caller's stream at its start and at
   its end. :meth:`Record.timers` reads their elapsed time after the solve's
@@ -44,13 +46,17 @@ import torch
 # start to end including the device work they queued (CUDA events on a
 # card, the host clock on the CPU); the others are host seconds:
 # ``build`` the model constructor's data evaluation, the dotted keys the
-# phases' pieces, ``host_wait`` the blocking reads of device values and
+# pieces of ``build`` and of the phases (``build.record`` a capture of the
+# evaluation, ``build.replay`` the host's time to copy in, replay and
+# clone it), ``host_wait`` the blocking reads of device values and
 # ``solver_host`` the host seconds inside ``GPSolver(...)`` and
 # ``solve(...)`` less their ``host_wait``.
 PHASES = ("factorize", "gauss_newton", "posterior_weights")
-KEYS = ("build", "factorize", "factorize.assemble", "factorize.cholesky", "factorize.inverse",
-        "factorize.quality", "factorize.bind", "gauss_newton", "gauss_newton.record",
-        "gauss_newton.replay", "posterior_weights", "host_wait", "solver_host")
+KEYS = ("build", "build.record", "build.replay", "factorize", "factorize.assemble",
+        "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",
+        "gauss_newton", "gauss_newton.record", "gauss_newton.replay", "posterior_weights",
+        "host_wait", "solver_host")
+BUILD = "build"  # the model constructor's span
 HOST_WAIT = "host_wait"
 SOLVER = "solver"  # the span around GPSolver(...) and solve(...)
 
@@ -100,6 +106,10 @@ class Record:
     def solving(self) -> "_Span":
         """The ``solver`` span, with this record current inside it."""
         return _Span(self, SOLVER, current=True)
+
+    def building(self) -> "_Span":
+        """The ``build`` span, with this record current inside it."""
+        return _Span(self, BUILD, current=True)
 
     def phase(self, name: str, device) -> "_Span":
         """A span that on a CUDA ``device`` also times the device work it

@@ -848,3 +848,116 @@ def test_warm_solves_never_synchronize_the_card(cuda, monkeypatch):
         assert min(t["factorize"], t["gauss_newton"], t["posterior_weights"]) > 0.0, (name, t)
         assert t["host_wait"] > 0.0 and t["solver_host"] > 0.0, (name, t)
         assert bool(res.state.converged_finite), name
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _eager_eval(fn, X):
+    with tpt.ops.graphs.uncaptured():
+        return tpt.models.elliptic._eval_on(fn, X)
+
+
+def _fresh_points(seed, dtype, device, n_domain=900, n_boundary=124):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tpt.utils.sample_random(gen, n_domain, n_boundary, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_data_evaluation_replays_bitwise(cuda, dtype):
+    """The benchmark's right-hand side ``-trace(hessian(u)) + u**3`` at 900
+    points and ``u`` at 124 (``tpt.workloads``, the source of
+    ``gpbench/frozen/truths.py``): the first build records both, a build on
+    fresh points replays them with no capture and no host read, and every
+    build's data is bitwise the eager ``vmap``'s."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+
+    tpt.clear_graph_cache()
+    k = tpt.SquaredExponential.gaussian(0.2)
+    seen = []
+    for seed in range(3):
+        Xd, Xb = _fresh_points(seed, dtype, cuda)
+        graphs.reset_counts()
+        if seed == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            prob = tpt.models.nonlinear_elliptic(k, Xd, Xb, tpt.workloads.elliptic_rhs(),
+                                                 tpt.workloads.u_elliptic)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        seen.append((graphs.EVAL_CAPTURES, graphs.EVAL_REPLAYS, graphs.EVAL_EAGER))
+        assert all(e.graph is not None for e in graphs._EVALS.values()), [
+            e.why for e in graphs._EVALS.values()]
+        f = _eager_eval(tpt.workloads.elliptic_rhs(), Xd)
+        g = _eager_eval(tpt.workloads.u_elliptic, Xb)
+        assert torch.equal(_bits(prob.data["f"]), _bits(f)), seed
+        assert torch.equal(_bits(prob.data["g"]), _bits(g)), seed
+        t = prob.trace.seconds
+        assert (t.get("build.record", 0.0) > 0.0) == (seed == 0)
+        assert (t.get("build.replay", 0.0) > 0.0) == (seed > 0)
+    assert seen == [(2, 0, 0), (0, 2, 0), (0, 2, 0)]
+    tpt.clear_graph_cache()
+
+
+@pytest.mark.cuda
+def test_a_callable_that_reads_the_host_stays_eager(cuda):
+    """A callable with ``.item()`` inside cannot be recorded: its first call
+    gives the eager values and counts one ``EVAL_EAGER``, and later calls
+    run eagerly without trying again."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+
+    tpt.clear_graph_cache()
+    graphs.reset_counts()
+    scale = torch.tensor(3.0, device=cuda)
+    _eval_on = tpt.models.elliptic._eval_on
+
+    def fn(x):
+        return x[0] * scale.item()
+
+    for seed in range(3):
+        Xd, _ = _fresh_points(seed, torch.float32, cuda, 300, 8)
+        got = _eval_on(fn, Xd)
+        assert torch.equal(got, 3.0 * Xd[:, 0])
+    assert (graphs.EVAL_CAPTURES, graphs.EVAL_REPLAYS, graphs.EVAL_EAGER) == (0, 0, 1)
+    (entry,) = graphs._EVALS.values()
+    assert entry.graph is None and entry.why
+    # the card and the capture stream still work: a recordable callable records
+    got = _eval_on(tpt.workloads.u_elliptic, Xd)
+    assert graphs.EVAL_CAPTURES == 1, [e.why for e in graphs._EVALS.values()]
+    assert torch.equal(_bits(got), _bits(_eager_eval(tpt.workloads.u_elliptic, Xd)))
+    tpt.clear_graph_cache()
+
+
+@pytest.mark.cuda
+def test_evaluations_share_one_pool_and_stay_bitwise(cuda):
+    """Three keys (the right-hand side at 900 points, ``u`` at 124 and at
+    900) replayed in turns in the one pool, each bitwise its eager
+    ``vmap``; the pool the cell's two keys take (f32) holds at most one
+    2 MiB segment."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
+
+    tpt.clear_graph_cache()
+    torch.cuda.empty_cache()
+    graphs.reset_counts()
+    _eval_on = tpt.models.elliptic._eval_on
+    rhs, u = tpt.workloads.elliptic_rhs(), tpt.workloads.u_elliptic
+    Xd, Xb = _fresh_points(0, torch.float32, cuda)
+    _eval_on(rhs, Xd)
+    _eval_on(u, Xb)
+    torch.cuda.synchronize()
+    assert graphs.EVAL_CAPTURES == 2, [e.why for e in graphs._EVALS.values()]
+    pool = graphs._EVAL_POOLS[Xd.device]
+    reserved = _reuse._pool_bytes([pool])[tuple(pool)]
+    assert 0 < reserved <= 2 * 2**20, reserved
+    _eval_on(u, Xd)
+    for seed in range(1, 5):
+        Xd, Xb = _fresh_points(seed, torch.float32, cuda)
+        order = [(rhs, Xd), (u, Xb), (u, Xd)][seed % 3:] + [(rhs, Xd), (u, Xb), (u, Xd)][:seed % 3]
+        got = [_eval_on(fn, X) for fn, X in order]
+        for (fn, X), out in zip(order, got):
+            assert torch.equal(_bits(out), _bits(_eager_eval(fn, X))), seed
+    assert (graphs.EVAL_CAPTURES, graphs.EVAL_REPLAYS, graphs.EVAL_EAGER) == (3, 12, 0)
+    tpt.clear_graph_cache()

@@ -98,7 +98,8 @@ def test_facade_mesh_path_matches_dense():
     assert isinstance(mesh.posterior, tpt.solvers.DistributedPosterior)
     assert not isinstance(dense.posterior, tpt.solvers.DistributedPosterior)
     assert set(mesh.timers) == {
-        "factorize", "gauss_newton", "posterior_weights", "build", "factorize.assemble",
+        "factorize", "gauss_newton", "posterior_weights", "build", "build.record",
+        "build.replay", "factorize.assemble",
         "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",
         "gauss_newton.record", "gauss_newton.replay", "host_wait", "solver_host"}
     torch.testing.assert_close(mesh.z, dense.z, rtol=0, atol=1e-6 * float(dense.z.abs().max()))

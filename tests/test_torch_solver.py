@@ -186,7 +186,8 @@ def test_canonical_solve_passes_gate_on_cpu():
     assert err.l2 <= 1e-4 and err.l2 <= GATE_L2, err
     assert bool(res.state.converged_finite)
     assert set(res.timers) == {
-        "factorize", "gauss_newton", "posterior_weights", "build", "factorize.assemble",
+        "factorize", "gauss_newton", "posterior_weights", "build", "build.record",
+        "build.replay", "factorize.assemble",
         "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",
         "gauss_newton.record", "gauss_newton.replay", "host_wait", "solver_host"}
 

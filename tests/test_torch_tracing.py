@@ -13,10 +13,12 @@ import nonlinpdes_gpsolver_tpu_torch as tpt
 from nonlinpdes_gpsolver_tpu_torch.utils import tracing
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
-KEYS = {"build", "factorize", "factorize.assemble", "factorize.cholesky", "factorize.inverse",
-        "factorize.quality", "factorize.bind", "gauss_newton", "gauss_newton.record",
-        "gauss_newton.replay", "posterior_weights", "host_wait", "solver_host"}
-CHILDREN = {"factorize": ("factorize.assemble", "factorize.cholesky", "factorize.inverse",
+KEYS = {"build", "build.record", "build.replay", "factorize", "factorize.assemble",
+        "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",
+        "gauss_newton", "gauss_newton.record", "gauss_newton.replay", "posterior_weights",
+        "host_wait", "solver_host"}
+CHILDREN = {"build": ("build.record", "build.replay"),
+            "factorize": ("factorize.assemble", "factorize.cholesky", "factorize.inverse",
                           "factorize.quality", "factorize.bind"),
             "gauss_newton": ("gauss_newton.record", "gauss_newton.replay")}
 
@@ -61,7 +63,7 @@ def test_timers_hold_the_documented_keys_nested(kw):
         assert sum(s[2] - s[1] for s in kids) <= end - start + 1e-9, name
         assert all(start <= s[1] and s[2] <= end for s in kids), name
         if "." in name:
-            assert rec.spans[parent][0] in ("factorize", "gauss_newton"), name
+            assert rec.spans[parent][0] in ("build", "factorize", "gauss_newton"), name
     assert all(v <= rec.seconds[n] + 1e-12 for n, v in rec.self_seconds.items())
 
 
