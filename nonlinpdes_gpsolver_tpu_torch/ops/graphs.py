@@ -41,8 +41,10 @@ whose factorization wrote into a released entry's storage), ``UNSHARED``
 (problems served by their layout's guest entry), ``GUEST_LOADS`` (copies
 of a guest's factors into the guest entry) and ``RETAINED_BYTES`` (the factor, data and graph-pool bytes that
 released entries keep; a gauge, not reset); and the data evaluation's
-``EVAL_CAPTURES``, ``EVAL_REPLAYS`` and ``EVAL_EAGER`` (keys left eager).
-:func:`reset_counts` zeroes all but ``RETAINED_BYTES``.
+``EVAL_CAPTURES``, ``EVAL_REPLAYS`` and ``EVAL_EAGER`` (keys left eager);
+and ``STEP_SOLVERS``, the Gauss-Newton loops run by the step solver they
+were routed to (:func:`routed`). :func:`reset_counts` zeroes all but
+``RETAINED_BYTES``.
 
 The current solve's record (``utils/tracing.py``) takes a capture's span
 ``gauss_newton.record``, the host's time to queue replays
@@ -76,6 +78,7 @@ RETAINED_BYTES = 0
 EVAL_CAPTURES = 0
 EVAL_REPLAYS = 0
 EVAL_EAGER = 0
+STEP_SOLVERS: Dict[str, int] = {}
 
 _enabled = True
 capturing = False  # a capture is in progress (no graph may be freed meanwhile)
@@ -87,6 +90,12 @@ def reset_counts() -> None:
     CAPTURES, CAPTURE_SECONDS, REPLAYS, HOST_READS = 0, 0.0, 0, 0
     ENTRIES, REBINDS, UNSHARED, GUESTS, GUEST_LOADS = 0, 0, 0, 0, 0
     EVAL_CAPTURES, EVAL_REPLAYS, EVAL_EAGER = 0, 0, 0
+    STEP_SOLVERS.clear()
+
+
+def routed(step_solver: str) -> None:
+    """Count a Gauss-Newton loop run by ``step_solver``."""
+    STEP_SOLVERS[step_solver] = STEP_SOLVERS.get(step_solver, 0) + 1
 
 
 @contextlib.contextmanager

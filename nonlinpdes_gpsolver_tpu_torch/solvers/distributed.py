@@ -46,7 +46,11 @@ stays in. The steps (``:516-1008``):
   start from the previous step's solutions;
 * ``'normal'``: the exact normal matrix from the interior block of the
   kernel inverse, computed once per factorization by column-sharded kernel
-  solves and one ``all_gather``.
+  solves and one ``all_gather``. The current record times that state
+  (``gauss_newton.normal_state``) and each step (``gauss_newton.normal_step``,
+  summed) by CUDA events, as it times the phases.
+
+Each loop counts its step solver (``ops/graphs.py::STEP_SOLVERS``).
 
 Every step goes through the damped update (``:898-944``): a step that is
 non-finite or more than doubles the loss is halved up to four times and the
@@ -58,6 +62,7 @@ leaves the probe verdict on the device for :class:`..api.GPSolver`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -79,7 +84,7 @@ from ..parallel.cholesky import (
 from ..parallel.fused import assemble_factor_fused, sampled_row_quality
 from ..parallel.gram import assemble_gram_sharded
 from ..parallel.mesh import Mesh
-from ..ops.graphs import Flag, to_host
+from ..ops.graphs import Flag, routed, to_host
 from ..utils import tracing
 from . import _reuse
 from .gn import (
@@ -866,13 +871,17 @@ def gn_solve_distributed(
     loop, fp = _reuse.loop_for(fp, key, lambda run_fp, pool: _mesh_loop(
         run_fp, z, step_solver, structure, cand, valid, wants, deflation_rank, max_iter,
         step_size, hessian_jitter, cg_tol, cg_maxiter, tol, pool))
+    routed(step_solver)
+    timed = step_solver == "normal"
     c = loop.carry
     with loop.rec.scope():
         c.reset(z)
         c.loss.copy_(fp.loss(z))
         flag = Flag(z.device)
         for _ in range(max_iter):
-            loop.step(fp)
+            with (tracing.phase("gauss_newton.normal_step", z.device) if timed
+                  else contextlib.nullcontext()):
+                loop.step(fp)
             flag.post(c.code)
             code = flag.read()  # agreed over the ranks inside the step
             if not code & 2:  # the step followed the tol stop: it changed nothing
@@ -905,7 +914,11 @@ def _mesh_loop(fp, z, solver, structure, cand, valid, wants, deflation_rank, max
                         else int(deflation_rank))
                 V_defl = _deflation_basis(fp, cand, id_rows, rank)
         _refill(state, "V_defl", V_defl)
-        _refill(state, "ainvs", _normal_state(fp, structure) if solver == "normal" else None)
+        ainvs = None
+        if solver == "normal":
+            with tracing.phase("gauss_newton.normal_state", fp.problem.device):
+                ainvs = _normal_state(fp, structure)
+        _refill(state, "ainvs", ainvs)
         loop.deflation_rank = 0 if V_defl is None else int(V_defl.shape[1])
 
     carry = _MeshCarry(z, max_iter, tol)

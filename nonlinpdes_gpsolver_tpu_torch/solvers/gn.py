@@ -48,7 +48,7 @@ import torch
 from ..models.spec import CollocationProblem
 from ..ops.assembly import adaptive_nugget_diag, gram_matrix, observable_sizes
 from ..ops.backend import is_accelerator
-from ..ops.graphs import Flag, Recorder, to_host
+from ..ops.graphs import Flag, Recorder, routed as count_route, to_host
 from ..ops.linalg import (
     MAX_ESCALATIONS,
     cholesky_with_retry,
@@ -1033,6 +1033,7 @@ def gn_solve(
     loop, run_fp = _reuse.loop_for(fp, key, lambda run_fp, pool: _dense_loop(
         z, routed, structure, max_iter, step_size, hessian_jitter, cg_tol, cg_maxiter, tol,
         pool))
+    count_route(routed)
     carry = loop.carry
     with loop.rec.scope():
         carry.reset(z)

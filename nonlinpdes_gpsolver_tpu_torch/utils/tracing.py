@@ -19,11 +19,12 @@ arguments:
   :func:`accrue` the same under another name (``gauss_newton.replay`` and
   ``build.replay``, the host's time to queue a recorded graph). Two clock
   reads and no span object, as these sit inside per-iteration loops.
-* :meth:`Record.phase` ``(name, device)``: a span that on a CUDA device
-  also records a timing event on the caller's stream at its start and at
-  its end. :meth:`Record.timers` reads their elapsed time after the solve's
-  one host read, which follows every one of them, and hands the events on
-  to later phases. Nothing here synchronizes the device.
+* :meth:`Record.phase` ``(name, device)`` (:func:`phase` for the current
+  record): a span that on a CUDA device also records a timing event on
+  the caller's stream at its start and at its end. :meth:`Record.timers`
+  reads their elapsed time after the solve's one host read, which follows
+  every one of them, and hands the events on to later phases. Nothing
+  here synchronizes the device.
 
 With no current record a span costs one object and adds to nothing.
 
@@ -42,7 +43,10 @@ from typing import Dict, Optional
 
 import torch
 
-# The keys of SolveResult.timers. The three phases are their time from
+# The keys of SolveResult.timers. The three phases, and the mesh path's
+# ``'normal'`` step pieces ``gauss_newton.normal_state`` (the interior
+# blocks of the kernel inverse, once a factorization) and
+# ``gauss_newton.normal_step`` (its steps, summed), are their time from
 # start to end including the device work they queued (CUDA events on a
 # card, the host clock on the CPU); the others are host seconds:
 # ``build`` the model constructor's data evaluation, the dotted keys the
@@ -54,7 +58,8 @@ import torch
 PHASES = ("factorize", "gauss_newton", "posterior_weights")
 KEYS = ("build", "build.record", "build.replay", "factorize", "factorize.assemble",
         "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",
-        "gauss_newton", "gauss_newton.record", "gauss_newton.replay", "posterior_weights",
+        "gauss_newton", "gauss_newton.record", "gauss_newton.replay",
+        "gauss_newton.normal_state", "gauss_newton.normal_step", "posterior_weights",
         "host_wait", "solver_host")
 BUILD = "build"  # the model constructor's span
 HOST_WAIT = "host_wait"
@@ -230,6 +235,14 @@ def current() -> Optional[Record]:
 def span(name: str) -> _Span:
     """A span of the current record."""
     return _Span(_CURRENT.get(), name)
+
+
+def phase(name: str, device) -> _Span:
+    """A phase (:meth:`Record.phase`) of the current record: on a CUDA
+    ``device`` two timing events, summed over every such phase of one
+    name."""
+    rec = _CURRENT.get()
+    return rec.phase(name, device) if rec is not None else _Span(None, name)
 
 
 def accrue(name: str, t0: float) -> None:

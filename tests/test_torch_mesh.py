@@ -101,7 +101,8 @@ def test_facade_mesh_path_matches_dense():
         "factorize", "gauss_newton", "posterior_weights", "build", "build.record",
         "build.replay", "factorize.assemble",
         "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",
-        "gauss_newton.record", "gauss_newton.replay", "host_wait", "solver_host"}
+        "gauss_newton.record", "gauss_newton.replay", "gauss_newton.normal_state",
+        "gauss_newton.normal_step", "host_wait", "solver_host"}
     torch.testing.assert_close(mesh.z, dense.z, rtol=0, atol=1e-6 * float(dense.z.abs().max()))
     Xt = tpt.utils.test_grid(9, 9, device="cpu")
     e = dense.posterior.extend(Xt)

@@ -189,7 +189,8 @@ def test_canonical_solve_passes_gate_on_cpu():
         "factorize", "gauss_newton", "posterior_weights", "build", "build.record",
         "build.replay", "factorize.assemble",
         "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",
-        "gauss_newton.record", "gauss_newton.replay", "host_wait", "solver_host"}
+        "gauss_newton.record", "gauss_newton.replay", "gauss_newton.normal_state",
+        "gauss_newton.normal_step", "host_wait", "solver_host"}
 
 
 @pytest.mark.parametrize("time_dependent", [False, True])

@@ -15,12 +15,14 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 KEYS = {"build", "build.record", "build.replay", "factorize", "factorize.assemble",
         "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",
-        "gauss_newton", "gauss_newton.record", "gauss_newton.replay", "posterior_weights",
+        "gauss_newton", "gauss_newton.record", "gauss_newton.replay",
+        "gauss_newton.normal_state", "gauss_newton.normal_step", "posterior_weights",
         "host_wait", "solver_host"}
 CHILDREN = {"build": ("build.record", "build.replay"),
             "factorize": ("factorize.assemble", "factorize.cholesky", "factorize.inverse",
                           "factorize.quality", "factorize.bind"),
-            "gauss_newton": ("gauss_newton.record", "gauss_newton.replay")}
+            "gauss_newton": ("gauss_newton.record", "gauss_newton.replay",
+                             "gauss_newton.normal_state", "gauss_newton.normal_step")}
 
 
 def _elliptic(seed=0, n_dom=40, n_bdy=16):
