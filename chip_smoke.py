@@ -7,7 +7,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. build of every CUDA kernel of the path from ``csrc/`` (seconds, ptxas log:
-   registers, shared memory, spills; K2's instantiations apart);
+   registers, shared memory, spills; K2's instantiations apart); then
+   ``trsm_rowblock``: the row-block triangular-solve kernel against its
+   plain version and cuBLAS at the cells' shapes (:func:`trsm_rowblock_phase`);
 2. the Gram kernel K1 against its plain PyTorch version on the card, one
    block per launch: 10 kernel x operator-pair cases at 1500 x 700 plus a
    ragged 33 x 17 case, in f32 (limit 1e-5 of the block's scale) and f64
@@ -95,8 +97,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     reloaded factor equal to the original's in one K1 launch, under the
     gate; (b) phase 10's 16,200-row mesh factor and state saved, then
     reloaded in a child process that imports the port only
-    (:func:`checkpoint_child`): the factor bitwise, the whitened residual
-    within 1e-6 of its scale, 2 resumed steps, the extension (K1 launches
+    (:func:`checkpoint_child`): the factor and its diagonal-block inverses
+    bitwise, the whitened residual within 1e-6 of its scale, 2 resumed
+    steps, the extension (K1 launches
     counted) under the gate; the file's bytes and the save and load seconds
     beside phase 10's factorize seconds;
 16. ``compat``: the reference-API ``solver_GP`` flow on the card
@@ -363,6 +366,86 @@ def krylov_steps(tpt, dev):
         out[f"f32_darcy_{solver}"], _, ref = compare(fp, 2, ref, step_solver=solver,
                                                      cg_tol=1e-9, cg_maxiter=50)
     return out
+
+
+# The triangular solves of the Woodbury step's CG iteration (Darcy 3,000: the
+# u and phi factors, 61 columns) and a one-column solve on Burgers' factor,
+# all on blocks of 512 rows, GPSolver's default
+TRSM_CASES = (("darcy_u", 12750, 61), ("darcy_phi", 9000, 61), ("burgers", 21000, 1))
+
+
+def trsm_factor(tpt, dev, n, block=512, seed=0):
+    """A P = 1 factor of ``n`` rows in ``block``-row blocks, float32, of a
+    well-conditioned SPD matrix (``G G^T / n + I``, ``G`` Gaussian:
+    condition about 5), built as the mesh path builds one (f64 Cholesky,
+    refined diagonal-block inverses)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((n, n), generator=g, device=dev)
+    A = G @ G.T / n
+    A.diagonal().add_(1.0)
+    del G
+    return tpt.parallel.cholesky_blockcyclic(A, tpt.parallel.make_mesh(1, device=dev), block=block)
+
+
+def trsm_rowblock_phase(tpt, dev, cases=TRSM_CASES, reps=20):
+    """Phase ``trsm_rowblock``: the row-block kernel against its plain
+    version and ``torch.linalg.solve_triangular`` (``library_ms``, cuBLAS)
+    at the cells' shapes, forward and transposed: each one's error against
+    a float64 solve, two launches bitwise equal, device ms, and the bound
+    (reading the lower triangle once at the HBM rate against ``n^2 k``
+    flops at the f32 FFMA rate)."""
+    import torch
+    from nonlinpdes_gpsolver_tpu_torch.ops import trsm_rowblock as tr
+
+    rows, launches = [], tr.LAUNCHES
+    for name, n, k in cases:
+        fac = trsm_factor(tpt, dev, n)
+        L, W, n_pad = fac.matrix, fac.diag_inv, fac.n_pad
+        V = torch.randn((n, k), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        Vp = torch.zeros((n_pad, k), device=dev)
+        Vp[:n] = V
+        L64 = L.double()
+        for trans in (False, True):
+            before = tr.LAUNCHES
+            got = tr.trsm_rowblock(L, W, V, trans)
+            again = tr.trsm_rowblock(L, W, V, trans)
+            torch.cuda.synchronize()
+            check(tr.LAUNCHES - before == 2, f"trsm {name}: {tr.LAUNCHES - before} launches")
+            check(torch.equal(got, again), f"trsm {name} trans={trans}: two launches differ")
+            plain = tr.trsm_rowblock_plain(L, W, V, trans)
+            lib = torch.linalg.solve_triangular(L.mT if trans else L, Vp, upper=trans)
+            truth = torch.linalg.solve_triangular(L64.mT if trans else L64, Vp.double(), upper=trans)
+            scale = float(truth.abs().max())
+
+            def err(x):
+                return float((x.double() - truth).abs().max()) / scale
+
+            e_kernel, e_plain, e_lib = err(got), err(plain), err(lib)
+            check(math.isfinite(e_kernel) and e_kernel <= min(4 * max(e_lib, e_plain), 50 * 2.0**-23),
+                  f"trsm {name} trans={trans}: kernel error {e_kernel:.3e}, cuBLAS {e_lib:.3e}, "
+                  f"plain {e_plain:.3e}")
+            ms = time_ms(lambda: tr.trsm_rowblock(L, W, V, trans), reps)
+            plain_ms = time_ms(lambda: tr.trsm_rowblock_plain(L, W, V, trans), max(2, reps // 4))
+            lib_ms = time_ms(lambda: torch.linalg.solve_triangular(L.mT if trans else L, Vp,
+                                                                   upper=trans), reps)
+            flops = n_pad * n_pad * k
+            nbytes = 4 * (n_pad * n_pad // 2 + n_pad * tr.STEP // 2 + 2 * n_pad * k)
+            t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append({"case": name, "n": n, "n_pad": n_pad, "k": k, "block": fac.block,
+                         "trans": trans, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": max(t_ops, t_bytes), "bound_ops_ms": t_ops,
+                         "bound_bytes_ms": t_bytes,
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "roofline_pct": 100 * max(t_ops, t_bytes) / ms,
+                         "rel_err": e_kernel, "plain_rel_err": e_plain, "library_rel_err": e_lib,
+                         "bitwise_repeat": True})
+        del fac, L, W, L64
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": tr.LAUNCHES - launches, "cases": rows}
 
 
 def mesh_steps(tpt, dev, mesh=None, dtypes=None):
@@ -777,7 +860,8 @@ def structure_reuse(tpt, dev, names=("canonical", "burgers", "eikonal", "darcy",
         row = {"e2e_seconds": e2e, "gn_seconds": res.timers["gauss_newton"],
                "phase_seconds": res.timers, "captures": graphs.CAPTURES,
                "replays": graphs.REPLAYS, "host_reads": graphs.HOST_READS,
-               "k1_launches": launches[0], "k2_launches": launches[1], "bind": bound_as(),
+               "k1_launches": launches[0], "k2_launches": launches[1],
+               "trsm_launches": launches[2], "bind": bound_as(),
                "guest_loads": graphs.GUEST_LOADS,
                "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None,
                "max_memory_reserved": torch.cuda.max_memory_reserved() if cuda else None,
@@ -935,15 +1019,17 @@ def sync(dev=None):
 
 
 def counts():
-    from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
+    """Launches since :func:`zero_counts`: K1, K2 and the row-block
+    triangular-solve kernel."""
+    from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile, trsm_rowblock
 
-    return gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES
+    return gram_tile.LAUNCHES, gram_tile.K2_LAUNCHES, trsm_rowblock.LAUNCHES
 
 
 def zero_counts():
-    from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
+    from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile, trsm_rowblock
 
-    gram_tile.LAUNCHES = gram_tile.K2_LAUNCHES = 0
+    gram_tile.LAUNCHES = gram_tile.K2_LAUNCHES = trsm_rowblock.LAUNCHES = 0
 
 
 def check_k2(what, plan, sets, d_r, d_c):
@@ -961,7 +1047,7 @@ def check_k2(what, plan, sets, d_r, d_c):
     plan.run_equilibrated(sets, d_r, d_c, out=slot)
     sync()
     after = counts()
-    check(after == (before[0], before[1] + 1), f"K2 {what}: launches {before} -> {after}")
+    check(after[:2] == (before[0], before[1] + 1), f"K2 {what}: launches {before} -> {after}")
     ref = torch.empty((h, S), dtype=sets[0].dtype, device=sets[0].device)
     plan._plain_equilibrated(sets, d_r, d_c, ref)
     rel, diff = blockwise_rel_err(plan, slot, ref)
@@ -1166,7 +1252,7 @@ def mesh_report(res, metrics, timing, launches, peak):
             "gn_ms_per_cg_iter": gn / sum(iters) * 1e3 if sum(iters) else None,
             "converged_finite": bool(res.state.converged_finite),
             "k1_launches": launches[0], "k2_launches": launches[1],
-            "max_memory_allocated": peak}
+            "trsm_launches": launches[2], "max_memory_allocated": peak}
 
 
 def mesh_phase(w, repeats, auto=False, keep=None):
@@ -1417,7 +1503,7 @@ def mesh_nccl_rank(rank, world, tmp, backend, sizes, device=None):
     graphs.reset_counts()
     comm.reset_counts()
     res, err, secs = run(prob)
-    k1, k2 = counts()
+    k1, k2, trsm = counts()
     out = {"rank": rank, "ranks": mesh.size, "backend": mesh.backend, "device": str(dev),
            "collectives": comm.COLLECTIVES, "cold": cold_counts,
            "warm": {"captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
@@ -1427,7 +1513,7 @@ def mesh_nccl_rank(rank, world, tmp, backend, sizes, device=None):
            "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None,
            "rungs": res.posterior.fp.rungs, "cg_iters": res.state.cg_iters.tolist(),
            "step_solver": res.state.step_solver, "k1_launches": k1, "k2_launches": k2,
-           "converged_finite": bool(res.state.converged_finite)}
+           "trsm_launches": trsm, "converged_finite": bool(res.state.converged_finite)}
     if rank == 0:
         torch.save(res.z.cpu(), os.path.join(tmp, "z_nccl.pt"))
     out["gn"], st = gn_replayed_and_eager(res.posterior.fp, steps)
@@ -1701,10 +1787,10 @@ def checkpoint_dense(tpt, fp, state, Xt, truth):
 def checkpoint_child(path, aux, out_path):
     """Phase checkpoint (b), in a child process that imports the port only
     (jax and the JAX package blocked): reload the 16,200-row mesh factor and
-    state saved by the parent, check the factor bitwise (its sha256) and the
-    whitened residual within 1e-6 of its scale of the saved run's (the
-    diagonal-block inverses rebuilt), resume 2 GN steps, and extend to the
-    60x60 grid with K1's launches counted, under the gate."""
+    state saved by the parent, check the factor bitwise (its sha256), its
+    diagonal-block inverses bitwise (the file holds them) and the whitened
+    residual within 1e-6 of its scale of the saved run's, resume 2 GN steps,
+    and extend to the 60x60 grid with K1's launches counted, under the gate."""
     import importlib.abc
     import sys
 
@@ -1738,8 +1824,7 @@ def checkpoint_child(path, aux, out_path):
     out["z_bitwise"] = torch.equal(st.z.cpu(), saved["z"])
     r = dfp.whitened_residual(st.z).cpu()
     out["residual_rel_diff"] = float((r - saved["r"]).abs().max() / saved["r"].abs().max())
-    out["diag_inv_rel_diff"] = float((fac.diag_inv.cpu() - saved["diag_inv"]).abs().max()
-                                     / saved["diag_inv"].abs().max())
+    out["diag_inv_bitwise"] = torch.equal(fac.diag_inv.cpu(), saved["diag_inv"])
     out["saved_last_loss"] = float(st.losses[-1])
     t0 = time.perf_counter()
     resumed = gn_solve_distributed(dfp, z0=st.z, max_iter=2)
@@ -1797,7 +1882,8 @@ def checkpoint_mesh(dfp, state, factorize_seconds, sizes=(7800, 600)):
     out["child"] = child
     out["reload_faster_than_refactorize"] = child["load_seconds"] < factorize_seconds
     check(not child["jax_imported"], f"checkpoint child imported {child['jax_imported']}")
-    check(child["factor_bitwise"] and child["z_bitwise"], "checkpoint: mesh factor or z not bitwise")
+    check(child["factor_bitwise"] and child["z_bitwise"] and child["diag_inv_bitwise"],
+          "checkpoint: mesh factor, its diagonal-block inverses or z not bitwise")
     check(child["residual_rel_diff"] <= 1e-6,
           f"checkpoint: whitened residual {child['residual_rel_diff']:.3e} of its scale apart")
     check(child["resumed_losses"][-1] <= 1.01 * child["saved_last_loss"],
@@ -1908,6 +1994,19 @@ def main():
         ptxas = [ln.strip() for ln in fh
                  if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit("build", kernel="gram_tile", seconds=build_s, ptxas=ptxas, k2_ptxas=k2_ptxas(ptxas))
+
+    # -- 1b. the row-block triangular-solve kernel -------------------------------
+    t0 = time.perf_counter()
+    from nonlinpdes_gpsolver_tpu_torch.ops import trsm_rowblock
+    trsm_rowblock._kernel_lib()
+    trsm_build_s = time.perf_counter() - t0
+    with open(str(_build.library_path("trsm_rowblock")) + ".log") as fh:
+        trsm_ptxas = [ln.strip() for ln in fh
+                      if "entry function" in ln or "registers" in ln or "spill" in ln]
+    t_phase = time.perf_counter()
+    trsm = trsm_rowblock_phase(tpt, dev)
+    emit("trsm_rowblock", build_seconds=trsm_build_s, ptxas=trsm_ptxas,
+         seconds=time.perf_counter() - t_phase, card=card, **trsm)
 
     # -- 2. K1 against its plain version --------------------------------------
     kernels = {
@@ -2275,7 +2374,7 @@ def main():
          dense_repeats=big_repeats, dense_phase_seconds=big_res_timers, test_l2=err.l2,
          dense_test_l2=big_err.l2, rungs=res.posterior.fp.rungs, cg_iters=res.state.cg_iters.tolist(),
          factor_stats=res.posterior.fp.stats, k1_launches=mvd_launches[0],
-         k2_launches=mvd_launches[1], max_memory_allocated=mvd_peak,
+         k2_launches=mvd_launches[1], trsm_launches=mvd_launches[2], max_memory_allocated=mvd_peak,
          dense_max_memory_allocated=peak, auto_mesh_gram_rows=_AUTO_MESH_GRAM_ROWS,
          k2_windows=mvd_k2_rows, k2_total=mvd_k2_total, k1_launches_timed=mvd_k1_rows,
          k1_total=mvd_k1_total, flop_model_tflops=model_tflops(big, res.timers, 4))
@@ -2291,6 +2390,7 @@ def main():
     w = tpt.workloads.darcy_past_wall(device=dev)
     mesh_darcy = mesh_phase(w, 0)
     check(mesh_darcy["step_solver"] == "woodbury", f"darcy_past_wall took {mesh_darcy['step_solver']}")
+    check(mesh_darcy["trsm_launches"] > 0, "darcy_past_wall's warm solve launched no row-block solve")
     darcy_k1_rows, darcy_k1_total = time_k1(mesh_k1_cases(tpt, w.problem, w.X_test, ("u", "a")), 5, 1)
     darcy_k2_rows, darcy_k2_total = time_k2(
         [case for blk in w.problem.blocks for case in window_cases(blk, w.problem.points, w.nugget)],
@@ -2423,6 +2523,22 @@ def main():
                for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
             **{f"k2_vs_plain_{k}": v for k, v in k2["rank_mapped_total"].items()},
         },
+    }, {
+        "name": "trsm_rowblock",
+        "route": "cuda",
+        "source": "nonlinpdes_gpsolver_tpu_torch/csrc/trsm_rowblock.cu",
+        "replaces": "torch.linalg.solve_triangular (cuBLAS trsm) at P = 1; counterpart of "
+                    "nonlinpdes_gpsolver_tpu/parallel/cholesky.py:368 and :397 (plain JAX)",
+        "launches": mesh_darcy["trsm_launches"],
+        "launches_per": "darcy_past_wall's warm solve (phase mesh_darcy)",
+        "phase_launches": trsm["launches"],
+        "max_rel_err": max(r["rel_err"] for r in trsm["cases"]),
+        **{key: sum(r[key] for r in trsm["cases"] if r["case"].startswith("darcy"))
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "checked": True,
+        "per": "one CG iteration's four solves at Darcy's shapes (u and phi, forward and "
+               "transposed, 61 columns), summed, f32",
+        "cases": trsm["cases"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

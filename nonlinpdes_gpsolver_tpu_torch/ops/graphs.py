@@ -43,8 +43,11 @@ of a guest's factors into the guest entry) and ``RETAINED_BYTES`` (the factor, d
 released entries keep; a gauge, not reset); and the data evaluation's
 ``EVAL_CAPTURES``, ``EVAL_REPLAYS`` and ``EVAL_EAGER`` (keys left eager);
 and ``STEP_SOLVERS``, the Gauss-Newton loops run by the step solver they
-were routed to (:func:`routed`). :func:`reset_counts` zeroes all but
-``RETAINED_BYTES``.
+were routed to (:func:`routed`); and ``TRSM_ROUTES``, the P = 1 triangular
+solves issued from Python (eager or being recorded; a replay is not
+counted) by the route they took, ``"kernel"`` (``ops/trsm_rowblock.py``) or
+``"library"`` (``torch.linalg.solve_triangular``) (:func:`trsm_routed`).
+:func:`reset_counts` zeroes all but ``RETAINED_BYTES``.
 
 The current solve's record (``utils/tracing.py``) takes a capture's span
 ``gauss_newton.record``, the host's time to queue replays
@@ -79,6 +82,7 @@ EVAL_CAPTURES = 0
 EVAL_REPLAYS = 0
 EVAL_EAGER = 0
 STEP_SOLVERS: Dict[str, int] = {}
+TRSM_ROUTES: Dict[str, int] = {"kernel": 0, "library": 0}
 
 _enabled = True
 capturing = False  # a capture is in progress (no graph may be freed meanwhile)
@@ -91,11 +95,17 @@ def reset_counts() -> None:
     ENTRIES, REBINDS, UNSHARED, GUESTS, GUEST_LOADS = 0, 0, 0, 0, 0
     EVAL_CAPTURES, EVAL_REPLAYS, EVAL_EAGER = 0, 0, 0
     STEP_SOLVERS.clear()
+    TRSM_ROUTES.update(kernel=0, library=0)
 
 
 def routed(step_solver: str) -> None:
     """Count a Gauss-Newton loop run by ``step_solver``."""
     STEP_SOLVERS[step_solver] = STEP_SOLVERS.get(step_solver, 0) + 1
+
+
+def trsm_routed(route: str) -> None:
+    """Count a P = 1 triangular solve that took ``route``."""
+    TRSM_ROUTES[route] += 1
 
 
 @contextlib.contextmanager

@@ -9,10 +9,13 @@ refined inverses of the ``B x B`` diagonal blocks (``diag_inv``,
 ``(nb, B, B)``) are replicated on every rank.
 
 At P = 1 the shard is the dense row-major lower factor (its padding rows
-the identity), and the triangular solves are ``torch.linalg.solve_triangular``
-on it: one call over the factor, where the JAX package's panel loop would
-make ``nb`` steps. Across ranks they are the JAX package's panel loops over
-the ``diag_inv`` blocks:
+the identity), and a triangular solve takes the route :func:`trsm_route`
+picks: a narrow float32 panel on the card goes to the row-block kernel
+(``ops/trsm_rowblock.py``, the JAX package's panel loop over ``diag_inv``
+in one launch), every other solve to ``torch.linalg.solve_triangular``
+(cuBLAS runs wide panels as GEMM updates near the FFMA rate; the CPU and
+f64 keep their numbers). Across ranks they are the JAX package's panel
+loops over the ``diag_inv`` blocks:
 
 * forward (``:368``): the owner of block ``k`` computes
   ``y_k = W_kk (v_k - L_{k,<k} y_{<k})`` and broadcasts it, ``B x m``
@@ -43,7 +46,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import graphs
 from ..ops.linalg import cholesky_f64, newton_refine_tri_inverse, tri_inverse
+from ..ops.trsm_rowblock import MAX_COLS, STEP, trsm_rowblock
 from ..utils import tracing
 from . import comm
 from .mesh import Mesh
@@ -165,12 +170,13 @@ def diag_inverses(local: torch.Tensor, mesh: Mesh, axis: str, block: int,
     """The ``(nb, B, B)`` Newton-refined inverses of the factor's diagonal
     blocks (``:249``), for a factor that arrived without them: each rank
     inverts its own blocks, then one ``all_gather`` (written into ``out``
-    where given)."""
+    where given). Row-major, as the fused factorization writes them and the
+    row-block kernel reads them."""
     nbl = local.shape[0]
     nb = nbl * mesh.size
     g = _global_blocks(mesh, nbl, local.device)
     blocks = local.view(nbl, block, nb, block)[torch.arange(nbl, device=local.device), :, g]
-    mine = newton_refine_tri_inverse(blocks, tri_inverse(blocks))
+    mine = newton_refine_tri_inverse(blocks, tri_inverse(blocks)).contiguous()
     winvs = _interleave(comm.all_gather(mesh, mine))
     return winvs if out is None else out.copy_(winvs)
 
@@ -332,6 +338,21 @@ def _trsm_transposed(factor: BlockCyclicFactor, V: torch.Tensor, shard_cols: boo
     return Y
 
 
+def trsm_route(device: torch.device, dtype: torch.dtype, P: int, k: int, block: int) -> str:
+    """Where a triangular solve of ``k`` columns on a factor of ``block``-row
+    blocks over ``P`` ranks goes: ``"kernel"`` (the row-block kernel) for a
+    float32 panel of at most ``MAX_COLS`` columns on a card at P = 1 with
+    blocks of whole 256-row steps, else ``"library"``. The kernel takes even
+    one column, where it is bound by reading the factor: on Burgers'
+    21,000-row factor in 512-row blocks it took 0.710 ms (forward) and 0.707
+    ms (transposed) against cuBLAS's 1.422 and 1.192 (NVIDIA H100 80GB HBM3,
+    700 W)."""
+    if P == 1 and device.type == "cuda" and dtype == torch.float32 and k <= MAX_COLS \
+            and block % STEP == 0:
+        return "kernel"
+    return "library"
+
+
 def trsm_blockcyclic(factor: BlockCyclicFactor, V: torch.Tensor, trans: bool = False,
                      shard_cols: bool = False) -> torch.Tensor:
     """``L^{-1} V`` (or ``L^{-T} V`` with ``trans``) for ``V`` of ``n`` rows,
@@ -342,17 +363,24 @@ def trsm_blockcyclic(factor: BlockCyclicFactor, V: torch.Tensor, trans: bool = F
     the solve on the zero-padded ``V`` is exact."""
     if V.shape[0] != factor.n:
         raise ValueError(f"V has {V.shape[0]} rows, factor expects {factor.n}")
-    col = _padded(V[:, None] if V.dim() == 1 else V, factor.n_pad)
+    col = V[:, None] if V.dim() == 1 else V
     if factor.mesh.size == 1:
         L = factor.matrix
-        if trans:
-            Y = torch.linalg.solve_triangular(L.mT, col, upper=True)
+        route = trsm_route(L.device, L.dtype, 1, col.shape[1], factor.block)
+        graphs.trsm_routed(route)
+        if route == "kernel":
+            if factor.diag_inv is None:
+                factor.diag_inv = diag_inverses(factor.local, factor.mesh, factor.axis, factor.block)
+            Y = trsm_rowblock(L, factor.diag_inv, col, trans)
+        elif trans:
+            Y = torch.linalg.solve_triangular(L.mT, _padded(col, factor.n_pad), upper=True)
         else:
-            Y = torch.linalg.solve_triangular(L, col, upper=False)
+            Y = torch.linalg.solve_triangular(L, _padded(col, factor.n_pad), upper=False)
     else:
         if factor.diag_inv is None:
             factor.diag_inv = diag_inverses(factor.local, factor.mesh, factor.axis, factor.block)
-        Y = (_trsm_transposed if trans else _trsm_forward)(factor, col, shard_cols)
+        Y = (_trsm_transposed if trans else _trsm_forward)(factor, _padded(col, factor.n_pad),
+                                                           shard_cols)
     Y = Y[: factor.n]
     return Y[:, 0] if V.dim() == 1 else Y
 

@@ -22,8 +22,14 @@ What the port holds and the format does not, bridged:
   escalation starts at scale 1 for any nugget of at least 4 eps of the dtype,
   and for a smaller nugget this count includes the start above 1;
 * ``GNState.cg_iters`` is not in the file and loads as zeros;
-* the mesh path's ``BlockCyclicFactor.diag_inv`` is not in the file and is
-  rebuilt on load by ``parallel/cholesky.py::diag_inverses``;
+* the mesh path's ``BlockCyclicFactor.diag_inv`` (the refined inverses of
+  the diagonal blocks, which the triangular solves read) is written as the
+  extra key ``diag_inv__{block}``, the global ``(nb, B, B)`` array, which the
+  JAX loader ignores, so that a resumed solve reproduces the saved one: the
+  fused factorization takes them from its superblock inverses, and
+  inverting the stored float32 blocks again gives other bits. A file
+  without the key (the JAX package's) gets them rebuilt on load by
+  ``parallel/cholesky.py::diag_inverses``;
   ``DistributedFactoredProblem.quality`` and ``stats`` load empty;
 * across ranks, the file holds the global ``(nb, B, n_pad)`` array in the
   saving mesh's slot order: :func:`save_distributed_state` gathers it to
@@ -170,6 +176,8 @@ def save_distributed_state(path, dfp: DistributedFactoredProblem,
         meta["blocks"].append({"name": name, "block": fac.block, "n": fac.n, "n_pad": fac.n_pad,
                                "axis": fac.axis, "mesh_size": fac.mesh.size})
         payload[f"factor_local__{name}"] = _global_blocks(fac)
+        if fac.diag_inv is not None and dfp.mesh.rank == 0:
+            payload[f"diag_inv__{name}"] = _host(fac.diag_inv)
     for name, cs in dfp.col_scales.items():
         payload[f"col_scale__{name}"] = _host(cs)
     if state is not None:
@@ -283,7 +291,8 @@ def load_distributed_state(path, problem: CollocationProblem, mesh: Mesh, axis: 
     Every rank of the mesh calls it: each reads the file and takes its own
     row blocks, re-dealt when the file was saved on a mesh of another size
     (``nb`` must divide by the new size), then the diagonal-block inverses
-    are rebuilt (one ``all_gather``)."""
+    are read from the file, or rebuilt (one ``all_gather``) where it holds
+    none."""
     to = _converter(problem)
     with np.load(Path(path)) as data:
         meta = _read_meta(data, problem)
@@ -312,8 +321,10 @@ def load_distributed_state(path, problem: CollocationProblem, mesh: Mesh, axis: 
                 local = put(b.name, "local",
                             deal_saved_blocks(data[f"factor_local__{b.name}"], bm["mesh_size"],
                                               mesh))
+                key_inv = f"diag_inv__{b.name}"
                 diag_inv = put(b.name, "diag_inv",
-                               diag_inverses(local, mesh, axis, int(bm["block"])))
+                               data[key_inv] if key_inv in data.files
+                               else diag_inverses(local, mesh, axis, int(bm["block"])))
                 factors[b.name] = BlockCyclicFactor(local, mesh, axis, int(bm["block"]),
                                                     int(bm["n"]), int(bm["n_pad"]), diag_inv)
                 if b.name in meta.get("has_col_scales", []):

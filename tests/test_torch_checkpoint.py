@@ -12,9 +12,11 @@ reloads the same file at P = 1.
 Tolerances: a factor and z round-trip bitwise (the same f64 arrays); the
 whitened residuals agree within 1e-8 of their scale between the packages
 (the factor tolerance of ``tests/test_torch_linalg.py`` and the JAX test:
-the diagonal-block inverses are rebuilt on load and the two packages' solves
-round differently), and within 1e-10 between the port at P = 4, 2 and 1 (the
-same factor; panel loops against one ``solve_triangular``).
+a JAX file holds no diagonal-block inverses, the JAX loader ignores the
+port's, so they are rebuilt on load, and the two packages' solves round
+differently), and within 1e-10 between the port at P = 4, 2 and 1 (the
+same factor; panel loops against one ``solve_triangular``); a port file
+reloaded by the port at P = 1 is bitwise.
 """
 
 import subprocess
@@ -163,11 +165,16 @@ def test_flop_model_matches_jax():
 
 
 def test_distributed_checkpoint_roundtrip(tmp_path):
-    """The mesh path's factor round-trips at P = 1: z bitwise, the nugget
-    scales and rungs, the rebuilt diagonal-block inverses and the whitened
-    residual within 1e-10 of the original's."""
+    """The mesh path's factor round-trips at P = 1: z, the factor and its
+    diagonal-block inverses bitwise (the file holds them), the nugget scales
+    and rungs, and the whitened residual bitwise the original's. The saved
+    inverses are moved one unit in the last place off what inverting the
+    factor's blocks gives (here, in f64, the fused factorization's own are
+    those bits), so that only the file can give them back."""
     prob = _problem()
     dfp = tdist.factorize_distributed(prob, MESH1, nugget=1e-9, block=8)
+    W = dfp.factors["u"].diag_inv
+    W.copy_(torch.nextafter(W, torch.full_like(W, float("inf"))))
     st = tdist.gn_solve_distributed(dfp, max_iter=2)
     ckpt = tmp_path / "dist.npz"
     tck.save_distributed_state(ckpt, dfp, st)
@@ -175,11 +182,31 @@ def test_distributed_checkpoint_roundtrip(tmp_path):
     dfp2, st2 = tck.load_distributed_state(ckpt, prob, MESH1)
     assert torch.equal(st2.z, st.z)
     assert torch.equal(dfp2.factors["u"].local, dfp.factors["u"].local)
+    assert torch.equal(dfp2.factors["u"].diag_inv, dfp.factors["u"].diag_inv)
     assert dfp2.nugget_scales == dfp.nugget_scales and dfp2.rungs == dfp.rungs
-    _close_to_scale(dfp2.factors["u"].diag_inv, dfp.factors["u"].diag_inv, 1e-10)
-    _close_to_scale(dfp2.whitened_residual(st2.z), dfp.whitened_residual(st.z), 1e-10)
+    assert torch.equal(dfp2.whitened_residual(st2.z), dfp.whitened_residual(st.z))
     st3 = tdist.gn_solve_distributed(dfp2, z0=st2.z, max_iter=1)
     assert float(st3.losses[-1]) <= float(st2.losses[-1]) * 1.01
+
+
+def test_distributed_checkpoint_without_inverses_rebuilds_them(tmp_path):
+    """A mesh file without ``diag_inv__{block}`` (as the JAX package writes
+    them) loads with the inverses rebuilt from the factor, row-major: within
+    1e-10 of the saved ones and the whitened residual within 1e-10 of the
+    original's."""
+    prob = _problem()
+    dfp = tdist.factorize_distributed(prob, MESH1, nugget=1e-9, block=8)
+    st = tdist.gn_solve_distributed(dfp, max_iter=2)
+    tck.save_distributed_state(tmp_path / "full.npz", dfp, st)
+    with np.load(tmp_path / "full.npz") as data:
+        assert data["diag_inv__u"].shape == tuple(dfp.factors["u"].diag_inv.shape)
+        np.savez(tmp_path / "bare.npz", **{k: data[k] for k in data.files if k != "diag_inv__u"})
+
+    dfp2, st2 = tck.load_distributed_state(tmp_path / "bare.npz", prob, MESH1)
+    assert torch.equal(st2.z, st.z)
+    assert dfp2.factors["u"].diag_inv.is_contiguous()
+    _close_to_scale(dfp2.factors["u"].diag_inv, dfp.factors["u"].diag_inv, 1e-10)
+    _close_to_scale(dfp2.whitened_residual(st2.z), dfp.whitened_residual(st.z), 1e-10)
 
 
 # -- across packages -------------------------------------------------------------------
