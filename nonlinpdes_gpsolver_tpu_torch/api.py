@@ -16,7 +16,10 @@ takes the mesh path on its device: the fused assemble-and-factorize, the
 distributed Gauss-Newton steps and :class:`~.solvers.distributed.
 DistributedPosterior` (``solvers/distributed.py``). A mesh of P ranks
 (``parallel.make_mesh(P)`` in a process group of P ranks, each rank
-running the same program) spreads that path over them.
+running the same program) spreads that path over them. :class:`GPSolver`
+picks the path once, when it is made: its factorization, its Gauss-Newton
+function and its posterior class, on the skeleton both paths share
+(``solvers/gn.py``).
 
 On the card the factorization defers its quality verdicts
 (``defer_quality``, the JAX package's optimistic pipeline) and the
@@ -37,6 +40,7 @@ solve's one host read (no synchronize), their pieces, and the host's waits.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Optional
 
@@ -45,6 +49,7 @@ import torch
 
 from .models.spec import CollocationProblem
 from .ops.backend import is_accelerator
+from .ops.linalg import ESCALATION, MAX_ESCALATIONS
 from .parallel.mesh import Mesh, make_mesh
 from .solvers.distributed import DistributedPosterior, factorize_distributed, gn_solve_distributed
 from .solvers.gn import GNState, factorize, gn_solve
@@ -136,27 +141,20 @@ class GPSolver:
             self.mesh = mesh
             if defer_quality is None:
                 defer_quality = is_accelerator(problem.device)
-            self._defer = bool(defer_quality)
-            self._fact_args = dict(nugget=nugget, nugget_type=nugget_type,
-                                   solve_mode=solve_mode, block=mesh_block)
+            if mesh is None:
+                factor, path = factorize, dict(solve_mode=solve_mode)
+                self._gn_solve, self._posterior = gn_solve, Posterior
+            else:
+                factor, path = factorize_distributed, dict(mesh=mesh, block=mesh_block)
+                self._gn_solve, self._posterior = gn_solve_distributed, DistributedPosterior
+            self._factor = functools.partial(factor, nugget=nugget, nugget_type=nugget_type,
+                                             defer_quality=bool(defer_quality), **path)
             self._start_scales: dict = {}
             self._factorize()
 
     def _factorize(self):
-        a = self._fact_args
         with self.trace.phase("factorize", self.problem.device):
-            if self.mesh is not None:
-                self.fp = factorize_distributed(
-                    self.problem, self.mesh, nugget=a["nugget"], nugget_type=a["nugget_type"],
-                    block=a["block"], defer_quality=self._defer,
-                    start_scales=self._start_scales or None,
-                )
-            else:
-                self.fp = factorize(
-                    self.problem, nugget=a["nugget"], nugget_type=a["nugget_type"],
-                    solve_mode=a["solve_mode"], defer_quality=self._defer,
-                    start_scales=self._start_scales or None,
-                )
+            self.fp = self._factor(self.problem, start_scales=self._start_scales or None)
         for name, scale in self.fp.nugget_scales.items():
             if self.fp.rungs[name]:
                 log.warning(
@@ -193,18 +191,17 @@ class GPSolver:
                            trace=self.trace)
 
     def _solve(self, kw):
-        on_mesh = self.mesh is not None
         dev = self.problem.device
-        for _ in range(8):
+        for _ in range(MAX_ESCALATIONS):
             with self.trace.phase("gauss_newton", dev):
-                state = (gn_solve_distributed if on_mesh else gn_solve)(self.fp, **kw)
+                state = self._gn_solve(self.fp, **kw)
             with self.trace.phase("posterior_weights", dev):
-                post = (DistributedPosterior if on_mesh else Posterior)(self.fp, state.z)
+                post = self._posterior(self.fp, state.z)
             bad, (finite, *losses) = self.fp.resolve_pending((state.converged_finite, state.losses))
             if not bad:
                 return state, post, finite, losses
             for name in bad:
-                self._start_scales[name] = 10.0 * self.fp.nugget_scales[name]
+                self._start_scales[name] = ESCALATION * self.fp.nugget_scales[name]
             log.warning(
                 "problem %r: deferred quality verdict failed for block(s) %s; factoring "
                 "again with the nugget escalated", self.problem.name, bad,

@@ -7,10 +7,11 @@ because the TPU's native Cholesky and TRSM ran at bf16-pass precision; on
 the card these are cuSOLVER/cuBLAS calls with TF32 off (set when the
 package is imported), so only the numerical safeguards carry over:
 
-* the equilibrated factorization with nugget escalation, where a rung is
-  accepted only if ``cholesky_ex`` reports success and the factor is finite
-  (the factorization runs in f64, see :func:`equilibrated_cholesky`), and
-  the plain one of ``factorize(equilibrate=False)``
+* the nugget-escalation ladder both paths climb (``MAX_ESCALATIONS``,
+  below): the equilibrated factorization, where a rung is accepted only if
+  ``cholesky_ex`` reports success and the factor is finite (the
+  factorization runs in f64, see :func:`equilibrated_cholesky`), and the
+  plain one of ``factorize(equilibrate=False)``
   (:func:`cholesky_with_retry`);
 * the Newton refinement of the triangular inverse;
 * the ``1 + 32 eps`` floor on the unit diagonal of the equilibrated
@@ -26,6 +27,7 @@ into that storage, which its recorded Gauss-Newton loop reads
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -34,7 +36,30 @@ import torch
 from ..utils import tracing
 from .backend import is_accelerator
 
+# The nugget-escalation ladder of both paths (the JAX package's policy): a
+# block starts at escalation_start, a factor that fails is made again at
+# ESCALATION times its scale, at most MAX_ESCALATIONS times, and a whitening
+# verdict passes (accepted) below QUALITY_TOL.
 MAX_ESCALATIONS = 8
+ESCALATION = 10.0
+QUALITY_TOL = 1e-2
+
+
+def escalation_start(nugget: float, dtype) -> float:
+    """``max(1, 4 eps / nugget)``: a nugget below a few ulps of the working
+    dtype is no regularization at all."""
+    return max(1.0, (4.0 * torch.finfo(dtype).eps) / max(nugget, 1e-300))
+
+
+def accepted(quality: float, tol: float = QUALITY_TOL) -> bool:
+    """Whether a verdict read on the host passes: finite and below ``tol``."""
+    return math.isfinite(quality) and quality < tol
+
+
+def rungs_climbed(scale: float, start: float) -> int:
+    """The tenfold escalations from ``start`` to ``scale``."""
+    return round(math.log10(scale / start))
+
 
 _PROBES: Dict[tuple, torch.Tensor] = {}
 
@@ -76,7 +101,7 @@ def equilibrated_cholesky(
 
     ``D`` is the diagonal of the regularized matrix. Starting at ``s = s0``,
     each rung whose factor fails (``info != 0`` or non-finite) retries at
-    ``10 s``, for at most ``MAX_ESCALATIONS`` attempts. Returns
+    ``ESCALATION s``, for at most ``MAX_ESCALATIONS`` attempts. Returns
     ``(L, d_isqrt, s, rungs)`` with ``s`` the scale the accepted factor used
     and ``rungs`` the number of escalations it took.
 
@@ -105,21 +130,23 @@ def equilibrated_cholesky(
                 return L.to(theta.dtype), d_isqrt, s, rung
             return out[0].copy_(L), out[1].copy_(d_isqrt), s, rung
         del L
-        s *= 10.0
+        s *= ESCALATION
     raise FloatingPointError(
         f"Cholesky failed after {MAX_ESCALATIONS} nugget escalations from "
-        f"{s0:g}x (last scale {s / 10.0:g}x)"
+        f"{s0:g}x (last scale {s / ESCALATION:g}x)"
     )
 
 
 def cholesky_with_retry(
-    theta: torch.Tensor, nug_diag: torch.Tensor, max_retries: int = 6, escalation: float = 10.0,
+    theta: torch.Tensor, nug_diag: torch.Tensor, max_retries: int = 6,
+    escalation: float = ESCALATION,
     out: Optional[torch.Tensor] = None, work: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, float]:
     """``(L, s)``: the lower Cholesky factor of ``theta + s diag(nug)``,
     unequilibrated, with ``s`` escalated tenfold from 1 until it succeeds,
     for at most ``max_retries`` attempts (the JAX package's
-    ``ops/linalg.py::cholesky_with_retry``, its error text included).
+    ``ops/linalg.py::cholesky_with_retry``, its 6 attempts and its error
+    text included).
 
     The regularized matrix is formed and factored in f64 whatever
     ``theta``'s dtype, as :func:`equilibrated_cholesky` does,

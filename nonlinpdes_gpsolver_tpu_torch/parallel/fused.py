@@ -59,7 +59,8 @@ import torch
 
 from ..ops.assembly import cross_gram, observable_sizes
 from ..ops.gram_tile import GramPlan
-from ..ops.linalg import cholesky_f64, newton_refine_tri_inverse, probe_vector, tri_inverse
+from ..ops.linalg import (ESCALATION, MAX_ESCALATIONS, cholesky_f64, newton_refine_tri_inverse,
+                          probe_vector, tri_inverse)
 from ..utils import tracing
 from . import comm
 from .cholesky import BlockCyclicFactor, first_slot, local_row, matvec_blockcyclic, pad_to_blocks
@@ -237,12 +238,13 @@ def assemble_factor_fused(kernel, observables, points, mesh: Mesh, axis: str = "
                           block: int = 256, nugget: float = 1e-10,
                           nugget_type: str = "adaptive", nugget_scale: float = 1.0,
                           chunk_cols: int = 4096, superblock_cols: int = 2048,
-                          max_attempts: int = 8, out=None) -> FusedFactor:
+                          max_attempts: int = MAX_ESCALATIONS, out=None) -> FusedFactor:
     """Factor the never-materialized equilibrated regularized Gram matrix
     (``:395``), escalating the nugget scale tenfold from ``nugget_scale``
     while a superblock diagonal fails, for at most ``max_attempts``
-    attempts. ``superblock_cols`` is the panel width ``S`` (the JAX
-    package's 2048, measured on its accelerator; a multiple of ``block``).
+    attempts (the ladder of ``ops/linalg.py``). ``superblock_cols`` is the
+    panel width ``S`` (the JAX package's 2048, measured on its accelerator;
+    a multiple of ``block``).
     Every rank calls it with the same problem and gets its own shard.
     ``out = (local, diag_inv, d_isqrt)``: storage of the factor's shapes to
     factor into (a released factor of the same layout,
@@ -289,7 +291,7 @@ def assemble_factor_fused(kernel, observables, points, mesh: Mesh, axis: str = "
         else:
             ok = True
             break
-        s *= 10.0
+        s *= ESCALATION
     d_isqrt = d_pad[:n] if d_out is None else d_out.copy_(d_pad[:n])
     fac = BlockCyclicFactor(local, mesh, axis, block, n, n_pad, winvs)
     return FusedFactor(fac, d_isqrt, s, ok, attempt, done)

@@ -1,34 +1,36 @@
 """The mesh path across P ranks: fused factorization, Gauss-Newton and posterior.
 
 Counterpart of ``nonlinpdes_gpsolver_tpu/solvers/distributed.py``, the path
-past the dense wall. Per GP block, :func:`factorize_distributed` builds the
-equilibrated factor with the fused assemble-and-factorize
-(``parallel/fused.py``: K2 strips straight into the factor's panels) or the
-two-pass path, inside the guarded escalation ladder; the Gram matrix itself
-never exists on the fused path. :func:`gn_solve_distributed` then runs the
-whitened Gauss-Newton loop with the mesh path's five step solvers and its
-guards, and :class:`DistributedPosterior` extends the solution.
+past the dense wall, on the skeleton of ``solvers/gn.py`` (the
+factored-problem contract, the nugget ladder, the Gauss-Newton driver and
+its recorded loop). What is the mesh path's own:
 
-The JAX package runs the whole loop as one ``shard_map``'d ``lax.scan``;
-here every rank runs the same loop, on its own device with its own rows of
-each factor. Latent-sized quantities (``z``, the gradient, the Krylov
-vectors) are replicated and computed on every rank; the factor's solves
-(``parallel/cholesky.py``: ``solve_triangular`` at P = 1, the panel loops
-across ranks) and the panels that are sharded by column bring the ranks
-together. A step is the dense path's (``solvers/gn.py::_Loop``): no host
-read inside it, recorded on the card as CUDA graphs with its collectives
-inside and replayed, at P = 1 and across NCCL ranks (:func:`_records`; the
-JAX package's loop is one compiled region at every P), where a recorded
-loop serves every problem of one layout (``solvers/_reuse.py``: the
-factorization of a new problem, fused or two-pass, writes into a released
-problem's factor, and the loop's deflation basis and ``'normal'`` blocks
-are computed again for it). The loop reads the host once a step (whether
-the damped update must halve, and with ``tol`` whether the step ran), and
-the CG loop once an iteration, one iteration late. Each of those flags is
-agreed across the ranks on the device, inside the step
-(``parallel/comm.py::agree_device``), so the host reads a flag that is the
-same on every rank and makes no collective of its own; a read that routes
-or probes, outside the loop, is agreed on the host
+* :func:`factorize_distributed`: per GP block the equilibrated factor from
+  the fused assemble-and-factorize (``parallel/fused.py``: K2 strips
+  straight into the factor's panels; the Gram matrix never exists) or the
+  two-pass path, each rank holding its block-cyclic rows, whose solves
+  (``parallel/cholesky.py``) are :class:`DistributedFactoredProblem`'s
+  ``whiten`` and ``kernel_solve``; its verdicts are agreed over the ranks
+  before the one read;
+* :func:`route_step_solver` and the five step solvers with their guards
+  (below), whose state (the deflation basis, the ``'normal'`` blocks) is
+  computed again for each problem a shared loop serves;
+* the damped update (``:898-944``): a step that is non-finite or more than
+  doubles the loss is halved up to four times and the best finite trial
+  kept. The full step and its tests run on the device; the host reads
+  once a step whether it must halve (:func:`_read_code`, which also says
+  whether a ``tol`` stop came), and only then runs the halvings, with
+  their tests on the device too;
+* :class:`DistributedPosterior`.
+
+Every rank runs the same loop on its own device; latent-sized quantities
+(``z``, the gradient, the Krylov vectors) are replicated, the factor's
+solves and the panels sharded by column bring the ranks together. The
+loop is recorded with its collectives inside at P = 1 and across NCCL
+ranks (:func:`_records`; the JAX package's loop is one compiled region at
+every P). Each flag the host reads in it is agreed across the ranks on
+the device, inside the step (``parallel/comm.py::agree_device``); a read
+that routes or probes, outside the loop, is agreed on the host
 (``parallel/comm.py::agree``). Either way no rank leaves a loop another
 stays in. The steps (``:516-1008``):
 
@@ -49,20 +51,10 @@ stays in. The steps (``:516-1008``):
   solves and one ``all_gather``. The current record times that state
   (``gauss_newton.normal_state``) and each step (``gauss_newton.normal_step``,
   summed) by CUDA events, as it times the phases.
-
-Each loop counts its step solver (``ops/graphs.py::STEP_SOLVERS``).
-
-Every step goes through the damped update (``:898-944``): a step that is
-non-finite or more than doubles the loss is halved up to four times and the
-best finite trial kept. The full step and its tests run on the device; only
-a step that must halve (a read once a step) runs the halvings, with their
-tests on the device too. ``factorize_distributed(defer_quality=True)``
-leaves the probe verdict on the device for :class:`..api.GPSolver`.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
@@ -71,7 +63,8 @@ from typing import Dict, Optional
 import torch
 
 from ..models.spec import CollocationProblem
-from ..ops.linalg import probe_vector, spd_inverse, spd_solve
+from ..ops.linalg import (ESCALATION, MAX_ESCALATIONS, QUALITY_TOL, accepted, escalation_start,
+                          probe_vector, rungs_climbed, spd_inverse, spd_solve)
 from ..parallel import comm
 from ..parallel.cholesky import (
     BlockCyclicFactor,
@@ -84,15 +77,16 @@ from ..parallel.cholesky import (
 from ..parallel.fused import assemble_factor_fused, sampled_row_quality
 from ..parallel.gram import assemble_gram_sharded
 from ..parallel.mesh import Mesh
-from ..ops.graphs import Flag, routed, to_host
+from ..ops.graphs import Flag
 from ..utils import tracing
 from . import _reuse
 from .gn import (
-    QUALITY_TOL,
     GNState,
     _block_diagonals,
     _Carry,
-    _escalation_start,
+    _check_step_solver,
+    _Factored,
+    _gauss_newton,
     _linear_ops,
     _Loop,
     _misfit_jacobi_precond,
@@ -102,25 +96,23 @@ from .gn import (
     _woodbury_correct,
     _woodbury_pieces,
     identity_slice_rows,
-    resolve_verdicts,
     validate_slice_structure,
 )
 from .posterior import Posterior
 
 
 @dataclasses.dataclass
-class DistributedFactoredProblem:
+class DistributedFactoredProblem(_Factored):
     """A problem plus its block factors in the mesh path's layout (``:93``).
 
     ``factors[name]`` factors ``D^{-1/2} (Theta + s nug) D^{-1/2}`` with
     ``col_scales[name] = d^{-1/2}``; ``nugget_scales[name]`` is the scale
     ``s`` the accepted factor used and ``rungs[name]`` the tenfold
     escalations it took. ``quality[name]`` is the accepted factor's probe
-    residual (with ``defer_quality``, a device scalar until
-    :meth:`resolve_pending` reads it; :attr:`pending_scales` names the
-    blocks still pending) and ``stats[name]`` counts its factorization
-    ``attempts`` and the ``superblocks`` computed over them (the fused
-    path). ``entry`` and ``graphs`` are :class:`.gn.FactoredProblem`'s.
+    residual (:class:`.gn._Factored`) and ``stats[name]`` counts its
+    factorization ``attempts`` and the ``superblocks`` computed over them
+    (the fused path). ``entry`` and ``graphs`` are
+    :class:`.gn.FactoredProblem`'s.
     """
 
     problem: CollocationProblem
@@ -142,26 +134,15 @@ class DistributedFactoredProblem:
         return comm.agree(self.mesh, value, op)
 
     def resolve_pending(self, extra=()):
-        """Read and settle the deferred verdicts in one host read (see
-        :meth:`.gn.FactoredProblem.resolve_pending`). Across ranks the
-        values are agreed on the device first, each verdict the largest
-        over the ranks and each of ``extra`` rank 0's, so that every rank
-        reads the same and a redo happens on all of them or on none."""
+        """The shared read of the deferred verdicts
+        (:meth:`.gn._Factored.resolve_pending`), the values agreed on the
+        device first: each verdict the largest over the ranks and each of
+        ``extra`` rank 0's, so that every rank reads the same and a redo
+        happens on all of them or on none."""
         mesh = self.mesh
         self.quality = {n: comm.agree_device(mesh, q, "max") if torch.is_tensor(q) else q
                         for n, q in self.quality.items()}
-        return resolve_verdicts(self.quality,
-                                [comm.agree_device(mesh, t, "first") for t in extra])
-
-    @property
-    def pending_scales(self) -> Dict[str, float]:
-        """The attempted nugget scale of every block whose verdict is still
-        on the device (see :attr:`.gn.FactoredProblem.pending_scales`)."""
-        return {n: self.nugget_scales[n] for n, q in self.quality.items() if torch.is_tensor(q)}
-
-    def _scale(self, name: str, v: torch.Tensor) -> torch.Tensor:
-        s = self.col_scales[name]
-        return v * (s if v.dim() == 1 else s[:, None])
+        return super().resolve_pending([comm.agree_device(mesh, t, "first") for t in extra])
 
     def whiten(self, name: str, v: torch.Tensor, shard_cols: bool = False) -> torch.Tensor:
         """``L~^{-1} D^{-1/2} v`` (a vector or columns; with ``shard_cols``,
@@ -182,19 +163,6 @@ class DistributedFactoredProblem:
         LtV = matvec_blockcyclic(*layout, V / s, trans=True)
         return matvec_blockcyclic(*layout, LtV, n=fac.n) / s
 
-    def whitened_residual(self, z: torch.Tensor, misfits: bool = True) -> torch.Tensor:
-        """``r(z)``: the whitened block residuals, then (with ``misfits``)
-        the square-root-weighted misfit residuals."""
-        p = self.problem
-        parts = [self.whiten(b.name, b.residual(z, p.data)) for b in p.blocks]
-        if misfits:
-            parts += [math.sqrt(m.weight) * m.residual(z, p.data) for m in p.misfits]
-        return torch.cat(parts)
-
-    def loss(self, z: torch.Tensor) -> torch.Tensor:
-        r = self.whitened_residual(z)
-        return torch.dot(r, r)
-
 
 def factorize_distributed(
     problem: CollocationProblem,
@@ -204,7 +172,7 @@ def factorize_distributed(
     axis: str = "p",
     block: int = 256,
     quality_tol: Optional[float] = None,
-    max_attempts: int = 8,
+    max_attempts: int = MAX_ESCALATIONS,
     guard: bool = True,
     chunk_cols: int = 4096,
     fused: bool = True,
@@ -223,7 +191,8 @@ def factorize_distributed(
     nugget tenfold and is factored again, for at most ``max_attempts``
     (``guard=False``: one attempt, no probe). The escalation starts at
     ``max(1, 4 eps / nugget)`` or the block's ``start_scales`` entry if
-    larger; ``rungs`` counts from the former.
+    larger; ``rungs`` counts from the former (the ladder of
+    ``ops/linalg.py``).
 
     ``defer_quality`` (``:176-240``): one attempt a block, and the probe's
     verdict stays on the device in ``quality`` for the caller to read with its results and, on a failed verdict, to
@@ -310,7 +279,7 @@ def _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_t
     that layout otherwise)."""
     quality_tol = QUALITY_TOL if quality_tol is None else quality_tol
     factors, col_scales, scales, rungs, quality, stats = {}, {}, {}, {}, {}, {}
-    s0 = _escalation_start(nugget, problem.dtype)
+    s0 = escalation_start(nugget, problem.dtype)
     defer = defer_quality and guard
     roles = mesh_roles(problem, mesh, block)
     for b in problem.blocks:
@@ -370,18 +339,18 @@ def _factorize_blocks(problem, mesh, nugget, nugget_type, axis, block, quality_t
             if defer:
                 break
             q = tracing.read(float, q)
-            if math.isfinite(q) and q < quality_tol:
+            if accepted(q, quality_tol):
                 break
-            s *= 10.0  # finite but corrupt: escalate anyway
+            s *= ESCALATION  # finite but corrupt: escalate anyway
         else:
             raise FloatingPointError(
                 f"block {b.name!r}: the mesh factorization failed the quality probe "
-                f"after nugget escalation to {s / 10.0:g}x"
+                f"after nugget escalation to {s / ESCALATION:g}x"
             )
         factors[b.name] = fac
         col_scales[b.name] = d_isqrt
         scales[b.name] = s
-        rungs[b.name] = round(math.log10(s / s0))
+        rungs[b.name] = rungs_climbed(s, s0)
         quality[b.name] = q
         stats[b.name] = {"attempts": attempts, "superblocks": superblocks}
     return DistributedFactoredProblem(problem, factors, col_scales, scales, rungs, quality, stats)
@@ -671,9 +640,9 @@ def _trial(fp, z, delta, s, step_size, big):
 
 class _MeshCarry(_Carry):
     """The mesh loop's :class:`..gn._Carry` plus the damped update's inputs
-    and its full trial (for a step that must halve), the woodbury warm
-    start ``Xw``, and ``code``, the step's host read: bit 0 whether the
-    full step must halve, bit 1 whether the step ran (``go`` before it)."""
+    and its full trial (for a step that must halve), and ``code``, the
+    step's host read (:func:`_read_code`): bit 0 whether the full step must
+    halve, bit 1 whether the step ran (``go`` before it)."""
 
     def __init__(self, z, max_iter, tol):
         super().__init__(z, max_iter, tol)
@@ -681,12 +650,12 @@ class _MeshCarry(_Carry):
         self.loss_in, self.l1 = self.loss.clone(), self.loss.clone()
         self.ok_in, self.f1 = self.ok.clone(), self.ok.clone()
         self.code = torch.zeros((), dtype=torch.int64, device=z.device)
-        self.Xw = None
 
-    def reset(self, z0):
-        super().reset(z0)
-        if self.Xw is not None:
-            self.Xw.zero_()
+    def start(self, fp, z0):
+        """Reset to ``z0`` and its loss, the damped update's first input."""
+        self.reset(z0)
+        self.loss.copy_(fp.loss(z0))
+        return Flag(z0.device)
 
 
 def _damped_update(step_size):
@@ -731,6 +700,19 @@ def _halve(fp, c: _MeshCarry, step_size):
     c.losses.index_copy_(0, (c.i - 1).view(1), loss.view(1))
     c.cur.copy_(loss)
     c.update_go()
+
+
+def _read_code(step_size, fp, c: _MeshCarry, flag: Flag) -> bool:
+    """The mesh path's read after each step: ``code``, agreed over the
+    ranks inside the step. A step that followed the ``tol`` stop changed
+    nothing and ends the loop; a full step that failed its test halves."""
+    flag.post(c.code)
+    code = flag.read()
+    if not code & 2:
+        return False
+    if code & 1:
+        _halve(fp, c, step_size)
+    return True
 
 
 def _records(mesh: Mesh) -> bool:
@@ -787,13 +769,7 @@ def route_step_solver(fp: DistributedFactoredProblem, step_solver: str = "auto",
     ``:1116-1165``), the slice structure it uses (or ``None``), and the
     problem's candidate structure and whether it validated."""
     p = fp.problem
-    if step_solver not in ("auto", "structured", "direct", "cg", "woodbury", "normal"):
-        raise ValueError(f"unknown step_solver {step_solver!r}")
-    if step_solver == "woodbury" and not p.misfits:
-        raise ValueError(
-            "step_solver='woodbury' is the misfit-coupled step; this problem has no "
-            "misfit terms (use 'cg' or 'direct')"
-        )
+    _check_step_solver(p, step_solver, ("auto", "structured", "direct", "cg", "woodbury", "normal"))
     cand = _slice_structure(p)
     valid = fp.agree(cand is not None and validate_slice_structure(p, cand), "all")
     if step_solver in ("structured", "normal"):
@@ -848,51 +824,27 @@ def gn_solve_distributed(
     1e-10 in f64 and 1e-6 in f32, ``cg_maxiter`` to 500; ``cg_iters``
     reports each step's inner iterations.
 
-    ``tol``: stop once ``|loss_prev - loss| <= tol * loss`` (after at least
-    two steps), or after a step with no finite trial; untaken iterations
-    repeat the last loss.
+    ``tol`` as in :func:`.gn.gn_solve`; a step with no finite trial stops too.
     """
     p = fp.problem
-    z = (p.init_latent() if z0 is None else torch.as_tensor(z0)).to(device=p.device, dtype=p.dtype)
     step_solver, structure, cand, valid = route_step_solver(
         fp, step_solver, direct_panel_limit, normal_budget_bytes
     )
     if cg_tol is None:
         cg_tol = 1e-10 if torch.finfo(p.dtype).eps < 1e-10 else 1e-6
-    cg_maxiter = 500 if cg_maxiter is None else int(cg_maxiter)
-    max_iter = int(max_iter)
     # whether the Krylov step deflates: it reads this problem's kernels,
     # which are in neither key, so it is a key of its own
     wants = step_solver == "woodbury" or (
         step_solver == "cg" and (_any_anisotropic(p) or bool(deflation_rank)))
-    key = ("mesh", step_solver, structure, deflation_rank, wants, valid, float(step_size),
-           float(hessian_jitter), float(cg_tol), cg_maxiter, tol, max_iter, tuple(z.shape),
-           z.dtype)
-    loop, fp = _reuse.loop_for(fp, key, lambda run_fp, pool: _mesh_loop(
-        run_fp, z, step_solver, structure, cand, valid, wants, deflation_rank, max_iter,
-        step_size, hessian_jitter, cg_tol, cg_maxiter, tol, pool))
-    routed(step_solver)
-    timed = step_solver == "normal"
-    c = loop.carry
-    with loop.rec.scope():
-        c.reset(z)
-        c.loss.copy_(fp.loss(z))
-        flag = Flag(z.device)
-        for _ in range(max_iter):
-            with (tracing.phase("gauss_newton.normal_step", z.device) if timed
-                  else contextlib.nullcontext()):
-                loop.step(fp)
-            flag.post(c.code)
-            code = flag.read()  # agreed over the ranks inside the step
-            if not code & 2:  # the step followed the tol stop: it changed nothing
-                break
-            if code & 1:
-                _halve(fp, c, step_size)
-    losses, ok = c.history()
-    cg_iters = (to_host(c.iters) if loop.krylov
-                else torch.zeros(max_iter, dtype=torch.int64))
-    return GNState(z=c.z.clone(), losses=losses, converged_finite=ok, cg_iters=cg_iters,
-                   step_solver=step_solver, deflation_rank=loop.deflation_rank)
+    return _gauss_newton(
+        fp, z0, max_iter, cg_maxiter, tol, step_solver,
+        ("mesh", step_solver, structure, deflation_rank, wants, valid, float(step_size),
+         float(hessian_jitter), float(cg_tol)),
+        lambda z, max_iter, cg_maxiter, run_fp, pool: _mesh_loop(
+            run_fp, z, step_solver, structure, cand, valid, wants, deflation_rank, max_iter,
+            step_size, hessian_jitter, cg_tol, cg_maxiter, tol, pool),
+        functools.partial(_read_code, step_size),
+        "gauss_newton.normal_step" if step_solver == "normal" else None)
 
 
 def _mesh_loop(fp, z, solver, structure, cand, valid, wants, deflation_rank, max_iter,
@@ -927,12 +879,9 @@ def _mesh_loop(fp, z, solver, structure, cand, valid, wants, deflation_rank, max
               prepare=prepare)
     update = _damped_update(step_size)
     if solver == "cg":
-        def system_fn(fp, c):
-            op, B, M, finish = _cg_system(fp, c.z, state["V_defl"], hessian_jitter)
-            return op, B, M, None, finish
-
-        loop = _Loop(carry, update, system_fn=system_fn, **kw)
-    elif solver == "woodbury":
+        return _Loop(carry, update, system_fn=lambda fp, c: _cg_system(
+            fp, c.z, state["V_defl"], hessian_jitter), **kw)
+    if solver == "woodbury":
         def system_fn(fp, c):
             op, B, M, U, wvec = _woodbury_system(fp, c.z, state["V_defl"], hessian_jitter)
             if c.Xw is None:  # allocated in the first (eager) step, before any recording
@@ -943,18 +892,17 @@ def _mesh_loop(fp, z, solver, structure, cand, valid, wants, deflation_rank, max
                 c.Xw.copy_(torch.where(c.go, X, c.Xw))
                 return delta
 
-            return op, B, M, c.Xw, finish
+            return op, B, M, finish
 
-        loop = _Loop(carry, update, system_fn=system_fn, **kw)
-    else:
-        def delta_fn(fp, c):
-            if solver == "normal":
-                return _normal_delta(fp, c.z, structure, state["ainvs"], hessian_jitter)
-            return _panel_delta(fp, c.z, structure if solver == "structured" else None,
-                                hessian_jitter)
+        return _Loop(carry, update, system_fn=system_fn, **kw)
 
-        loop = _Loop(carry, update, delta_fn=delta_fn, **kw)
-    return loop
+    def delta_fn(fp, c):
+        if solver == "normal":
+            return _normal_delta(fp, c.z, structure, state["ainvs"], hessian_jitter)
+        return _panel_delta(fp, c.z, structure if solver == "structured" else None,
+                            hessian_jitter)
+
+    return _Loop(carry, update, delta_fn=delta_fn, **kw)
 
 
 def _refill(state: dict, name: str, value) -> None:

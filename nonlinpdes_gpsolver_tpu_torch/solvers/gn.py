@@ -1,34 +1,33 @@
-"""Whitened Gauss-Newton on the dense single-device path.
+"""The solver skeleton of both paths, and the dense single-device path.
 
-Counterpart of the main-path part of ``nonlinpdes_gpsolver_tpu/solvers/gn.py``:
-
-* :func:`factorize` assembles each GP block's Gram matrix with the
-  trace-adaptive nugget and factors its equilibrated form, escalating the
-  nugget until the factor is finite and, with ``solve_mode='inverse'``,
-  until the whitening operator passes the quality probe; with
-  ``defer_quality`` it leaves that probe's verdict on the device for the
-  caller (:class:`..api.GPSolver`) to read with its results;
-* :func:`gn_solve` stacks the whitened block residuals ``L_b^{-1} F_b(z)``
-  and the weighted misfits into ``r(z)``, and solves ``(J^T J) delta = J^T r``
-  at each step: with the ``'structured'`` or the ``'direct'`` Jacobian
-  panel, or matrix-free by conjugate gradients (``'cg'``, and
-  ``'woodbury'`` for misfit-coupled problems).
+Counterpart of the main-path part of ``nonlinpdes_gpsolver_tpu/solvers/gn.py``.
+The dense path (here) and the mesh path (``solvers/distributed.py``) share
+one skeleton and keep apart how they factor, how they solve a step and
+what the host reads after it: the factored-problem contract
+(:class:`_Factored`: the whitened residual and loss over the path's
+``whiten``, and the one host read of the deferred quality verdicts), the
+nugget ladder of ``ops/linalg.py``, and the Gauss-Newton driver
+(:func:`_gauss_newton`: after the path's route, its loop, a :class:`_Loop`
+on a :class:`_Carry`, and its read after each step). The dense path's
+own: :func:`factorize` factors each GP block's equilibrated Gram matrix
+(with ``solve_mode='inverse'`` also its whitening operator, held to the
+quality probe), and :func:`gn_solve` solves ``(J^T J) delta = J^T r`` at
+each step with the ``'structured'`` or the ``'direct'`` Jacobian panel, or
+by conjugate gradients (``'cg'``, and ``'woodbury'`` with misfits).
 
 The JAX package runs the loop as one compiled ``lax.scan``/``while_loop``.
 Here a step is a function of tensors that keep their storage
 (:class:`_Carry`), with no host read in it: the non-finite guard, the loss,
 the ``tol`` plateau test and the loss history all stay on the device. On
 the card it is recorded as CUDA graphs once it has run eagerly as its own
-warm-up, and replayed (``ops/graphs.py``, :class:`_Loop`). As the JAX
-package keys its compiled loop on the problem's structure, not the
-instance, a recorded loop serves every problem of one layout
-(``solvers/_reuse.py``): a new problem whose structure matches a released
-one's factors into that one's storage and replays its loop, recording
-nothing. The fixed-count loop reads nothing until its end; with ``tol``
-it reads the plateau flag once a step, one step late. The Krylov steps' CG loop
-(:func:`_batched_cg`) keeps its iterate and its iteration count on the
-device and reads its exit flag once an iteration, one iteration late: at
-most one iteration a solve is spent after the exit.
+warm-up, and replayed (``ops/graphs.py``, :class:`_Loop`), by every problem
+of one layout, as the JAX package keys its compiled loop on the problem's
+structure (``solvers/_reuse.py``). The dense fixed-count loop reads
+nothing until its end; with ``tol`` it reads the plateau flag once a step,
+one step late. The Krylov steps' CG loop (:func:`_batched_cg`) keeps its
+iterate and its iteration count on the device and reads its exit flag once
+an iteration, one iteration late: at most one iteration a solve is spent
+after the exit.
 
 ``solve_mode='auto'`` is ``'inverse'`` (explicit whitening operator,
 refined by one Newton step) on the card and ``'trsm'`` (triangular solves)
@@ -50,12 +49,16 @@ from ..ops.assembly import adaptive_nugget_diag, gram_matrix, observable_sizes
 from ..ops.backend import is_accelerator
 from ..ops.graphs import Flag, Recorder, routed as count_route, to_host
 from ..ops.linalg import (
+    ESCALATION,
     MAX_ESCALATIONS,
+    accepted,
     cholesky_with_retry,
     equilibrated_cholesky,
+    escalation_start,
     kernel_solve,
     newton_refine_tri_inverse,
     probe_vector,
+    rungs_climbed,
     spd_solve,
     tri_inverse,
     whiten,
@@ -63,43 +66,14 @@ from ..ops.linalg import (
 from ..utils import tracing
 from . import _reuse
 
-# Whitening-quality acceptance threshold of the JAX package, shared by every
-# verdict: the eager ladders and the deferred verdict GPSolver reads.
-QUALITY_TOL = 1e-2
 
-
-@dataclasses.dataclass(frozen=True)
-class FactoredProblem:
-    """A problem plus factorizations of its regularized Gram matrices.
-
-    ``factors[name]`` is the lower Cholesky factor of the equilibrated
-    regularized Gram matrix ``D^{-1/2} (Theta + nugget) D^{-1/2}``, with
-    ``col_scales[name] = d^{-1/2}``, or without ``col_scales[name]`` (from
-    ``factorize(equilibrate=False)``) of ``Theta + nugget`` itself.
-    ``inv_factors[name]`` holds the whitening operator ``L~^{-1} D^{-1/2}``
-    (``L^{-1}``) when ``solve_mode='inverse'``.
-    ``nugget_scales[name]`` is the escalation factor the accepted factor
-    used, and ``rungs[name]`` the number of tenfold escalations it took.
-
-    After ``factorize(defer_quality=True)``, ``quality[name]`` is the
-    block's whitening-quality verdict, a device scalar until
-    :meth:`resolve_pending` reads it; :attr:`pending_scales` names the
-    blocks still pending. ``entry`` is the shared loops' entry whose
-    storage these factors are (``solvers/_reuse.py``), a guest's
-    ``_reuse.Guest`` (its factors its own, its loops the guest entry's),
-    or ``None``; ``graphs`` holds the loops of a problem that is not bound
-    to one (``gn_solve``), which go with it.
-    """
-
-    problem: CollocationProblem
-    factors: Dict[str, torch.Tensor]
-    inv_factors: Dict[str, torch.Tensor]
-    nugget_scales: Dict[str, float]
-    col_scales: Dict[str, torch.Tensor]
-    rungs: Dict[str, int]
-    quality: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
-    graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
-    entry: object = dataclasses.field(default=None, repr=False, compare=False)
+class _Factored:
+    """The factored-problem contract of both paths: the whitened residual
+    and loss over the path's own ``whiten``, and the deferred verdicts' one
+    host read. A path's type holds ``problem``, ``nugget_scales``,
+    ``col_scales`` and ``quality``, and defines ``whiten``. With
+    ``defer_quality``, ``quality[name]`` is a device scalar until
+    :meth:`resolve_pending` reads it (:attr:`pending_scales`)."""
 
     @property
     def pending_scales(self) -> Dict[str, float]:
@@ -111,18 +85,6 @@ class FactoredProblem:
     def _scale(self, name: str, v: torch.Tensor) -> torch.Tensor:
         s = self.col_scales.get(name)
         return v if s is None else v * (s if v.dim() == 1 else s[:, None])
-
-    def whiten(self, name: str, v: torch.Tensor) -> torch.Tensor:
-        if name in self.inv_factors:
-            return self.inv_factors[name] @ v
-        return whiten(self.factors[name], self._scale(name, v))
-
-    def kernel_solve(self, name: str, v: torch.Tensor) -> torch.Tensor:
-        """``Theta^{-1} v`` through the (equilibrated) factor."""
-        if name in self.inv_factors:
-            W = self.inv_factors[name]
-            return W.T @ (W @ v)
-        return self._scale(name, kernel_solve(self.factors[name], self._scale(name, v)))
 
     def whitened_residual(self, z: torch.Tensor, misfits: bool = True) -> torch.Tensor:
         """``r(z)``: the whitened block residuals, then (with ``misfits``)
@@ -139,32 +101,69 @@ class FactoredProblem:
 
     def resolve_pending(self, extra=()):
         """Read the pending verdicts (with the tensors ``extra``, in one
-        host read) and settle them: ``quality`` becomes floats. Returns
-        ``(bad, extra_values)``: ``bad`` maps each block whose verdict
-        failed (a quality not finite or not below ``QUALITY_TOL``) to its
-        quality, and ``extra_values`` is the flat list of ``extra``'s
+        host read) and settle them: ``quality`` becomes floats, in place.
+        Returns ``(bad, extra_values)``: ``bad`` maps each block whose
+        verdict failed (a quality not finite or not below ``QUALITY_TOL``)
+        to its quality, and ``extra_values`` is the flat list of ``extra``'s
         values."""
-        return resolve_verdicts(self.quality, extra)
+        names = [n for n, q in self.quality.items() if torch.is_tensor(q)]
+        parts = [t.reshape(-1).to(torch.float64) for t in extra]
+        parts += [self.quality[n].reshape(1).to(torch.float64) for n in names]
+        if not parts:
+            return {}, []
+        dev = parts[0].device
+        vals = to_host(torch.cat([p.to(dev) for p in parts])).tolist()
+        n_extra = len(vals) - len(names)
+        bad = {}
+        for n, q in zip(names, vals[n_extra:]):
+            self.quality[n] = q
+            if not accepted(q):
+                bad[n] = q
+        return bad, vals[:n_extra]
 
 
-def resolve_verdicts(quality: Dict, extra=()):
-    """The one host read of deferred verdicts (see
-    :meth:`FactoredProblem.resolve_pending`); ``quality`` is updated in
-    place."""
-    names = [n for n, q in quality.items() if torch.is_tensor(q)]
-    parts = [t.reshape(-1).to(torch.float64) for t in extra]
-    parts += [quality[n].reshape(1).to(torch.float64) for n in names]
-    if not parts:
-        return {}, []
-    dev = parts[0].device
-    vals = to_host(torch.cat([p.to(dev) for p in parts])).tolist()
-    n_extra = len(vals) - len(names)
-    bad = {}
-    for n, q in zip(names, vals[n_extra:]):
-        quality[n] = q
-        if not (math.isfinite(q) and q < QUALITY_TOL):
-            bad[n] = q
-    return bad, vals[:n_extra]
+@dataclasses.dataclass(frozen=True)
+class FactoredProblem(_Factored):
+    """A problem plus factorizations of its regularized Gram matrices.
+
+    ``factors[name]`` is the lower Cholesky factor of the equilibrated
+    regularized Gram matrix ``D^{-1/2} (Theta + nugget) D^{-1/2}``, with
+    ``col_scales[name] = d^{-1/2}``, or without ``col_scales[name]`` (from
+    ``factorize(equilibrate=False)``) of ``Theta + nugget`` itself.
+    ``inv_factors[name]`` holds the whitening operator ``L~^{-1} D^{-1/2}``
+    (``L^{-1}``) when ``solve_mode='inverse'``.
+    ``nugget_scales[name]`` is the escalation factor the accepted factor
+    used, and ``rungs[name]`` the number of tenfold escalations it took.
+
+    ``quality[name]`` is the block's deferred whitening-quality verdict
+    (:class:`_Factored`). ``entry`` is the shared loops' entry whose
+    storage these factors are (``solvers/_reuse.py``), a guest's
+    ``_reuse.Guest`` (its factors its own, its loops the guest entry's),
+    or ``None``; ``graphs`` holds the loops of a problem that is not bound
+    to one (``gn_solve``), which go with it.
+    """
+
+    problem: CollocationProblem
+    factors: Dict[str, torch.Tensor]
+    inv_factors: Dict[str, torch.Tensor]
+    nugget_scales: Dict[str, float]
+    col_scales: Dict[str, torch.Tensor]
+    rungs: Dict[str, int]
+    quality: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    entry: object = dataclasses.field(default=None, repr=False, compare=False)
+
+    def whiten(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        if name in self.inv_factors:
+            return self.inv_factors[name] @ v
+        return whiten(self.factors[name], self._scale(name, v))
+
+    def kernel_solve(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        """``Theta^{-1} v`` through the (equilibrated) factor."""
+        if name in self.inv_factors:
+            W = self.inv_factors[name]
+            return W.T @ (W @ v)
+        return self._scale(name, kernel_solve(self.factors[name], self._scale(name, v)))
 
 
 class GNState(NamedTuple):
@@ -188,12 +187,6 @@ def _whiten_quality(inv, L, d_isqrt, v) -> torch.Tensor:
     return torch.max(torch.abs(w - v)) / torch.max(torch.abs(v))
 
 
-def _escalation_start(nugget: float, dtype) -> float:
-    """``max(1, 4 eps / nugget)``: a nugget below a few ulps of the working
-    dtype is no regularization at all."""
-    return max(1.0, (4.0 * torch.finfo(dtype).eps) / max(nugget, 1e-300))
-
-
 def factorize(
     problem: CollocationProblem,
     nugget: float,
@@ -205,12 +198,13 @@ def factorize(
 ) -> FactoredProblem:
     """Assemble + regularize + factor every GP block's Gram matrix.
 
-    Runs on the problem's device and dtype. The escalation starts at the
-    dtype-aware scale ``s0 = max(1, 4 eps / nugget)``, or the block's
-    ``start_scales`` entry if larger. With ``solve_mode='inverse'`` each
-    accepted factor is inverted (plus one Newton step on the card), and a
-    factor whose whitening residual on a fixed probe is not below
-    ``QUALITY_TOL`` is escalated tenfold again.
+    Runs on the problem's device and dtype, on the nugget ladder of
+    ``ops/linalg.py``. The escalation starts at the dtype-aware scale
+    ``s0 = max(1, 4 eps / nugget)``, or the block's ``start_scales`` entry
+    if larger. With ``solve_mode='inverse'`` each accepted factor is
+    inverted (plus one Newton step on the card), and a factor whose
+    whitening residual on a fixed probe is not below ``QUALITY_TOL`` is
+    escalated tenfold again. ``rungs`` counts from ``s0``.
 
     ``defer_quality`` (the JAX package's optimistic pipeline, ``gn.py:381``
     there): one quality probe a block, and no host read for it. The
@@ -263,16 +257,14 @@ def factorize(
                     with tracing.span("factorize.inverse"):
                         inv_factors[b.name] = buf["inv"].copy_(tri_inverse(L))
                 factors[b.name], scales[b.name] = L, s
-                rungs[b.name] = round(math.log10(s))
+                rungs[b.name] = rungs_climbed(s, 1.0)
                 continue
-            s0 = _escalation_start(nugget, dtype)
+            s0 = escalation_start(nugget, dtype)
             s = max(s0, float((start_scales or {}).get(b.name, 1.0)))
-            total_rungs = round(math.log10(s / s0))
             for _ in range(MAX_ESCALATIONS):
                 with tracing.span("factorize.cholesky"):
-                    L, d_isqrt, s, r = equilibrated_cholesky(
+                    L, d_isqrt, s, _ = equilibrated_cholesky(
                         theta, nug, s, out=(buf["L"], buf["d"]), work=_equilibration_work(buf))
-                total_rungs += r
                 if solve_mode == "trsm":
                     break
                 with tracing.span("factorize.inverse"):
@@ -283,12 +275,10 @@ def factorize(
                 if defer_quality:
                     inv_factors[b.name], quality[b.name] = inv, q
                     break
-                q = tracing.read(float, q)
-                if math.isfinite(q) and q < QUALITY_TOL:
+                if accepted(tracing.read(float, q)):
                     inv_factors[b.name] = inv
                     break
-                s *= 10.0  # finite but corrupted factor: escalate anyway
-                total_rungs += 1
+                s *= ESCALATION  # finite but corrupted factor: escalate anyway
             else:
                 raise FloatingPointError(
                     f"block {b.name!r}: factor quality still bad after nugget "
@@ -298,7 +288,7 @@ def factorize(
             factors[b.name] = L
             col_scales[b.name] = d_isqrt
             scales[b.name] = s
-            rungs[b.name] = total_rungs
+            rungs[b.name] = rungs_climbed(s, s0)
         fp = FactoredProblem(problem, factors, inv_factors, scales, col_scales, rungs, quality)
         with tracing.span("factorize.bind"):
             _reuse.settle(fp, key, entry, dense_tensors(fp), dense_view, dense_role_storage)
@@ -800,7 +790,8 @@ class _Carry:
     ``prev`` and ``cur`` (the ``tol`` plateau test) and ``go``, whether the
     next step runs (always with ``tol=None``). Every step is masked by
     ``go``: a step queued after a ``tol`` stop changes nothing.
-    The mesh path keeps its damped update's inputs here too."""
+    ``Xw`` is the Krylov step's warm start (``None``: its CG starts from
+    zero; the mesh path's ``'woodbury'`` step sets it)."""
 
     def __init__(self, z: torch.Tensor, max_iter: int, tol):
         dev, dt = z.device, z.dtype
@@ -814,6 +805,7 @@ class _Carry:
         self.prev, self.cur, self.loss = self.big.clone(), self.big.clone(), self.big.clone()
         self.go = torch.ones((), dtype=torch.bool, device=dev)
         self.no_iters = torch.zeros((), dtype=torch.int64, device=dev)
+        self.Xw = None
 
     def reset(self, z0: torch.Tensor) -> None:
         self.z.copy_(z0)
@@ -824,6 +816,16 @@ class _Carry:
         for t in (self.prev, self.cur, self.loss):
             t.copy_(self.big)
         self.go.fill_(True)
+        if self.Xw is not None:
+            self.Xw.zero_()
+
+    def start(self, fp, z0: torch.Tensor) -> Flag:
+        """Reset to ``z0`` for a solve on ``fp``; returns the flag the host
+        reads after each step, ``go`` posted (the ``tol`` read)."""
+        self.reset(z0)
+        flag = Flag(z0.device)
+        flag.post(self.go)
+        return flag
 
     def update_go(self) -> None:
         """``go``: the JAX package's plateau predicate (``gn.py:879``); with
@@ -860,9 +862,9 @@ class _Loop:
     card once it has run eagerly as its own warm-up (below).
 
     An exact step is ``delta_fn(fp, carry) -> delta``. A Krylov step is
-    ``system_fn(fp, carry) -> (op, B, M, X0, finish)``: its inner system,
-    solved by the CG loop, and ``finish(X) -> delta``. Either way
-    ``update(fp, carry, delta, iters)`` applies the step. Recorded, an
+    ``system_fn(fp, carry) -> (op, B, M, finish)``: its inner system,
+    solved by the CG loop from ``carry.Xw``, and ``finish(X) -> delta``.
+    Either way ``update(fp, carry, delta, iters)`` applies the step. Recorded, an
     exact step is one graph; a Krylov step three (the system and CG set-up,
     one CG iteration, the update) sharing one pool, with the CG loop's
     lagged exit reads between them (:func:`_cg_loop`); on a mesh
@@ -904,10 +906,10 @@ class _Loop:
         self.update(fp, self.carry, self.delta_fn(fp, self.carry), self.carry.no_iters)
 
     def _setup(self, fp):
-        op, B, M, X0, finish = self.system_fn(fp, self.carry)
+        op, B, M, finish = self.system_fn(fp, self.carry)
         agree = (None if self.flag_agree is None
                  else functools.partial(self.flag_agree, fp))
-        st = _CGState(op, B, self.cg_tol, M, X0, agree)
+        st = _CGState(op, B, self.cg_tol, M, self.carry.Xw, agree)
         st.mask(self.carry.go)
         return st, (op, M, finish)
 
@@ -999,17 +1001,7 @@ def gn_solve(
     problems of ``fp``'s layout (module docstring).
     """
     p = fp.problem
-    z = (p.init_latent() if z0 is None else torch.as_tensor(z0)).to(
-        device=p.device, dtype=p.dtype
-    )
-    if step_solver not in ("auto", "structured", "direct", "cg", "woodbury"):
-        raise ValueError(f"unknown step_solver {step_solver!r}")
-    if step_solver == "woodbury" and not p.misfits:
-        raise ValueError(
-            "step_solver='woodbury' is the misfit-coupled step; this problem "
-            "has no misfit terms (use 'cg' or 'direct')"
-        )
-    cg_maxiter = 500 if cg_maxiter is None else int(cg_maxiter)
+    _check_step_solver(p, step_solver, ("auto", "structured", "direct", "cg", "woodbury"))
     structure = None
     if step_solver in ("auto", "structured"):
         cand = _slice_structure(p)
@@ -1027,29 +1019,67 @@ def gn_solve(
         structure = cand if valid else None
     routed = step_solver if step_solver != "auto" else (
         "direct" if structure is None else "structured")
+    return _gauss_newton(
+        fp, z0, max_iter, cg_maxiter, tol, routed,
+        ("dense", routed, structure, float(step_size), float(hessian_jitter), float(cg_tol)),
+        lambda z, max_iter, cg_maxiter, run_fp, pool: _dense_loop(
+            z, routed, structure, max_iter, step_size, hessian_jitter, cg_tol, cg_maxiter, tol,
+            pool),
+        None if tol is None else _read_go)
+
+
+def _check_step_solver(problem: CollocationProblem, step_solver: str, solvers: tuple) -> None:
+    """``step_solver`` must be one of the path's ``solvers``; ``'woodbury'`` needs misfits."""
+    if step_solver not in solvers:
+        raise ValueError(f"unknown step_solver {step_solver!r}")
+    if step_solver == "woodbury" and not problem.misfits:
+        raise ValueError(
+            "step_solver='woodbury' is the misfit-coupled step; this problem "
+            "has no misfit terms (use 'cg' or 'direct')"
+        )
+
+
+def _gauss_newton(fp, z0, max_iter, cg_maxiter, tol, routed: str, key: tuple, make, read,
+                  phase: str | None = None) -> GNState:
+    """The Gauss-Newton driver of both paths, after the path's route: at
+    most ``max_iter`` steps from ``z0`` of the loop ``key`` (completed here)
+    that ``make(z, max_iter, cg_maxiter, run_fp, pool)`` makes, each
+    followed by the path's host read ``read(run_fp, carry, flag)``, false
+    to stop (``None``: none); ``phase`` names a span timing each step."""
+    p = fp.problem
+    z = (p.init_latent() if z0 is None else torch.as_tensor(z0)).to(device=p.device, dtype=p.dtype)
+    cg_maxiter = 500 if cg_maxiter is None else int(cg_maxiter)
     max_iter = int(max_iter)
-    key = ("dense", routed, structure, float(step_size), float(hessian_jitter), float(cg_tol),
-           cg_maxiter, tol, max_iter, tuple(z.shape), z.dtype)
-    loop, run_fp = _reuse.loop_for(fp, key, lambda run_fp, pool: _dense_loop(
-        z, routed, structure, max_iter, step_size, hessian_jitter, cg_tol, cg_maxiter, tol,
-        pool))
+    key += (cg_maxiter, tol, max_iter, tuple(z.shape), z.dtype)
+    loop, run_fp = _reuse.loop_for(fp, key, functools.partial(make, z, max_iter, cg_maxiter))
     count_route(routed)
     carry = loop.carry
+    step = loop.step if phase is None else functools.partial(_timed_step, loop, phase)
     with loop.rec.scope():
-        carry.reset(z)
-        flag = Flag(z.device)
-        flag.post(carry.go)
+        flag = carry.start(run_fp, z)
         for _ in range(max_iter):
-            loop.step(run_fp)
-            if tol is not None:
-                if not flag.read():  # the step just queued follows the stop: it changed nothing
-                    break
-                flag.post(carry.go)
+            step(run_fp)
+            if read is not None and not read(run_fp, carry, flag):
+                break
     losses, ok = carry.history()
     cg_iters = (to_host(carry.iters) if loop.krylov
                 else torch.zeros(max_iter, dtype=torch.int64))
     return GNState(z=carry.z.clone(), losses=losses, converged_finite=ok, cg_iters=cg_iters,
-                   step_solver=routed)
+                   step_solver=routed, deflation_rank=loop.deflation_rank)
+
+
+def _timed_step(loop: _Loop, phase: str, fp) -> None:
+    with tracing.phase(phase, fp.problem.device):
+        loop.step(fp)
+
+
+def _read_go(fp, carry: _Carry, flag: Flag) -> bool:
+    """The dense path's read with ``tol``: ``go``, one step late (a step
+    queued after the stop changed nothing), posted again for the next."""
+    if not flag.read():
+        return False
+    flag.post(carry.go)
+    return True
 
 
 def _dense_loop(z, solver, structure, max_iter, step_size, hessian_jitter, cg_tol,
@@ -1068,12 +1098,7 @@ def _dense_loop(z, solver, structure, max_iter, step_size, hessian_jitter, cg_to
     kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter, pool=pool)
     if solver in ("cg", "woodbury"):
         system = _cg_system if solver == "cg" else _woodbury_system
-
-        def system_fn(fp, c):
-            op, B, M, finish = system(fp, c.z, hessian_jitter)
-            return op, B, M, None, finish
-
-        return _Loop(carry, update, system_fn=system_fn, **kw)
+        return _Loop(carry, update, system_fn=lambda fp, c: system(fp, c.z, hessian_jitter), **kw)
 
     def delta_fn(fp, c):
         J = (_direct_jacobian(fp, c.z) if structure is None

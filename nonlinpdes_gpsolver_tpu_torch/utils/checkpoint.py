@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import functools
 import json
-import math
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -57,6 +56,7 @@ import numpy as np
 import torch
 
 from ..models.spec import CollocationProblem
+from ..ops.linalg import rungs_climbed
 from ..parallel import comm
 from ..parallel.cholesky import BlockCyclicFactor, deal_saved_blocks, diag_inverses, pad_to_blocks
 from ..parallel.mesh import Mesh
@@ -204,7 +204,7 @@ def _block_size(problem: CollocationProblem, block) -> int:
 def _rungs(meta: dict) -> dict:
     if "rungs" in meta:
         return {k: int(v) for k, v in meta["rungs"].items()}
-    return {k: max(0, round(math.log10(float(s)))) for k, s in meta["nugget_scales"].items()}
+    return {k: max(0, rungs_climbed(float(s), 1.0)) for k, s in meta["nugget_scales"].items()}
 
 
 def _read_state(data, meta: dict, to) -> Optional[GNState]:
