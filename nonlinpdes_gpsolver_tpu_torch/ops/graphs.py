@@ -46,7 +46,12 @@ and ``STEP_SOLVERS``, the Gauss-Newton loops run by the step solver they
 were routed to (:func:`routed`); and ``TRSM_ROUTES``, the P = 1 triangular
 solves issued from Python (eager or being recorded; a replay is not
 counted) by the route they took, ``"kernel"`` (``ops/trsm_rowblock.py``) or
-``"library"`` (``torch.linalg.solve_triangular``) (:func:`trsm_routed`).
+``"library"`` (``torch.linalg.solve_triangular``) (:func:`trsm_routed`);
+and ``NORMAL_STATES``, the ``'normal'`` step's states computed (the
+interior blocks of the kernel inverse, once a factorization), by route:
+``"potri"`` (P = 1: the triangular inverse's interior columns and one
+symmetric product) or ``"solves"`` (across ranks: column-sharded kernel
+solves) (:func:`normal_state_routed`).
 :func:`reset_counts` zeroes all but ``RETAINED_BYTES``.
 
 The current solve's record (``utils/tracing.py``) takes a capture's span
@@ -83,6 +88,7 @@ EVAL_REPLAYS = 0
 EVAL_EAGER = 0
 STEP_SOLVERS: Dict[str, int] = {}
 TRSM_ROUTES: Dict[str, int] = {"kernel": 0, "library": 0}
+NORMAL_STATES: Dict[str, int] = {"potri": 0, "solves": 0}
 
 _enabled = True
 capturing = False  # a capture is in progress (no graph may be freed meanwhile)
@@ -96,6 +102,7 @@ def reset_counts() -> None:
     EVAL_CAPTURES, EVAL_REPLAYS, EVAL_EAGER = 0, 0, 0
     STEP_SOLVERS.clear()
     TRSM_ROUTES.update(kernel=0, library=0)
+    NORMAL_STATES.update(potri=0, solves=0)
 
 
 def routed(step_solver: str) -> None:
@@ -106,6 +113,11 @@ def routed(step_solver: str) -> None:
 def trsm_routed(route: str) -> None:
     """Count a P = 1 triangular solve that took ``route``."""
     TRSM_ROUTES[route] += 1
+
+
+def normal_state_routed(route: str) -> None:
+    """Count a ``'normal'`` state computed by ``route``."""
+    NORMAL_STATES[route] += 1
 
 
 @contextlib.contextmanager

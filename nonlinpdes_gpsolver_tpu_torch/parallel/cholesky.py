@@ -137,6 +137,13 @@ class BlockCyclicFactor:
             raise ValueError("a factor across ranks has no local matrix; use dense()")
         return self.local.view(self.n_pad, self.n_pad)
 
+    def inverses(self) -> torch.Tensor:
+        """``diag_inv``, computed once (:func:`diag_inverses`, a collective
+        across ranks) for a factor that arrived without it."""
+        if self.diag_inv is None:
+            self.diag_inv = diag_inverses(self.local, self.mesh, self.axis, self.block)
+        return self.diag_inv
+
     def dense(self) -> torch.Tensor:
         """The ``(n, n)`` lower factor: a view at P = 1, else gathered to every
         rank (a collective; tests and interop)."""
@@ -369,16 +376,13 @@ def trsm_blockcyclic(factor: BlockCyclicFactor, V: torch.Tensor, trans: bool = F
         route = trsm_route(L.device, L.dtype, 1, col.shape[1], factor.block)
         graphs.trsm_routed(route)
         if route == "kernel":
-            if factor.diag_inv is None:
-                factor.diag_inv = diag_inverses(factor.local, factor.mesh, factor.axis, factor.block)
-            Y = trsm_rowblock(L, factor.diag_inv, col, trans)
+            Y = trsm_rowblock(L, factor.inverses(), col, trans)
         elif trans:
             Y = torch.linalg.solve_triangular(L.mT, _padded(col, factor.n_pad), upper=True)
         else:
             Y = torch.linalg.solve_triangular(L, _padded(col, factor.n_pad), upper=False)
     else:
-        if factor.diag_inv is None:
-            factor.diag_inv = diag_inverses(factor.local, factor.mesh, factor.axis, factor.block)
+        factor.inverses()  # the panel loops read factor.diag_inv
         Y = (_trsm_transposed if trans else _trsm_forward)(factor, _padded(col, factor.n_pad),
                                                            shard_cols)
     Y = Y[: factor.n]

@@ -47,8 +47,10 @@ stays in. The steps (``:516-1008``):
   deflation preconditioner (or a Levenberg floor without it) and the warm
   start from the previous step's solutions;
 * ``'normal'``: the exact normal matrix from the interior block of the
-  kernel inverse, computed once per factorization by column-sharded kernel
-  solves and one ``all_gather``. The current record times that state
+  kernel inverse, computed once per factorization: at P = 1 from the
+  interior columns of the factor's inverse and one symmetric product
+  (``potri``'s order), across ranks by column-sharded kernel solves and one
+  ``all_gather``. The current record times that state
   (``gauss_newton.normal_state``) and each step (``gauss_newton.normal_step``,
   summed) by CUDA events, as it times the phases.
 """
@@ -77,6 +79,7 @@ from ..parallel.cholesky import (
 from ..parallel.fused import assemble_factor_fused, sampled_row_quality
 from ..parallel.gram import assemble_gram_sharded
 from ..parallel.mesh import Mesh
+from ..ops import graphs
 from ..ops.graphs import Flag
 from ..utils import tracing
 from . import _reuse
@@ -524,25 +527,80 @@ def _woodbury_finish(X, U, wvec, hessian_jitter):
 def _normal_state(fp: DistributedFactoredProblem, structure):
     """Per block the ``(s, N, s, N)`` interior block of the regularized
     kernel inverse, ``Theta^{-1}[int, int]`` (``_kernel_inverse_int``,
-    ``:415``), by kernel solves on its identity columns, each rank solving
-    its ``ceil(sN/P)`` of them (column-sharded), then one ``all_gather``;
-    computed once."""
+    ``:415``), computed once a factorization: at P = 1 by
+    :func:`_interior_inverse_potri`, across ranks by
+    :func:`_interior_inverse_solves` (counted in
+    ``ops/graphs.py::NORMAL_STATES``)."""
     _, N, seginfo = structure
-    mesh, dev = fp.mesh, fp.problem.device
+    potri = fp.mesh.size == 1
+    graphs.normal_state_routed("potri" if potri else "solves")
     ainvs = []
     for b, segs in zip(fp.problem.blocks, seginfo):
         live = [off for off, sz in segs if sz == N]
-        rows = torch.cat([off + torch.arange(N, device=dev) for off in live])
-        width = rows.shape[0]
-        wloc = -(-width // mesh.size)
-        cols = mesh.rank * wloc + torch.arange(wloc, device=dev)
-        mine = cols < width
-        E = torch.zeros((fp.factors[b.name].n, wloc), dtype=fp.problem.dtype, device=dev)
-        E[rows[cols[mine]], torch.nonzero(mine)[:, 0]] = 1.0
-        A = fp.kernel_solve(b.name, E, shard_cols=True)[rows]  # (sN, wloc): my columns
-        A = comm.all_gather(mesh, A).permute(1, 0, 2).reshape(width, -1)[:, :width]
+        A = (_interior_inverse_potri if potri else _interior_inverse_solves)(fp, b.name, live, N)
         ainvs.append(A.reshape(len(live), N, len(live), N))
     return ainvs
+
+
+def _interior_inverse_solves(fp: DistributedFactoredProblem, name: str, live, N: int):
+    """``Theta^{-1}[rows, rows]`` for the interior rows ``off .. off + N - 1``
+    of each offset in ``live``, by kernel solves on their identity columns,
+    each rank solving its ``ceil(width/P)`` of them (column-sharded), then
+    one ``all_gather``."""
+    mesh, dev = fp.mesh, fp.problem.device
+    rows = torch.cat([off + torch.arange(N, device=dev) for off in live])
+    width = rows.shape[0]
+    wloc = -(-width // mesh.size)
+    cols = mesh.rank * wloc + torch.arange(wloc, device=dev)
+    mine = cols < width
+    E = torch.zeros((fp.factors[name].n, wloc), dtype=fp.problem.dtype, device=dev)
+    E[rows[cols[mine]], torch.nonzero(mine)[:, 0]] = 1.0
+    A = fp.kernel_solve(name, E, shard_cols=True)[rows]  # (width, wloc): my columns
+    return comm.all_gather(mesh, A).permute(1, 0, 2).reshape(width, -1)[:, :width]
+
+
+def _interior_inverse_potri(fp: DistributedFactoredProblem, name: str, live, N: int):
+    """``Theta^{-1}[rows, rows]`` as :func:`_interior_inverse_solves` gives
+    it, at P = 1, in LAPACK ``potri``'s order restricted to the interior
+    columns: ``Y = L~^{-1} E S`` (``E`` the identity columns of the rows,
+    in ascending order, ``S`` their equilibration scales), then ``Y^T Y``.
+
+    Column ``c`` of ``Y`` is zero above its identity row ``r_c``, and both
+    stages skip those zeros. The forward stage runs down the factor's row
+    blocks (right-looking, the JAX package's block loop over ``diag_inv``):
+    block ``k`` takes ``Y_k = W_kk R_k`` for the columns whose identity row
+    lies at or above it, then subtracts ``L_{>k,k} Y_k`` from the rows below,
+    one product each on strided views of the factor (no copy of it). The
+    product stage fills the lower triangle of ``Y^T Y`` by panels of
+    ``2 B`` columns, each product over the rows from the panel's first
+    identity row, and mirrors it into the upper one, so that the result is
+    exactly symmetric. The rows above the first interior row's block are
+    never stored; nothing is read on the host."""
+    fac, dtype, dev = fp.factors[name], fp.problem.dtype, fp.problem.device
+    L, B, n = fac.matrix, fac.block, fac.n
+    W = fac.inverses()
+    width = len(live) * N
+    base = live[0] // B * B  # Y's first stored row
+    scale = fp.col_scales[name]
+    Y = torch.zeros((n - base, width), dtype=dtype, device=dev)
+    for j, off in enumerate(live):  # E S: the scales on the identity rows
+        Y[off - base : off - base + N, j * N : (j + 1) * N].diagonal().copy_(scale[off : off + N])
+    for k in range(base // B, -(-n // B)):
+        lo, hi = k * B, min((k + 1) * B, n)
+        c = sum(min(max(hi - off, 0), N) for off in live)  # columns live from here on
+        Yk = Y[lo - base : hi - base, :c]
+        Yk.copy_(W[k, : hi - lo, : hi - lo] @ Yk)
+        if hi < n:
+            Y[hi - base :, :c].addmm_(L[hi:n, lo:hi], Yk, alpha=-1.0)
+    A = torch.empty((width, width), dtype=dtype, device=dev)
+    for c0 in range(0, width, 2 * B):
+        c1 = min(c0 + 2 * B, width)
+        r0 = live[c0 // N] + c0 % N - base  # the panel's first identity row
+        torch.mm(Y[r0:, c0:c1].mT, Y[r0:, :c1], out=A[c0:c1, :c1])
+        D = A[c0:c1, c0:c1]
+        D.copy_(D.tril() + D.tril(-1).mT)
+        A[:c0, c0:c1] = A[c0:c1, :c0].mT
+    return A
 
 
 def _normal_delta(fp, z, structure, ainvs, hessian_jitter):

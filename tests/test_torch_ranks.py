@@ -385,6 +385,20 @@ def test_step_solvers_match_direct_across_ranks(ranks, name):
         _close(o[f"steps_{name}/z_{solver}_P2"], zd, 1e-6 * np.abs(zd).max())
 
 
+@pytest.mark.parametrize("name", ["elliptic", "darcy"])
+def test_normal_state_routes_by_mesh_size(ranks, name):
+    """The 'normal' step's state (``ops/graphs.py::NORMAL_STATES``): across
+    two ranks by the column-sharded kernel solves, on every rank, and on a
+    one-device mesh in ``potri``'s order; once a factorization, and no state
+    for the other step solvers."""
+    out, _, _ = ranks
+    for solver in W.SOLVERS[name]:
+        want = {"P2": [0, 1], "P1": [1, 0]} if solver == "normal" else {"P2": [0, 0], "P1": [0, 0]}
+        for tag, counts in want.items():
+            got = _replicated(out[2], f"steps_{name}/states_{solver}_{tag}")
+            assert got.tolist() == counts, (solver, tag, got)
+
+
 def test_posterior_and_variance_across_ranks(ranks):
     """DistributedPosterior at P = 2 at the same z (the truth at the
     collocation points): the weights (1e-6 of their scale), the extension

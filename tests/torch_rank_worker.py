@@ -206,6 +206,7 @@ def step_problem(c, name):
 
 
 def _steps(c, name, solvers):
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
     from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
 
     prob = step_problem(c, name)
@@ -215,8 +216,11 @@ def _steps(c, name, solvers):
     for solver in solvers:
         kw = STEP_KW.get((name, solver), {})
         for P, fp in fps.items():
+            before = dict(graphs.NORMAL_STATES)
             st = td.gn_solve_distributed(fp, max_iter=3, step_solver=solver, **kw)
             tag = f"{solver}_P{P}"
+            out[f"states_{tag}"] = np.asarray([graphs.NORMAL_STATES[r] - before[r]
+                                               for r in ("potri", "solves")])
             out[f"z_{tag}"], out[f"losses_{tag}"] = np_(st.z), np_(st.losses)
             out[f"iters_{tag}"] = np_(st.cg_iters)
             out[f"finite_{tag}"] = np.asarray(bool(st.converged_finite))
