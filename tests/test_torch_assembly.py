@@ -8,6 +8,8 @@ import torch
 
 import nonlinpdes_gpsolver_tpu.ops as jops
 import nonlinpdes_gpsolver_tpu_torch.ops as tops
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 # Both packages evaluate the same closed form in the same order, so the
 # blocks agree to rounding: rtol 1e-12, with an absolute floor of 1e-12 of

@@ -43,6 +43,7 @@ from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
 from nonlinpdes_gpsolver_tpu_torch.utils import checkpoint as tck
 from nonlinpdes_gpsolver_tpu_torch.utils.profiling import flop_model
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import limited, time_limit  # noqa: F401  (autouse fixture)
 
 
 TESTS = Path(__file__).resolve().parent
@@ -296,13 +297,14 @@ def test_distributed_checkpoint_refuses_undealable_mesh(tmp_path):
 def ranks(tmp_path_factory, eight_devices):
     """The worker's outputs at P = 4 (save) and P = 2 (reload), the JAX
     8-device file's residual and z, and the directory holding the files."""
-    d = tmp_path_factory.mktemp("ckpt_ranks")
-    _, _, arrays = _jax_problem()
-    np.savez(d / "inputs.npz", **{"k" + k: v for k, v in arrays.items()})
-    r_jax, z_jax = _jax_eight_device_file(d / "jax_P8.npz")
-    log = subprocess.run([sys.executable, str(TESTS / "torch_rank_worker.py"), str(d), "4,2",
-                          "checkpoint"], capture_output=True, text=True, timeout=600)
-    assert log.returncode == 0, (log.stdout + log.stderr)[-6000:]
+    with limited("the checkpoint ranks fixture"):
+        d = tmp_path_factory.mktemp("ckpt_ranks")
+        _, _, arrays = _jax_problem()
+        np.savez(d / "inputs.npz", **{"k" + k: v for k, v in arrays.items()})
+        r_jax, z_jax = _jax_eight_device_file(d / "jax_P8.npz")
+        log = subprocess.run([sys.executable, str(TESTS / "torch_rank_worker.py"), str(d), "4,2",
+                              "checkpoint"], capture_output=True, text=True, timeout=300)
+        assert log.returncode == 0, (log.stdout + log.stderr)[-6000:]
     out = {}
     for P in (4, 2):
         out[P] = []

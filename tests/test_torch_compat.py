@@ -23,6 +23,7 @@ from nonlinpdes_gpsolver_tpu.compat import solver_GP as jax_solver_GP
 from nonlinpdes_gpsolver_tpu_torch.compat import solver_GP
 from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import DistributedFactoredProblem
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 
 def _cfg(**kw):

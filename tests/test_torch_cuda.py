@@ -19,6 +19,7 @@ import torch
 import nonlinpdes_gpsolver_tpu_torch as tpt
 from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
 from nonlinpdes_gpsolver_tpu_torch.ops.operators import d, d2, identity, laplacian
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 GATE_L2 = 3.402e-3  # BASELINE.md row 1, the bench.py accuracy gate
 OPS = {"id": identity, "lap": laplacian, "d0": lambda: d(0), "d11": lambda: d2(1, 1)}

@@ -39,6 +39,7 @@ from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
 from nonlinpdes_gpsolver_tpu_torch.solvers import gn as tgn
 from test_torch_krylov import _elliptic_pair, small_darcy
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 MESH = make_mesh(1, device="cpu")
 

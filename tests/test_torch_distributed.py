@@ -18,6 +18,7 @@ from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
 from nonlinpdes_gpsolver_tpu_torch.solvers import gn as tgn
 from test_torch_krylov import small_darcy
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import limited, time_limit  # noqa: F401  (autouse fixture)
 
 MESH = make_mesh(1, device="cpu")
 # 16-row blocks and 32-column superblocks: several superblocks per factor
@@ -62,14 +63,15 @@ def factored():
     """Per problem: (JAX problem, port problem, JAX mesh factorization,
     port mesh factorization, port dense 'direct' reference state)."""
     out = {}
-    for name, build in PROBLEMS.items():
-        pj, pt = build()
-        nug = NUGGET[name]
-        jfp = jdist.factorize_distributed(pj, jax_mesh(1), nugget=nug, **FACTOR_KW)
-        tfp = tdist.factorize_distributed(pt, MESH, nugget=nug, **FACTOR_KW)
-        ref = tpt.gn_solve(tpt.factorize(pt, nug, solve_mode="trsm"), max_iter=3,
-                           step_solver="direct")
-        out[name] = (pj, pt, jfp, tfp, ref)
+    with limited("the factored fixture"):
+        for name, build in PROBLEMS.items():
+            pj, pt = build()
+            nug = NUGGET[name]
+            jfp = jdist.factorize_distributed(pj, jax_mesh(1), nugget=nug, **FACTOR_KW)
+            tfp = tdist.factorize_distributed(pt, MESH, nugget=nug, **FACTOR_KW)
+            ref = tpt.gn_solve(tpt.factorize(pt, nug, solve_mode="trsm"), max_iter=3,
+                               step_solver="direct")
+            out[name] = (pj, pt, jfp, tfp, ref)
     return out
 
 

@@ -21,6 +21,7 @@ from nonlinpdes_gpsolver_tpu.models.elliptic import _eval_on as jax_eval_on
 from nonlinpdes_gpsolver_tpu_torch.models.elliptic import _eval_key, _eval_on
 from nonlinpdes_gpsolver_tpu_torch.ops import graphs
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 
 def _module(source: str, **values) -> types.ModuleType:

@@ -20,6 +20,7 @@ import nonlinpdes_gpsolver_tpu_torch.ops as tops
 from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
 from nonlinpdes_gpsolver_tpu_torch.parallel import cholesky, fused, gram, make_mesh
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 MESH = make_mesh(1, device="cpu")
 

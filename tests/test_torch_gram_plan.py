@@ -12,6 +12,8 @@ import torch
 import nonlinpdes_gpsolver_tpu.ops as jops
 import nonlinpdes_gpsolver_tpu_torch.ops as tops
 from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 TILE = gram_tile.TILE
 KERNEL = tops.SquaredExponential.anisotropic([0.3, 0.05])

@@ -21,6 +21,8 @@ from nonlinpdes_gpsolver_tpu.ops.pallas_gram import pallas_pair_fn
 import nonlinpdes_gpsolver_tpu_torch.ops as tops
 from nonlinpdes_gpsolver_tpu_torch.ops import gram_tile
 from nonlinpdes_gpsolver_tpu_torch.ops.kernels import exp_neg_accurate
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 OPS = ["id", "d0", "d1", "d00", "d11", "d01", "lap"]
 KERNELS = {

@@ -14,6 +14,7 @@ from nonlinpdes_gpsolver_tpu.solvers import gn as jgn
 import nonlinpdes_gpsolver_tpu_torch as tpt
 from nonlinpdes_gpsolver_tpu_torch.solvers import gn as tgn
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 
 def test_batched_cg_and_woodbury_algebra():

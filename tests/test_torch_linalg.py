@@ -12,6 +12,8 @@ from nonlinpdes_gpsolver_tpu.solvers.gn import _equilibrated_cholesky
 
 import nonlinpdes_gpsolver_tpu_torch as tpt
 from nonlinpdes_gpsolver_tpu_torch.ops import linalg as tl
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 N_DOM, N_BDY = 60, 20
 

@@ -16,6 +16,7 @@ from nonlinpdes_gpsolver_tpu_torch import api
 from nonlinpdes_gpsolver_tpu_torch.parallel import cholesky, make_mesh
 from nonlinpdes_gpsolver_tpu_torch.parallel.mesh import Mesh
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 MESH = make_mesh(1, device="cpu")

@@ -11,6 +11,7 @@ import torch
 import nonlinpdes_gpsolver_tpu as gpt
 import nonlinpdes_gpsolver_tpu_torch as tpt
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 N_DOM, N_BDY, NUGGET = 60, 24, 1e-6
 MODELS = ["burgers", "eikonal", "darcy"]

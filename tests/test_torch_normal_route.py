@@ -23,6 +23,7 @@ from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
 from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
 from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import gn_solve_distributed
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 NORMAL = ("gauss_newton.normal_state", "gauss_newton.normal_step")
 DOMAIN = ((0.0, 1.0), (-1.0, 1.0))

@@ -12,6 +12,7 @@ with ``python nonlinpdes_gpsolver_tpu_torch/notebooks/execute_all.py``.
 from pathlib import Path
 
 import pytest
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 nbformat = pytest.importorskip("nbformat")
 nbclient = pytest.importorskip("nbclient")
@@ -80,7 +81,7 @@ def test_notebook_executes(name, monkeypatch):
     assert not missed, f"shrink texts out of date for {name}: {missed}"
     assert "DEVICE = 'cpu'" in nb.cells[1].source  # the recorded outputs' device
     client = nbclient.NotebookClient(
-        nb, timeout=600, kernel_name="python3",
+        nb, timeout=120, kernel_name="python3",
         resources={"metadata": {"path": str(NB_DIR)}},
     )
     client.execute()  # raises CellExecutionError on any failure

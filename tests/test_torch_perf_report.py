@@ -11,6 +11,7 @@ import pytest
 
 from nonlinpdes_gpsolver_tpu_torch.examples import perf_report
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 COLUMNS = ["N", "factor_s", "gn_s", "post_s", "chol_TF/s", "gn_TF/s", "gn_it/s", "test_L2"]
 TINY = ["--device", "cpu", "--gn_steps", "1", "--test_grid", "10", "--N_data", "8",

@@ -5,8 +5,8 @@ against the port at P = 1; the port twins of ``tests/test_parallel.py``
 and ``tests/test_distributed_solver.py`` at P = 2, and P = 4 once.
 
 One module fixture writes the inputs (numpy seeds, and the JAX package's
-draws as numpy), starts the worker for P = 2 and then P = 4 in the
-background, computes the JAX references meanwhile, and waits for it; the
+draws as numpy), starts the worker for P = 2 and for P = 4 in the
+background, computes the JAX references meanwhile, and waits for both; the
 tests compare. Tolerances: the assembly 1e-12, a factor 1e-8 (of the JAX
 package's, whose panel arithmetic rounds differently), z 1e-7 of its scale
 against the JAX package's (the Krylov steps' inner solves stop at their
@@ -17,8 +17,11 @@ its z is held there at ten times ``cg_tol``). Replicated results (the
 factor's ``diag_inv``, z, the losses) must be the same bits on every rank.
 """
 
+import os
+import signal
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -34,6 +37,7 @@ from nonlinpdes_gpsolver_tpu.parallel.mesh import make_mesh as jax_mesh
 from nonlinpdes_gpsolver_tpu.solvers import distributed as jdist
 
 import torch_rank_worker as W
+from torch_time_limit import limited, time_limit  # noqa: F401  (autouse fixture)
 
 TESTS = Path(__file__).resolve().parent
 
@@ -167,24 +171,60 @@ def _jax_references(inp, ell, steps, jfp2):
     return ref
 
 
+# How long the workers may run from their start, beside the JAX references:
+# about twice the whole fixture's 145-172 s under the tier-1 run's contention.
+WORKER_SECONDS = 360
+
+
+def _worker(d, P):
+    """The rank worker at mesh size ``P``, in a session of its own (its ranks
+    with it), its output and errors in one pipe."""
+    return subprocess.Popen([sys.executable, str(TESTS / "torch_rank_worker.py"), str(d), str(P)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def _stop(worker):
+    """Kill the worker and its ranks, which hold its pipe too; its log."""
+    os.killpg(worker.pid, signal.SIGKILL)
+    return worker.communicate(timeout=60)[0]
+
+
+def _log_of(worker, P, deadline):
+    """The worker's log once it ends. One still running at ``deadline`` is
+    stopped, and the test fails with the end of its log, which names the
+    case it was in."""
+    try:
+        # what is left of the deadline, and a few seconds at least to read the
+        # log of a worker that has ended
+        left = max(5.0, deadline - time.monotonic())
+        return worker.communicate(timeout=min(WORKER_SECONDS, left))[0]
+    except subprocess.TimeoutExpired:
+        log = _stop(worker)
+    pytest.fail(f"the rank worker at P = {P} still ran {WORKER_SECONDS} s after it started; "
+                f"its log ends:\n{log[-6000:]}")
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """(per P: the ranks' outputs, the JAX references, the inputs)."""
-    d = tmp_path_factory.mktemp("ranks")
-    inp, ell, steps, jfp2 = _inputs()
-    np.savez(d / "inputs.npz", **inp)
-    worker = subprocess.Popen([sys.executable, str(TESTS / "torch_rank_worker.py"), str(d), "2,4"],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        ref = _jax_references(inp, ell, steps, jfp2)
-        log, _ = worker.communicate(timeout=600)
-    finally:
-        if worker.poll() is None:
-            worker.kill()
-            worker.communicate()
-    assert worker.returncode == 0, log[-6000:]
+    """(per P: the ranks' outputs, the JAX references, the inputs). The
+    workers at P = 2 and 4 run at once, beside the references."""
+    with limited("the ranks fixture"):
+        d = tmp_path_factory.mktemp("ranks")
+        inp, ell, steps, jfp2 = _inputs()
+        np.savez(d / "inputs.npz", **inp)
+        deadline = time.monotonic() + WORKER_SECONDS
+        workers = {P: _worker(d, P) for P in (2, 4)}
+        try:
+            ref = _jax_references(inp, ell, steps, jfp2)
+            logs = {P: _log_of(w, P, deadline) for P, w in workers.items()}
+        finally:
+            for w in workers.values():
+                if w.poll() is None:
+                    _stop(w)
     out = {}
-    for P in (2, 4):
+    for P, w in workers.items():
+        assert w.returncode == 0, logs[P][-6000:]
         out[P] = []
         for r in range(P):
             with np.load(d / f"out_P{P}_rank{r}.npz") as npz:

@@ -10,6 +10,8 @@ import nonlinpdes_gpsolver_tpu_torch as tpt
 from nonlinpdes_gpsolver_tpu_torch.ops import linalg
 from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
 from nonlinpdes_gpsolver_tpu_torch.solvers import gn as tgn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 MESH = tpt.parallel.make_mesh(1, device="cpu")
 NUGGET = 1e-8

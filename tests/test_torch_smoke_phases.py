@@ -12,6 +12,7 @@ import torch
 import chip_smoke
 import nonlinpdes_gpsolver_tpu_torch as tpt
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 CPU = torch.device("cpu")
 
@@ -22,7 +23,8 @@ def _canonical():
     return inp, Xt, torch.func.vmap(tpt.workloads.u_elliptic)(Xt)
 
 
-def test_checkpoint_phase_on_cpu():
+def test_checkpoint_phase_on_cpu(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the child process, beside other test processes
     inp, Xt, truth = _canonical()
     res = tpt.GPSolver(tpt.interop.problem_from_numpy(**inp, device="cpu"), nugget=1e-5).solve(4)
     dense = chip_smoke.checkpoint_dense(tpt, res.posterior.fp, res.state, Xt, truth)
@@ -44,7 +46,8 @@ def test_compat_phase_on_cpu():
     assert out["device"] == "cpu" and out["dtype"] == "float64" and len(out["losses"]) == 4
 
 
-def test_perf_report_phase_on_cpu():
+def test_perf_report_phase_on_cpu(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # perf_report's processes, as in the child above
     runs = [[a.replace("7800", "200").replace("900", "100") for a in argv]
             for argv in chip_smoke.PERF_REPORT_RUNS]
     report = chip_smoke.perf_report_phase(runs, ["--device", "cpu", "--gn_steps", "2"])

@@ -15,6 +15,8 @@ import torch
 
 import nonlinpdes_gpsolver_tpu as gpt
 import nonlinpdes_gpsolver_tpu_torch as tpt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 GATE_L2 = 3.402e-3  # BASELINE.md row 1, the bench.py accuracy gate

@@ -28,6 +28,7 @@ from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
 from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
 from nonlinpdes_gpsolver_tpu_torch.solvers import gn as tgn
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 MESH = tpt.parallel.make_mesh(1, device="cpu")
 INV_SQ = (1 / (2 * 0.3**2),) * 2

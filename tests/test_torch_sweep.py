@@ -36,6 +36,7 @@ from test_torch_structure_reuse import (
     _unshared_solver,
 )
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 
 def _in_entry(fp):
@@ -197,14 +198,16 @@ def test_checkpoint_loaded_as_third_live_problem_is_a_guest(tmp_path):
 def test_mesh_guest_recomputes_its_deflation_basis():
     """Guests of the Darcy mesh ``'woodbury'`` loop at P = 1: the guest
     entry computes its deflation basis again for each guest it loads, so
-    alternating two guests gives each one's unshared solve, bitwise."""
+    alternating two guests gives each one's unshared solve, bitwise. One
+    step a solve: the basis is made when a guest is loaded, before its
+    first step, which a stale one would already change."""
     tpt.clear_graph_cache()
     kw = dict(nugget=1e-3, mesh=MESH, mesh_block=16)
     pts = [_darcy(24, 10, s)[1] for s in range(130, 134)]
     solvers = [tpt.GPSolver(p, **kw) for p in pts]
     assert _bound(solvers[2].fp) is None and _bound(solvers[3].fp) is None
-    zs = [solvers[i].solve(max_iter=2, step_solver="woodbury").z for i in (2, 3, 2)]
-    assert solvers[2].solve(max_iter=2, step_solver="woodbury").state.deflation_rank > 0
+    zs = [solvers[i].solve(max_iter=1, step_solver="woodbury").z for i in (2, 3, 2)]
+    assert solvers[2].solve(max_iter=1, step_solver="woodbury").state.deflation_rank > 0
     for i, z in zip((2, 3, 2), zs):
-        ref = _unshared_solver(pts[i], **kw).solve(max_iter=2, step_solver="woodbury").z
+        ref = _unshared_solver(pts[i], **kw).solve(max_iter=1, step_solver="woodbury").z
         assert torch.equal(z, ref)

@@ -12,6 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 import nonlinpdes_gpsolver_tpu_torch as tpt
 from nonlinpdes_gpsolver_tpu_torch.utils import tracing
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 KEYS = {"build", "build.record", "build.replay", "factorize", "factorize.assemble",
         "factorize.cholesky", "factorize.inverse", "factorize.quality", "factorize.bind",

@@ -21,6 +21,7 @@ from nonlinpdes_gpsolver_tpu_torch.ops import trsm_rowblock as tr
 from nonlinpdes_gpsolver_tpu_torch.parallel import cholesky
 from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

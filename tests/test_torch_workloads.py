@@ -22,6 +22,7 @@ import nonlinpdes_gpsolver_tpu_torch as tpt
 from nonlinpdes_gpsolver_tpu_torch import workloads
 from nonlinpdes_gpsolver_tpu_torch.utils import classical as tc
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+from torch_time_limit import time_limit  # noqa: F401  (autouse fixture)
 
 
 def _inputs(prob, kernel, **scalars):
@@ -204,7 +205,7 @@ def test_darcy_passes_gate_on_cpu():
     ("burgers", ["--N_domain", "40", "--N_boundary", "16", "--GNsteps", "2"]),
     ("eikonal", ["--N_domain", "40", "--N_boundary", "16", "--GNsteps", "2",
                  "--sampled_type", "grid"]),
-    ("darcy", ["--N_domain", "40", "--N_boundary", "16", "--N_data", "8", "--GNsteps", "2",
+    ("darcy", ["--N_domain", "40", "--N_boundary", "16", "--N_data", "8", "--GNsteps", "1",
                "--nugget", "1e-2", "--noise_level", "1e-2", "--step_solver", "woodbury"]),
 ])
 def test_example_script_runs_on_cpu(name, argv, capsys):

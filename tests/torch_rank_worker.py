@@ -9,7 +9,9 @@ JAX package's draws), spawns P ranks on the CPU with ``torch.multiprocessing``, 
 ``GROUP`` (default ``mesh``, ``tests/test_torch_ranks.py``'s; ``checkpoint``
 is ``tests/test_torch_checkpoint.py``'s) marked for P, in f64 with one
 torch thread. A case may read and write files in ``DIR`` (``c.dir``). Rank r
-writes ``DIR/out_P{P}_rank{r}.npz``, one key per case and result. The
+writes ``DIR/out_P{P}_rank{r}.npz``, one key per case and result, and prints
+each case's name as it starts and its seconds as it ends, so that the log of
+a worker stopped by a timeout names the case it was in. The
 worker imports torch and the port only: ``jax`` and the JAX package are
 blocked from its import system, and it fails if either was imported. Any
 rank's failure makes the command exit non-zero.
@@ -19,6 +21,7 @@ import importlib.abc
 import os
 import socket
 import sys
+import time
 import traceback
 
 BLOCKED = ("jax", "jaxlib", "nonlinpdes_gpsolver_tpu")
@@ -358,6 +361,25 @@ def interop(c):
     return {"r": np_(fp.whitened_residual(c.t("jf_z"))), "local": np_(fac.local)}
 
 
+def factor_scaled(c, scale):
+    """The elliptic step problem with f scaled by ``scale`` (a new problem of
+    its layout), factored at P."""
+    import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
+
+    i = c.inp
+    prob = tpt.interop.problem_from_numpy(i["sXd"], i["sXb"], scale * i["sf"], i["sg"], i["sz0"],
+                                          i["sinv_sq"], device="cpu")
+    return td.factorize_distributed(prob, c.mesh, nugget=NUGGET["elliptic"], **FACTOR_KW)
+
+
+def cg_step(fp):
+    """One ``'cg'`` Gauss-Newton step of a factored problem."""
+    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
+
+    return td.gn_solve_distributed(fp, max_iter=1, step_solver="cg")
+
+
 @case()
 def shared_loop(c):
     """The mesh loop across ranks (the elliptic step problem, f scaled per
@@ -366,48 +388,39 @@ def shared_loop(c):
     ``'cg'``); a second problem after the first is gone, its binds, its
     solution and the same problem solved unshared; then a third problem
     whose factor rank 1 alone still holds a piece of, and the binds of the
-    fourth problem that follows it."""
-    import nonlinpdes_gpsolver_tpu_torch as tpt
+    fourth problem that follows it. Past the agreements a solve is one
+    ``'cg'`` step: its Krylov loop and deflation basis are the layout's, and
+    what is held is a bind's bits, not how far CG converges."""
     from nonlinpdes_gpsolver_tpu_torch.ops import graphs
     from nonlinpdes_gpsolver_tpu_torch.parallel import comm
     from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
     from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
 
-    i = c.inp
-
-    def factor(scale):
-        prob = tpt.interop.problem_from_numpy(i["sXd"], i["sXb"], scale * i["sf"], i["sg"],
-                                              i["sz0"], i["sinv_sq"], device="cpu")
-        return td.factorize_distributed(prob, c.mesh, nugget=NUGGET["elliptic"], **FACTOR_KW)
-
-    def solve(fp):
-        return td.gn_solve_distributed(fp, max_iter=3, step_solver="cg")
-
     _reuse.clear_graph_cache()
     out = {}
-    fp = factor(1.0)
+    fp = factor_scaled(c, 1.0)
     for solver in ("structured", "cg"):
         for steps in (1, 3):
             comm.reset_counts()
             td.gn_solve_distributed(fp, max_iter=steps, step_solver=solver)
             out[f"agreements_{solver}_{steps}"] = np.asarray(comm.AGREEMENTS)
-    solve(fp)
+    cg_step(fp)
     del fp
     graphs.reset_counts()
-    fp = factor(1.1)
+    fp = factor_scaled(c, 1.1)
     out["second/binds"] = np.asarray([graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED])
     out["second/in_entry"] = np.asarray(_reuse._in_entry(fp.factors["u"].local))
-    st = solve(fp)
+    st = cg_step(fp)
     out["second/z"], out["second/losses"] = np_(st.z), np_(st.losses)
     del fp
     with _reuse._unshared():
-        st = solve(factor(1.1))
+        st = cg_step(factor_scaled(c, 1.1))
     out["unshared/z"], out["unshared/losses"] = np_(st.z), np_(st.losses)
-    fp = factor(1.2)
+    fp = factor_scaled(c, 1.2)
     held = fp.factors["u"].local[:1] if c.rank == 1 else None
     del fp
     graphs.reset_counts()
-    fp = factor(1.3)
+    fp = factor_scaled(c, 1.3)
     out["held/binds"] = np.asarray([graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED])
     del fp, held
     return out
@@ -419,32 +432,20 @@ def sweep(c):
     scaled per problem), every one kept: the binds, guest loads and the
     solve's host agreements of each; the third one's solution and losses,
     and again after the first one's solve; and the same problem solved
-    unshared."""
-    import nonlinpdes_gpsolver_tpu_torch as tpt
+    unshared. Each solve is one ``'cg'`` step, as in :func:`shared_loop`."""
     from nonlinpdes_gpsolver_tpu_torch.ops import graphs
     from nonlinpdes_gpsolver_tpu_torch.parallel import comm
     from nonlinpdes_gpsolver_tpu_torch.solvers import _reuse
-    from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as td
-
-    i = c.inp
-
-    def factor(scale):
-        prob = tpt.interop.problem_from_numpy(i["sXd"], i["sXb"], scale * i["sf"], i["sg"],
-                                              i["sz0"], i["sinv_sq"], device="cpu")
-        return td.factorize_distributed(prob, c.mesh, nugget=NUGGET["elliptic"], **FACTOR_KW)
-
-    def solve(fp):
-        return td.gn_solve_distributed(fp, max_iter=3, step_solver="cg")
 
     _reuse.clear_graph_cache()
     out, live = {}, []
     for k, scale in enumerate((1.0, 1.1, 1.2)):
         graphs.reset_counts()
-        live.append(factor(scale))
+        live.append(factor_scaled(c, scale))
         out[f"binds{k}"] = np.asarray([graphs.ENTRIES, graphs.REBINDS, graphs.UNSHARED,
                                        graphs.GUESTS])
         comm.reset_counts()
-        st = solve(live[-1])
+        st = cg_step(live[-1])
         out[f"loads{k}"] = np.asarray(graphs.GUEST_LOADS)
         out[f"agreements{k}"] = np.asarray(comm.AGREEMENTS)
     guest = live[2]
@@ -452,12 +453,12 @@ def sweep(c):
     out["guest/in_entry"] = np.asarray(_reuse._in_entry(guest.factors["u"].local))
     out["guest/z"], out["guest/losses"] = np_(st.z), np_(st.losses)
     graphs.reset_counts()
-    solve(live[0])
-    st = solve(guest)  # the guest entry holds it still: no copy
+    cg_step(live[0])
+    st = cg_step(guest)  # the guest entry holds it still: no copy
     out["again/loads"] = np.asarray(graphs.GUEST_LOADS)
     out["again/z"] = np_(st.z)
     with _reuse._unshared():
-        st = solve(factor(1.2))
+        st = cg_step(factor_scaled(c, 1.2))
     out["unshared/z"], out["unshared/losses"] = np_(st.z), np_(st.losses)
     out["entries"] = np.asarray(len(_reuse.entries()))
     del live, guest, st
@@ -465,17 +466,17 @@ def sweep(c):
     # the next guest's ranks disagree on it, and both make a new one
     if c.rank == 1:
         _reuse.clear_graph_cache()
-    live = [factor(s) for s in (1.3, 1.4)]
-    guest = factor(1.5)
+    live = [factor_scaled(c, s) for s in (1.3, 1.4)]
+    guest = factor_scaled(c, 1.5)
     out["disagree/kept"] = np.asarray([e.hosting for e in _reuse.entries()].count(True))
-    st = solve(guest)
+    st = cg_step(guest)
     host = _reuse.serving(guest)
     out["disagree/new"] = np.asarray(host in _reuse.entries() and host.generation == 1)
     out["disagree/hosting"] = np.asarray([e.hosting for e in _reuse.entries()].count(True))
     out["disagree/z"] = np_(st.z)
     del live, guest, host
     with _reuse._unshared():
-        out["disagree/unshared_z"] = np_(solve(factor(1.5)).z)
+        out["disagree/unshared_z"] = np_(cg_step(factor_scaled(c, 1.5)).z)
     return out
 
 
@@ -518,6 +519,12 @@ def checkpoint_load(c):
 # -- the ranks ---------------------------------------------------------------------
 
 
+def _log(line):
+    """One line, in one write: the ranks share the worker's output."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def rank_main(rank, P, port, directory, group):
     _block_jax()
     torch.set_num_threads(1)
@@ -533,7 +540,11 @@ def rank_main(rank, P, port, directory, group):
         out = {}
         for name, (fn, sizes, in_group) in CASES.items():
             if P in sizes and in_group == group:
+                tag = f"P={P} rank {rank}: {name}"
+                _log(tag)
+                t0 = time.perf_counter()
                 out.update({f"{name}/{k}": v for k, v in fn(c).items()})
+                _log(f"{tag} took {time.perf_counter() - t0:.1f} s")
         leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         if leaked:
             raise RuntimeError(f"the rank worker imported {leaked}")
