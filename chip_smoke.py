@@ -10,6 +10,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    registers, shared memory, spills; K2's instantiations apart); then
    ``trsm_rowblock``: the row-block triangular-solve kernel against its
    plain version and cuBLAS at the cells' shapes (:func:`trsm_rowblock_phase`);
+   and ``normal_matrix``: the equilibrated normal-matrix kernel of the
+   ``'normal'`` step against its plain version and the einsum assembly it
+   replaces at Burgers' shapes (:func:`normal_matrix_phase`);
 2. the Gram kernel K1 against its plain PyTorch version on the card, one
    block per launch: 10 kernel x operator-pair cases at 1500 x 700 plus a
    ragged 33 x 17 case, in f32 (limit 1e-5 of the block's scale) and f64
@@ -446,6 +449,92 @@ def trsm_rowblock_phase(tpt, dev, cases=TRSM_CASES, reps=20):
         gc.collect()
         torch.cuda.empty_cache()
     return {"launches": tr.LAUNCHES - launches, "cases": rows}
+
+
+# The 'normal' step's blocks: Burgers' cell (5,000 interior points, four live
+# segments, three latent slices) and a ragged shape (N not a multiple of 4)
+NORMAL_CASES = (("burgers", 3, 4, 5000), ("ragged", 3, 4, 1001))
+
+
+def normal_matrix_phase(tpt, dev, cases=NORMAL_CASES, reps=20):
+    """Phase ``normal_matrix``: the equilibrated normal-matrix kernel
+    (``ops/normal_matrix.py``) on a symmetric positive definite inverse
+    block (``G G^T / 64 + I/2``) and Gaussian diagonals: its gap to the
+    plain version in float64, exactly symmetric, the floored diagonal, two
+    launches bitwise; device ms of the kernel, of the scales' pass
+    (``normal_diagonal`` and the ``rsqrt``), of the plain version and of the
+    einsum assembly and equilibration it replaces (``einsum_ms``:
+    ``_einsum_normal_matrix`` and ``spd_solve_controlled``'s scaling); and
+    the bound: the half of ``A`` that its symmetry leaves read once and the
+    result written once at the HBM rate (``bound_ms``), beside ``A`` read
+    whole (``bound_full_read_ms``)."""
+    import torch
+    from nonlinpdes_gpsolver_tpu_torch.ops import normal_matrix as nm
+    from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import _einsum_normal_matrix
+
+    rows, launches = [], nm.LAUNCHES
+    for name, s, S, N in cases:
+        g = torch.Generator(device=dev).manual_seed(N)
+        G = torch.randn((S * N, 64), generator=g, device=dev)
+        A = G @ G.T / 64
+        A.diagonal().add_(0.5)
+        A4 = A.view(S, N, S, N)
+        del G
+        Dl = torch.randn((s, S, N), generator=g, device=dev)
+        pairs = [(A4, Dl)]
+        sc = torch.rsqrt(nm.normal_diagonal(pairs))
+        before = nm.LAUNCHES
+        got = nm.normal_matrix(pairs, sc)
+        again = nm.normal_matrix(pairs, sc)
+        torch.cuda.synchronize()
+        check(nm.LAUNCHES - before == 2, f"normal_matrix {name}: {nm.LAUNCHES - before} launches")
+        check(torch.equal(got, again), f"normal_matrix {name}: two launches differ")
+        check(torch.equal(got, got.mT), f"normal_matrix {name}: not exactly symmetric")
+        check(bool((got.diagonal() == nm.floor_value(torch.float32)).all()),
+              f"normal_matrix {name}: diagonal not floored")
+        del again
+        ref = nm.normal_matrix_plain([(A4.double(), Dl.double())], sc.double())
+        gap = float((got.double() - ref).abs().max() / ref.abs().max())
+        del ref
+        plain32 = nm.normal_matrix_plain(pairs, sc)
+        plain_gap = float((plain32 - got).abs().max())
+        del plain32
+        check(math.isfinite(gap) and gap <= 2e-5, f"normal_matrix {name}: gap {gap:.3e} to float64")
+        m = s * N
+
+        def einsum_form():
+            H = _einsum_normal_matrix(pairs, [], m, sc)
+            d_isqrt = torch.rsqrt(torch.clamp(torch.diagonal(H), min=torch.finfo(H.dtype).tiny))
+            Hs = H * (d_isqrt[:, None] * d_isqrt[None, :])
+            Hs.fill_diagonal_(nm.floor_value(H.dtype))
+            return Hs
+
+        Hs = einsum_form()
+        einsum_gap = float((Hs - got).abs().max())
+        del Hs, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: nm.normal_matrix(pairs, sc), reps)
+        scales_ms = time_ms(lambda: torch.rsqrt(nm.normal_diagonal(pairs)), reps)
+        plain_ms = time_ms(lambda: nm.normal_matrix_plain(pairs, sc), 2)
+        einsum_ms = time_ms(einsum_form, 3)
+        nbytes = 4 * (S * S * N * (N + 1) // 2 + m * m)
+        full_bytes = 4 * (S * S * N * N + m * m)
+        flops = 2 * N * N * (S * S * s + s * s * S)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        rows.append({"case": name, "s": s, "S": S, "N": N, "ms": ms, "scales_ms": scales_ms,
+                     "plain_ms": plain_ms, "einsum_ms": einsum_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+                     "bound_full_read_ms": full_bytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "roofline_pct": 100 * max(t_bytes, t_ops) / ms, "rel_err_f64": gap,
+                     "max_abs_to_plain_f32": plain_gap, "max_abs_to_einsum_f32": einsum_gap,
+                     "bitwise_repeat": True})
+        del A, A4, Dl, pairs, sc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": nm.LAUNCHES - launches, "cases": rows}
 
 
 def mesh_steps(tpt, dev, mesh=None, dtypes=None):
@@ -2007,6 +2096,19 @@ def main():
     trsm = trsm_rowblock_phase(tpt, dev)
     emit("trsm_rowblock", build_seconds=trsm_build_s, ptxas=trsm_ptxas,
          seconds=time.perf_counter() - t_phase, card=card, **trsm)
+
+    # -- 1c. the 'normal' step's equilibrated normal-matrix kernel ---------------
+    t0 = time.perf_counter()
+    from nonlinpdes_gpsolver_tpu_torch.ops import normal_matrix
+    normal_matrix._kernel_lib()
+    normal_build_s = time.perf_counter() - t0
+    with open(str(_build.library_path("normal_matrix")) + ".log") as fh:
+        normal_ptxas = [ln.strip() for ln in fh
+                        if "entry function" in ln or "registers" in ln or "spill" in ln]
+    t_phase = time.perf_counter()
+    normal = normal_matrix_phase(tpt, dev)
+    emit("normal_matrix", build_seconds=normal_build_s, ptxas=normal_ptxas,
+         seconds=time.perf_counter() - t_phase, card=card, **normal)
 
     # -- 2. K1 against its plain version --------------------------------------
     kernels = {

@@ -51,7 +51,12 @@ and ``NORMAL_STATES``, the ``'normal'`` step's states computed (the
 interior blocks of the kernel inverse, once a factorization), by route:
 ``"potri"`` (P = 1: the triangular inverse's interior columns and one
 symmetric product) or ``"solves"`` (across ranks: column-sharded kernel
-solves) (:func:`normal_state_routed`).
+solves) (:func:`normal_state_routed`); and ``NORMAL_ASSEMBLIES``, the
+``'normal'`` steps' equilibrated normal matrices assembled from Python
+(eager or being recorded; a replay is not counted), by route:
+``"kernel"`` (``ops/normal_matrix.py``, on a card in float32) or
+``"einsum"`` (the slice contractions and ``spd_solve``)
+(:func:`normal_assembly_routed`).
 :func:`reset_counts` zeroes all but ``RETAINED_BYTES``.
 
 The current solve's record (``utils/tracing.py``) takes a capture's span
@@ -89,6 +94,7 @@ EVAL_EAGER = 0
 STEP_SOLVERS: Dict[str, int] = {}
 TRSM_ROUTES: Dict[str, int] = {"kernel": 0, "library": 0}
 NORMAL_STATES: Dict[str, int] = {"potri": 0, "solves": 0}
+NORMAL_ASSEMBLIES: Dict[str, int] = {"kernel": 0, "einsum": 0}
 
 _enabled = True
 capturing = False  # a capture is in progress (no graph may be freed meanwhile)
@@ -103,6 +109,7 @@ def reset_counts() -> None:
     STEP_SOLVERS.clear()
     TRSM_ROUTES.update(kernel=0, library=0)
     NORMAL_STATES.update(potri=0, solves=0)
+    NORMAL_ASSEMBLIES.update(kernel=0, einsum=0)
 
 
 def routed(step_solver: str) -> None:
@@ -118,6 +125,11 @@ def trsm_routed(route: str) -> None:
 def normal_state_routed(route: str) -> None:
     """Count a ``'normal'`` state computed by ``route``."""
     NORMAL_STATES[route] += 1
+
+
+def normal_assembly_routed(route: str) -> None:
+    """Count a ``'normal'`` step's normal matrix assembled by ``route``."""
+    NORMAL_ASSEMBLIES[route] += 1
 
 
 @contextlib.contextmanager

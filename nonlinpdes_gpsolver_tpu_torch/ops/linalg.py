@@ -278,6 +278,15 @@ def spd_solve_controlled(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     d_isqrt = torch.rsqrt(torch.clamp(d, min=torch.finfo(H.dtype).tiny))
     Hs = H * (d_isqrt[:, None] * d_isqrt[None, :])
     Hs.fill_diagonal_(1.0 + 32.0 * torch.finfo(H.dtype).eps)
+    return equilibrated_solve(Hs, d_isqrt, g)
+
+
+def equilibrated_solve(Hs: torch.Tensor, d_isqrt: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``x = D^{-1/2} Hs^{-1} D^{-1/2} g`` for the equilibrated matrix ``Hs``
+    (its lower triangle read) and the scales ``d_isqrt = D^{-1/2}``: the
+    Cholesky factorization and solve of :func:`spd_solve_controlled`, also
+    of the ``'normal'`` step that assembles ``Hs`` itself
+    (``ops/normal_matrix.py``). NaN where the factorization fails."""
     L, info = torch.linalg.cholesky_ex(Hs)
     col = (d_isqrt * g)[:, None]
     x = d_isqrt * torch.cholesky_solve(col, L, upper=False)[:, 0]

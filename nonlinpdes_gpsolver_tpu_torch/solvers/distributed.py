@@ -65,8 +65,9 @@ from typing import Dict, Optional
 import torch
 
 from ..models.spec import CollocationProblem
-from ..ops.linalg import (ESCALATION, MAX_ESCALATIONS, QUALITY_TOL, accepted, escalation_start,
-                          probe_vector, rungs_climbed, spd_inverse, spd_solve)
+from ..ops import normal_matrix
+from ..ops.linalg import (ESCALATION, MAX_ESCALATIONS, QUALITY_TOL, accepted, equilibrated_solve,
+                          escalation_start, probe_vector, rungs_climbed, spd_inverse, spd_solve)
 from ..parallel import comm
 from ..parallel.cholesky import (
     BlockCyclicFactor,
@@ -607,24 +608,78 @@ def _normal_delta(fp, z, structure, ainvs, hessian_jitter):
     """The ``'normal'`` step (``:807``): for pointwise-per-slice residuals
     ``H = J_raw^T Theta^{-1} J_raw`` is a sum of elementwise-scaled
     contractions of the interior inverse blocks; the misfits add their
-    exact ``w J_m^T J_m``."""
-    p = fp.problem
+    exact ``w J_m^T J_m``. On a card in float32, within the kernel's
+    limits, :func:`_normal_delta_kernel` assembles the equilibrated matrix
+    in one launch a block; elsewhere :func:`_normal_delta_einsum` forms
+    ``H`` and hands it to ``spd_solve`` (counted in
+    ``ops/graphs.py::NORMAL_ASSEMBLIES``)."""
+    kernel = z.device.type == "cuda" and z.dtype == torch.float32 and normal_matrix.fits(
+        ainvs, structure[0])
+    graphs.normal_assembly_routed("kernel" if kernel else "einsum")
+    return (_normal_delta_kernel if kernel else _normal_delta_einsum)(
+        fp, z, structure, ainvs, hessian_jitter)
+
+
+def _live_diagonals(p: CollocationProblem, z, structure):
+    """Per block the ``(s, S, N)`` per-slice diagonals of the raw Jacobian
+    on its ``S`` live (interior) segments."""
     s_lat, N, seginfo = structure
-    m = p.latent_dim
-    H = torch.zeros((m, m), dtype=z.dtype, device=z.device)
-    lins = _linearize_blocks(fp, z)
-    g = _gradient(fp, lins, z)
-    for b, segs, A4 in zip(p.blocks, seginfo, ainvs):
+    out = []
+    for b, segs in zip(p.blocks, seginfo):
         D = torch.stack(_block_diagonals(b.residual, p.data, z, s_lat, N))
-        Dl = torch.stack([D[:, off : off + N] for off, sz in segs if sz == N], dim=1)
+        out.append(torch.stack([D[:, off : off + N] for off, sz in segs if sz == N], dim=1))
+    return out
+
+
+def _einsum_normal_matrix(pairs, Jms, m, z):
+    """``H`` by slice contractions of each block's ``(A4, Dl)``, one latent
+    slice at a time (which bounds the temporaries), plus the misfits'
+    ``J_m^T J_m``."""
+    H = torch.zeros((m, m), dtype=z.dtype, device=z.device)
+    for A4, Dl in pairs:
+        N = Dl.shape[2]
         rows = []
-        for j in range(s_lat):  # one latent slice at a time bounds the temporaries
+        for j in range(Dl.shape[0]):
             Bj = torch.einsum("rq,rqsp->qsp", Dl[j], A4)
             rows.append(torch.einsum("qsp,ksp->qkp", Bj, Dl).reshape(N, m))
         H = H + torch.cat(rows)
-    for Jm in _misfit_jacobians(p, z):
+    for Jm in Jms:
         H = H + Jm.T @ Jm
+    return H
+
+
+def _normal_delta_einsum(fp, z, structure, ainvs, hessian_jitter):
+    """The step by :func:`_einsum_normal_matrix` and ``spd_solve``."""
+    p = fp.problem
+    g = _gradient(fp, _linearize_blocks(fp, z), z)
+    pairs = list(zip(ainvs, _live_diagonals(p, z, structure)))
+    H = _einsum_normal_matrix(pairs, _misfit_jacobians(p, z), p.latent_dim, z)
     return spd_solve(H, g, jitter=hessian_jitter)
+
+
+def _normal_delta_kernel(fp, z, structure, ainvs, hessian_jitter):
+    """The step with the equilibrated matrix assembled directly, as
+    ``spd_solve(H, g, hessian_jitter)`` equilibrates it on the card: the
+    scales from ``d = diag(H) + hessian_jitter``, the diagonal taken from
+    the inverse blocks' entries at ``q = p`` plus the misfits' squared
+    column sums; the misfits' scaled product ``(J_m sc)^T (J_m sc)`` first
+    (one product), then ``ops/normal_matrix.py`` adds every block's
+    ``sc sc^T * H_b`` to it, exactly symmetric, with the floored diagonal;
+    then :func:`..ops.linalg.equilibrated_solve`. ``H`` itself is never
+    formed. On CPU tensors ``normal_matrix`` runs its plain version."""
+    p = fp.problem
+    g = _gradient(fp, _linearize_blocks(fp, z), z)
+    pairs = list(zip(ainvs, _live_diagonals(p, z, structure)))
+    d = normal_matrix.normal_diagonal(pairs)
+    if hessian_jitter:
+        d = d + hessian_jitter
+    Jm = torch.cat(_misfit_jacobians(p, z)) if p.misfits else None
+    if Jm is not None:
+        d = d + (Jm * Jm).sum(dim=0)
+    sc = torch.rsqrt(torch.clamp(d, min=torch.finfo(z.dtype).tiny))
+    Ms = None if Jm is None else Jm * sc
+    Hs = normal_matrix.normal_matrix(pairs, sc, out=None if Ms is None else Ms.T @ Ms)
+    return equilibrated_solve(Hs, sc, g)
 
 
 def _panel_delta(fp, z, structure, hessian_jitter):

@@ -222,10 +222,11 @@ def test_potri_state_on_a_card_is_as_close_to_float64(monkeypatch):
 def test_warm_normal_solves_never_synchronize_and_replay_bitwise(monkeypatch):
     """Fresh Burgers problems past the panel limit (latent 4,500) on a
     one-card mesh, each result held until the next: 'auto' routes them to
-    'normal'; warm, with ``torch.cuda.synchronize`` made to raise, the
-    phases time the state and the steps, and the replayed loop with its
-    refilled inverse blocks is bitwise a solve that shares nothing with any
-    entry and runs eagerly."""
+    'normal', every step's normal matrix to the kernel
+    (``NORMAL_ASSEMBLIES``); warm, with ``torch.cuda.synchronize`` made to
+    raise, the phases time the state and the steps, and the replayed loop
+    with its refilled inverse blocks is bitwise a solve that shares nothing
+    with any entry and runs eagerly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cuda = torch.device("cuda")
@@ -252,8 +253,12 @@ def test_warm_normal_solves_never_synchronize_and_replay_bitwise(monkeypatch):
     t = res.timers
     assert min(t[k] for k in NORMAL) > 0.0, t
     assert t["gauss_newton.normal_state"] + t["gauss_newton.normal_step"] <= t["gauss_newton"]
+    assembled = graphs.NORMAL_ASSEMBLIES["kernel"]
+    assert assembled > 0 and graphs.NORMAL_ASSEMBLIES["einsum"] == 0, graphs.NORMAL_ASSEMBLIES
     with graphs.uncaptured(), _reuse._unshared():
         ref = tpt.GPSolver(prob, nugget=1e-5, mesh=mesh).solve(max_iter=8)
     assert torch.equal(res.z, ref.z) and torch.equal(res.state.losses, ref.state.losses)
+    assert graphs.NORMAL_ASSEMBLIES["kernel"] > assembled  # the eager steps
+    assert graphs.NORMAL_ASSEMBLIES["einsum"] == 0
     del held, res, ref
     tpt.clear_graph_cache()
