@@ -144,6 +144,7 @@ the host's launch cost does not enter them; the wrapper's host cost is
 timed apart.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -464,13 +465,13 @@ def normal_matrix_phase(tpt, dev, cases=NORMAL_CASES, reps=20):
     launches bitwise; device ms of the kernel, of the scales' pass
     (``normal_diagonal`` and the ``rsqrt``), of the plain version and of the
     einsum assembly and equilibration it replaces (``einsum_ms``:
-    ``_einsum_normal_matrix`` and ``spd_solve_controlled``'s scaling); and
+    ``einsum_normal_matrix`` and ``ops/linalg.py::equilibrate_floored``); and
     the bound: the half of ``A`` that its symmetry leaves read once and the
     result written once at the HBM rate (``bound_ms``), beside ``A`` read
     whole (``bound_full_read_ms``)."""
     import torch
     from nonlinpdes_gpsolver_tpu_torch.ops import normal_matrix as nm
-    from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import _einsum_normal_matrix
+    from nonlinpdes_gpsolver_tpu_torch.ops.linalg import equilibrate_floored
 
     rows, launches = [], nm.LAUNCHES
     for name, s, S, N in cases:
@@ -503,11 +504,7 @@ def normal_matrix_phase(tpt, dev, cases=NORMAL_CASES, reps=20):
         m = s * N
 
         def einsum_form():
-            H = _einsum_normal_matrix(pairs, [], m, sc)
-            d_isqrt = torch.rsqrt(torch.clamp(torch.diagonal(H), min=torch.finfo(H.dtype).tiny))
-            Hs = H * (d_isqrt[:, None] * d_isqrt[None, :])
-            Hs.fill_diagonal_(nm.floor_value(H.dtype))
-            return Hs
+            return equilibrate_floored(nm.einsum_normal_matrix(pairs, (), sc))[0]
 
         Hs = einsum_form()
         einsum_gap = float((Hs - got).abs().max())
@@ -537,6 +534,15 @@ def normal_matrix_phase(tpt, dev, cases=NORMAL_CASES, reps=20):
     return {"launches": nm.LAUNCHES - launches, "cases": rows}
 
 
+# mesh_steps' float32 'normal' step on a card, gated (of z's scale): elliptic
+# against its float64 run (9.2e-4 where the kernel's arithmetic runs as its
+# plain version on the CPU: the float32 factorization takes one nugget rung
+# more), Darcy against the float32 'direct' step (1.5e-2 there; its
+# equilibrated normal matrix sits at the 32 eps floor, condition ~2.6e5)
+NORMAL_F32_TO_F64 = 1e-2
+NORMAL_F32_TO_DIRECT = 5e-2
+
+
 def mesh_steps(tpt, dev, mesh=None, dtypes=None):
     """Each step solver of the mesh path (on ``mesh``, default the card
     alone; ``dtypes`` default f64 and f32) against the dense ``'direct'``
@@ -546,12 +552,22 @@ def mesh_steps(tpt, dev, mesh=None, dtypes=None):
     sigma 0.4, 12 observations on linspace(0, 0.01), noise 1e-2, nugget
     1e-4; woodbury at cg_tol 1e-9, cg_maxiter 2,000), on points from the
     port's sampler with seed 0, 16-row blocks. Gated in f64 (within 1e-6 of
-    z's scale), reported in f32. The elliptic fixture starts from zero: from
+    z's scale), reported in f32, but for the f32 ``'normal'`` step on a
+    card, which runs eagerly (``graphs.uncaptured``) with the counters
+    zeroed before it, and is gated: every assembly routed to the
+    normal-matrix kernel (``ops/graphs.py::NORMAL_ASSEMBLIES``), one launch
+    a block a step; elliptic's z within :data:`NORMAL_F32_TO_F64` of its
+    f64 run's scale (the fixture starts from zero in both dtypes), Darcy's
+    within :data:`NORMAL_F32_TO_DIRECT` of the f32 ``'direct'`` step's (its
+    random start is drawn in the dtype, so the f64 run starts elsewhere).
+    The elliptic fixture starts from zero: from
     its random start the first full step more than doubles the loss, so the
     mesh path's damped update halves it where the dense loop takes it
     (fault R3), and the two paths part by design."""
     import torch
 
+    from nonlinpdes_gpsolver_tpu_torch.ops import graphs
+    from nonlinpdes_gpsolver_tpu_torch.ops import normal_matrix as nm
     from nonlinpdes_gpsolver_tpu_torch.parallel import make_mesh
     from nonlinpdes_gpsolver_tpu_torch.solvers.distributed import (
         factorize_distributed, gn_solve_distributed,
@@ -583,7 +599,7 @@ def mesh_steps(tpt, dev, mesh=None, dtypes=None):
 
     fixtures = (("elliptic", elliptic, ("structured", "direct", "cg", "normal")),
                 ("darcy", darcy, ("woodbury", "structured", "normal")))
-    out = {}
+    out, z64 = {}, {}
     for dtype in dtypes or (torch.float64, torch.float32):
         tag = str(dtype).split(".")[1]
         for name, build, solvers in fixtures:
@@ -593,18 +609,42 @@ def mesh_steps(tpt, dev, mesh=None, dtypes=None):
             dfp = factorize_distributed(prob, mesh, nugget=nugget, block=16)
             for solver in solvers:
                 kw = dict(cg_tol=1e-9, cg_maxiter=2000) if solver == "woodbury" else {}
+                kernel = solver == "normal" and dtype == torch.float32 and dev.type == "cuda"
+                if kernel:
+                    graphs.reset_counts()
+                    launches = nm.LAUNCHES
                 sync(dev)
                 t0 = time.perf_counter()
-                st = gn_solve_distributed(dfp, max_iter=3, step_solver=solver, **kw)
+                with graphs.uncaptured() if kernel else contextlib.nullcontext():
+                    st = gn_solve_distributed(dfp, max_iter=3, step_solver=solver, **kw)
                 sync(dev)
                 rel = float((st.z - ref.z).abs().max() / ref.z.abs().max())
-                out[f"{tag}_{name}_{solver}"] = {
+                row = out[f"{tag}_{name}_{solver}"] = {
                     "z_rel_diff": rel, "losses": st.losses.tolist(),
                     "direct_losses": ref.losses.tolist(), "cg_iters": st.cg_iters.tolist(),
                     "seconds": time.perf_counter() - t0, "rungs": dfp.rungs,
                 }
                 if dtype == torch.float64:
                     check(rel <= 1e-6, f"mesh {solver} on {name}: z differs by {rel:.3e}")
+                    z64[name, solver] = st.z
+                if kernel:
+                    row.update(assemblies=dict(graphs.NORMAL_ASSEMBLIES),
+                               normal_launches=nm.LAUNCHES - launches, blocks=len(prob.blocks))
+                    done = graphs.NORMAL_ASSEMBLIES["kernel"]
+                    check(done >= 1 and graphs.NORMAL_ASSEMBLIES["einsum"] == 0
+                          and row["normal_launches"] == done * len(prob.blocks),
+                          f"mesh f32 normal on {name}: assemblies {row['assemblies']}, "
+                          f"{row['normal_launches']} launches")
+                    if name == "elliptic" and (name, solver) in z64:
+                        ref64 = z64[name, solver]
+                        row["z_rel_to_f64"] = float((st.z.double() - ref64).abs().max()
+                                                    / ref64.abs().max())
+                        check(row["z_rel_to_f64"] <= NORMAL_F32_TO_F64,
+                              f"mesh f32 normal on {name}: z differs from f64 by "
+                              f"{row['z_rel_to_f64']:.3e}")
+                    elif name != "elliptic":
+                        check(rel <= NORMAL_F32_TO_DIRECT,
+                              f"mesh f32 normal on {name}: z differs from direct by {rel:.3e}")
     return out
 
 
@@ -2641,6 +2681,25 @@ def main():
         "per": "one CG iteration's four solves at Darcy's shapes (u and phi, forward and "
                "transposed, 61 columns), summed, f32",
         "cases": trsm["cases"],
+    }, {
+        "name": "normal_matrix",
+        "route": "cuda",
+        "source": "nonlinpdes_gpsolver_tpu_torch/csrc/normal_matrix.cu",
+        "replaces": "the einsum assembly and equilibration of the 'normal' step; counterpart of "
+                    "the XLA einsums at nonlinpdes_gpsolver_tpu/solvers/distributed.py:843-844",
+        "launches": steps["float32_darcy_normal"]["normal_launches"],
+        "launches_per": "mesh_steps' float32 Darcy 'normal' solve (two blocks, eager), its "
+                        "counters zeroed before it",
+        "assemblies": steps["float32_darcy_normal"]["assemblies"],
+        "elliptic_launches": steps["float32_elliptic_normal"]["normal_launches"],
+        "phase_launches": normal["launches"],
+        "max_rel_err": max(r["rel_err_f64"] for r in normal["cases"]),
+        **{key: normal["cases"][0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "einsum_ms": normal["cases"][0]["einsum_ms"],
+        "checked": True,
+        "per": "one step's launch at Burgers' shapes (S 4, s 3, N 5,000), f32",
+        "cases": normal["cases"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@
 //
 // For one residual block with S live segments of N interior points, s
 // latent slices, its (S, N, S, N) interior inverse block A (the regularized
-// kernel inverse on the interior rows, exactly symmetric as the P = 1 state
-// leaves it), the (s, S, N) per-slice diagonals Dl of the raw Jacobian and
+// kernel inverse on the interior rows, contiguous and exactly symmetric as
+// both states leave it: at P = 1 potri's order, across ranks the gathered
+// solves mirrored from their lower triangle), the (s, S, N) per-slice
+// diagonals Dl of the raw Jacobian and
 // the s N equilibration scales sc, the kernel writes into H (s N x s N)
 //
 //   H[jN+q, kN+p] = sc[jN+q] sc[kN+p] sum_r Dl[j,r,q] sum_s A[r,q,s,p] Dl[k,s,p]
@@ -35,7 +37,12 @@
 //    mirror values transposed through shared memory so that their stores
 //    are whole 128-byte rows too. All S^2 loads of a thread are issued
 //    before any arithmetic, and two blocks share an SM, so the loads of
-//    one overlap the other's arithmetic and stores.
+//    one overlap the other's arithmetic and stores. There is no cp.async
+//    or TMA pipeline through shared memory: the 64 floats of A a thread
+//    holds at S = 4 and the t sums fill the 128 registers that two blocks
+//    an SM allow (ptxas spills 196-276 bytes a thread), and at 56% of the
+//    byte bound, 0.9 ms of a 45 ms step at Burgers' shapes on an H100, a staged
+//    pipeline would win at most 0.4 ms a step.
 //  * The sums t_k[r] = sum_s A[r,q,s,p] Dl[k,s,p] are formed first and kept
 //    in registers, then each output sum_r Dl[j,r,q] t_k[r]; every sum runs
 //    in ascending index order, so two launches give the same bits and a

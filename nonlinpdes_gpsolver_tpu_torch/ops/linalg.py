@@ -274,11 +274,17 @@ def spd_solve_controlled(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     is O(32 eps). If the factorization still fails, the result is NaN, so
     the caller's non-finite guard rejects the step (no host sync here).
     """
-    d = torch.diagonal(H)
-    d_isqrt = torch.rsqrt(torch.clamp(d, min=torch.finfo(H.dtype).tiny))
+    return equilibrated_solve(*equilibrate_floored(H), g)
+
+
+def equilibrate_floored(H: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(Hs, d_isqrt)``: ``Hs = D^{-1/2} H D^{-1/2}`` for ``D = diag(H)``
+    (clamped at the dtype's smallest normal), its unit diagonal floored at
+    ``1 + 32 eps``; the matrix :func:`spd_solve_controlled` factors."""
+    d_isqrt = torch.rsqrt(torch.clamp(torch.diagonal(H), min=torch.finfo(H.dtype).tiny))
     Hs = H * (d_isqrt[:, None] * d_isqrt[None, :])
     Hs.fill_diagonal_(1.0 + 32.0 * torch.finfo(H.dtype).eps)
-    return equilibrated_solve(Hs, d_isqrt, g)
+    return Hs, d_isqrt
 
 
 def equilibrated_solve(Hs: torch.Tensor, d_isqrt: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -26,8 +26,9 @@ source's note). Entry ``(jN+q, kN+p)`` is computed where ``q > p``, or
 ``q = p`` and ``j >= k``, and mirrored elsewhere.
 
 Which version runs depends only on where the tensors lie: for CPU tensors
-:func:`normal_matrix` runs the plain version (:func:`normal_matrix_plain`,
-the same arithmetic in torch); for CUDA tensors it launches the kernel and
+:func:`normal_matrix` runs the plain version (:func:`normal_matrix_plain`:
+the einsum assembly of ``H`` off the kernel's route,
+:func:`einsum_normal_matrix`, scaled and mirrored); for CUDA tensors it launches the kernel and
 raises for what the kernel does not take (:func:`fits` says what it
 takes). ``LAUNCHES`` counts the launches.
 """
@@ -102,20 +103,38 @@ def _mirrored(X: torch.Tensor) -> torch.Tensor:
     return torch.where((q > p) | ((q == p) & (j >= k)), X, X.permute(2, 3, 0, 1))
 
 
+def einsum_normal_matrix(pairs: Pairs, Jms: Sequence[torch.Tensor],
+                         like: torch.Tensor) -> torch.Tensor:
+    """``H`` itself (unscaled, in ``like``'s dtype and device) by slice
+    contractions of each block's ``(A, Dl)``, one latent slice at a time
+    (which bounds the temporaries), plus the misfits' ``J_m^T J_m``: the
+    assembly of the ``'normal'`` step off the kernel's route."""
+    s, _, N = pairs[0][1].shape
+    m = s * N
+    H = torch.zeros((m, m), dtype=like.dtype, device=like.device)
+    for A4, Dl in pairs:
+        rows = []
+        for j in range(s):
+            Bj = torch.einsum("rq,rqsp->qsp", Dl[j], A4)
+            rows.append(torch.einsum("qsp,ksp->qkp", Bj, Dl).reshape(N, m))
+        H = H + torch.cat(rows)
+    for Jm in Jms:
+        H = H + Jm.T @ Jm
+    return H
+
+
 def normal_matrix_plain(pairs: Pairs, sc: torch.Tensor,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's plain version: per block ``sc sc^T * H_b`` added to the
-    matrix so far (``out``, if given, is the first and receives the
-    result), each time taken from its direct places, then the floored
+    """The kernel's plain version: ``sc sc^T * H`` of
+    :func:`einsum_normal_matrix`, added to ``out`` where given (which
+    receives the result), taken from its direct places, then the floored
     diagonal."""
     s, N = _shapes(pairs, sc)
     m = s * N
-    sc4 = sc.view(s, N, 1, 1) * sc.view(1, 1, s, N)
-    H = None if out is None else out.view(s, N, s, N)
-    for A, Dl in pairs:
-        Hb = sc4 * torch.einsum("jrq,rqsp,ksp->jqkp", Dl, A, Dl)
-        H = _mirrored(Hb if H is None else H + Hb)
-    H = H.reshape(m, m)
+    H = (sc[:, None] * sc[None, :]) * einsum_normal_matrix(pairs, (), sc)
+    if out is not None:
+        H = out + H
+    H = _mirrored(H.view(s, N, s, N)).reshape(m, m)
     H.diagonal().fill_(floor_value(sc.dtype))
     if out is None:
         return H

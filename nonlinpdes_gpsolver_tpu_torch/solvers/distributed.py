@@ -547,7 +547,10 @@ def _interior_inverse_solves(fp: DistributedFactoredProblem, name: str, live, N:
     """``Theta^{-1}[rows, rows]`` for the interior rows ``off .. off + N - 1``
     of each offset in ``live``, by kernel solves on their identity columns,
     each rank solving its ``ceil(width/P)`` of them (column-sharded), then
-    one ``all_gather``."""
+    one ``all_gather``. The result is mirrored from its lower triangle, as
+    :func:`_interior_inverse_potri`'s is: contiguous and exactly symmetric,
+    whatever ``width`` is against ``P`` (the gathered columns are padded to
+    ``P ceil(width/P)``)."""
     mesh, dev = fp.mesh, fp.problem.device
     rows = torch.cat([off + torch.arange(N, device=dev) for off in live])
     width = rows.shape[0]
@@ -557,7 +560,8 @@ def _interior_inverse_solves(fp: DistributedFactoredProblem, name: str, live, N:
     E = torch.zeros((fp.factors[name].n, wloc), dtype=fp.problem.dtype, device=dev)
     E[rows[cols[mine]], torch.nonzero(mine)[:, 0]] = 1.0
     A = fp.kernel_solve(name, E, shard_cols=True)[rows]  # (width, wloc): my columns
-    return comm.all_gather(mesh, A).permute(1, 0, 2).reshape(width, -1)[:, :width]
+    A = comm.all_gather(mesh, A).permute(1, 0, 2).reshape(width, -1)[:, :width].tril()
+    return A.add_(A.tril(-1).mT)
 
 
 def _interior_inverse_potri(fp: DistributedFactoredProblem, name: str, live, N: int):
@@ -631,45 +635,35 @@ def _live_diagonals(p: CollocationProblem, z, structure):
     return out
 
 
-def _einsum_normal_matrix(pairs, Jms, m, z):
-    """``H`` by slice contractions of each block's ``(A4, Dl)``, one latent
-    slice at a time (which bounds the temporaries), plus the misfits'
-    ``J_m^T J_m``."""
-    H = torch.zeros((m, m), dtype=z.dtype, device=z.device)
-    for A4, Dl in pairs:
-        N = Dl.shape[2]
-        rows = []
-        for j in range(Dl.shape[0]):
-            Bj = torch.einsum("rq,rqsp->qsp", Dl[j], A4)
-            rows.append(torch.einsum("qsp,ksp->qkp", Bj, Dl).reshape(N, m))
-        H = H + torch.cat(rows)
-    for Jm in Jms:
-        H = H + Jm.T @ Jm
-    return H
-
-
 def _normal_delta_einsum(fp, z, structure, ainvs, hessian_jitter):
-    """The step by :func:`_einsum_normal_matrix` and ``spd_solve``."""
+    """The step by :func:`..ops.normal_matrix.einsum_normal_matrix` and
+    ``spd_solve``."""
     p = fp.problem
     g = _gradient(fp, _linearize_blocks(fp, z), z)
     pairs = list(zip(ainvs, _live_diagonals(p, z, structure)))
-    H = _einsum_normal_matrix(pairs, _misfit_jacobians(p, z), p.latent_dim, z)
+    H = normal_matrix.einsum_normal_matrix(pairs, _misfit_jacobians(p, z), z)
     return spd_solve(H, g, jitter=hessian_jitter)
 
 
 def _normal_delta_kernel(fp, z, structure, ainvs, hessian_jitter):
-    """The step with the equilibrated matrix assembled directly, as
-    ``spd_solve(H, g, hessian_jitter)`` equilibrates it on the card: the
-    scales from ``d = diag(H) + hessian_jitter``, the diagonal taken from
-    the inverse blocks' entries at ``q = p`` plus the misfits' squared
-    column sums; the misfits' scaled product ``(J_m sc)^T (J_m sc)`` first
-    (one product), then ``ops/normal_matrix.py`` adds every block's
-    ``sc sc^T * H_b`` to it, exactly symmetric, with the floored diagonal;
-    then :func:`..ops.linalg.equilibrated_solve`. ``H`` itself is never
-    formed. On CPU tensors ``normal_matrix`` runs its plain version."""
+    """The step with the equilibrated matrix assembled directly
+    (:func:`_equilibrated_normal_matrix`), then
+    :func:`..ops.linalg.equilibrated_solve`."""
     p = fp.problem
     g = _gradient(fp, _linearize_blocks(fp, z), z)
     pairs = list(zip(ainvs, _live_diagonals(p, z, structure)))
+    return equilibrated_solve(*_equilibrated_normal_matrix(p, z, pairs, hessian_jitter), g)
+
+
+def _equilibrated_normal_matrix(p: CollocationProblem, z, pairs, hessian_jitter):
+    """``(Hs, sc)``: the matrix ``spd_solve(H, g, hessian_jitter)`` factors
+    on the card and its scales, without forming ``H``. The scales come from
+    ``d = diag(H) + hessian_jitter``, the diagonal taken from the inverse
+    blocks' entries at ``q = p`` plus the misfits' squared column sums; the
+    misfits' scaled product ``(J_m sc)^T (J_m sc)`` first (one product),
+    then ``ops/normal_matrix.py`` adds every block's ``sc sc^T * H_b`` to
+    it, exactly symmetric, with the floored diagonal. On CPU tensors
+    ``normal_matrix`` runs its plain version."""
     d = normal_matrix.normal_diagonal(pairs)
     if hessian_jitter:
         d = d + hessian_jitter
@@ -678,8 +672,7 @@ def _normal_delta_kernel(fp, z, structure, ainvs, hessian_jitter):
         d = d + (Jm * Jm).sum(dim=0)
     sc = torch.rsqrt(torch.clamp(d, min=torch.finfo(z.dtype).tiny))
     Ms = None if Jm is None else Jm * sc
-    Hs = normal_matrix.normal_matrix(pairs, sc, out=None if Ms is None else Ms.T @ Ms)
-    return equilibrated_solve(Hs, sc, g)
+    return normal_matrix.normal_matrix(pairs, sc, out=None if Ms is None else Ms.T @ Ms), sc
 
 
 def _panel_delta(fp, z, structure, hessian_jitter):

@@ -13,21 +13,22 @@ kernels and the four largest):
 
 * ``linearize_gradient``: the blocks' linearization and the gradient;
 * ``diagonals``: the per-slice diagonals on the live segments;
-* ``assembly_einsum``: the einsum assembly of ``H`` (three slice
+* ``assembly_einsum``: the einsum assembly of ``H`` off the kernel's
+  route (``ops/normal_matrix.py::einsum_normal_matrix``: three slice
   contractions, the ``cat`` and the add);
-* ``equilibrate``: the scales from ``diag(H)``, their outer product, the
-  scaled copy and the ``1 + 32 eps`` floor;
-* ``assembly_kernel`` (where the tree has ``ops/normal_matrix.py``): the
-  scales from the inverse blocks' diagonal and the equilibrated matrix in
-  one launch, with its largest gap to ``equilibrate``'s matrix;
+* ``equilibrate``: ``ops/linalg.py::equilibrate_floored``, the scales from
+  ``diag(H)``, their outer product, the scaled copy and the ``1 + 32 eps``
+  floor;
+* ``assembly_kernel``: the scales from the inverse blocks' diagonal and
+  the equilibrated matrix in one launch of the normal-matrix kernel, with
+  its largest gap to ``equilibrate``'s matrix;
 * ``cholesky``: ``cholesky_ex`` of the equilibrated matrix;
 * ``solve``: ``cholesky_solve`` and the scaling;
 * ``update``: the full trial of the guarded update (the whitened residual);
 * ``step``: ``_normal_delta`` whole, as the loop runs it (the tree's route),
   with its peak of allocated memory.
 
-The pieces are those of the solver's own functions, so the script runs on
-trees with and without the kernel. Needs a CUDA card.
+Each piece calls the solver's own functions. Needs a CUDA card.
 """
 
 import argparse
@@ -55,12 +56,9 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import nonlinpdes_gpsolver_tpu_torch as tpt
+    from nonlinpdes_gpsolver_tpu_torch.ops import normal_matrix as nm
+    from nonlinpdes_gpsolver_tpu_torch.ops.linalg import equilibrate_floored
     from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
-
-    try:
-        from nonlinpdes_gpsolver_tpu_torch.ops import normal_matrix as nm
-    except ImportError:
-        nm = None
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--n_domain", type=int, default=5000)
@@ -85,10 +83,8 @@ def main():
     solver = tpt.GPSolver(prob, nugget=1e-5, mesh=tpt.parallel.make_mesh(1, device=dev))
     fp = solver.fp
     structure = tdist._slice_structure(prob)
-    s_lat, N, seginfo = structure
     ainvs = tdist._normal_state(fp, structure)
     z = 0.1 * torch.randn(prob.latent_dim, generator=gen, device=dev, dtype=torch.float32)
-    eps = torch.finfo(z.dtype).eps
     m = prob.latent_dim
     st = {}
 
@@ -97,32 +93,16 @@ def main():
         st["g"] = tdist._gradient(fp, st["lins"], z)
 
     def diagonals():
-        st["Dls"] = []
-        for b, segs in zip(prob.blocks, seginfo):
-            D = torch.stack(tdist._block_diagonals(b.residual, prob.data, z, s_lat, N))
-            st["Dls"].append(torch.stack([D[:, off : off + N] for off, sz in segs if sz == N], dim=1))
+        st["Dls"] = tdist._live_diagonals(prob, z, structure)
 
     def assembly_einsum():
-        H = torch.zeros((m, m), dtype=z.dtype, device=dev)
-        for A4, Dl in zip(ainvs, st["Dls"]):
-            rows = []
-            for j in range(s_lat):
-                Bj = torch.einsum("rq,rqsp->qsp", Dl[j], A4)
-                rows.append(torch.einsum("qsp,ksp->qkp", Bj, Dl).reshape(N, m))
-            H = H + torch.cat(rows)
-        st["H"] = H
+        st["H"] = nm.einsum_normal_matrix(list(zip(ainvs, st["Dls"])), (), z)
 
     def equilibrate():
-        H = st["H"]
-        d_isqrt = torch.rsqrt(torch.clamp(torch.diagonal(H), min=torch.finfo(H.dtype).tiny))
-        Hs = H * (d_isqrt[:, None] * d_isqrt[None, :])
-        Hs.fill_diagonal_(1.0 + 32.0 * eps)
-        st["Hs"], st["d_isqrt"] = Hs, d_isqrt
+        st["Hs"], st["d_isqrt"] = equilibrate_floored(st["H"])
 
     def assembly_kernel():
-        pairs = list(zip(ainvs, st["Dls"]))
-        sc = torch.rsqrt(torch.clamp(nm.normal_diagonal(pairs), min=torch.finfo(z.dtype).tiny))
-        st["Hk"] = nm.normal_matrix(pairs, sc)
+        st["Hk"] = tdist._equilibrated_normal_matrix(prob, z, list(zip(ainvs, st["Dls"])), 0.0)[0]
 
     def cholesky():
         st["L"], st["info"] = torch.linalg.cholesky_ex(st["Hs"])
@@ -139,10 +119,9 @@ def main():
         st["step"] = tdist._normal_delta(fp, z, structure, ainvs, 0.0)
 
     pieces = [("linearize_gradient", linearize_gradient), ("diagonals", diagonals),
-              ("assembly_einsum", assembly_einsum), ("equilibrate", equilibrate)]
-    if nm is not None:
-        pieces.append(("assembly_kernel", assembly_kernel))
-    pieces += [("cholesky", cholesky), ("solve", solve), ("update", update), ("step", step)]
+              ("assembly_einsum", assembly_einsum), ("equilibrate", equilibrate),
+              ("assembly_kernel", assembly_kernel), ("cholesky", cholesky), ("solve", solve),
+              ("update", update), ("step", step)]
 
     def timed(fn):
         fn()
@@ -187,7 +166,7 @@ def main():
     delta_gap = float((st["step"] - st["delta"]).abs().max() / st["delta"].abs().max())
     out = {"card": card(), "torch": torch.__version__, "n_domain": args.n_domain,
            "n_boundary": args.n_boundary, "latent": m, "S": [int(A.shape[0]) for A in ainvs],
-           "kernel_route": nm is not None, "step_vs_pieces_rel_gap": delta_gap, "pieces": rows}
+           "step_vs_pieces_rel_gap": delta_gap, "pieces": rows}
     print(json.dumps({"summary": {k: round(v["ms_median"], 3) for k, v in rows.items()},
                       "card": out["card"], "step_vs_pieces_rel_gap": delta_gap}), flush=True)
     if args.out:

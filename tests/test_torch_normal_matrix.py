@@ -7,7 +7,9 @@ symmetry and floored diagonal, the step the kernel route's glue gives
 against the present step on Burgers and Darcy problems, and the route a CPU
 solve takes (``ops/graphs.py::NORMAL_ASSEMBLIES``). On a card: the kernel
 against the plain version at Burgers' shapes and at ragged ones, bitwise
-across launches and a graph replay.
+across launches and a graph replay. On two gloo ranks, on the CPU and on
+a card: a ``'normal'`` solve whose state does not divide evenly between
+the ranks.
 
 The file imports nothing of JAX: on a machine with a card,
 ``python -m pytest --noconftest -q tests/test_torch_normal_matrix.py``.
@@ -19,6 +21,7 @@ import torch
 import nonlinpdes_gpsolver_tpu_torch as tpt
 from nonlinpdes_gpsolver_tpu_torch.ops import graphs
 from nonlinpdes_gpsolver_tpu_torch.ops import normal_matrix as nm
+from nonlinpdes_gpsolver_tpu_torch.ops.linalg import equilibrate_floored
 from nonlinpdes_gpsolver_tpu_torch.solvers import distributed as tdist
 from test_torch_normal_route import _burgers, _darcy, _mesh
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -51,14 +54,10 @@ def _blocks(s, Ss, N, seed=0, dtype=torch.float64, device="cpu", misfits=0):
 def _by_hand(pairs, Jm, jitter):
     """The einsum assembly of the present step and ``spd_solve``'s
     equilibration on a card: ``(Hs, sc)``."""
-    s, _, N = pairs[0][1].shape
-    H = tdist._einsum_normal_matrix(pairs, [Jm] if Jm.shape[0] else [], s * N, Jm)
+    H = nm.einsum_normal_matrix(pairs, [Jm] if Jm.shape[0] else [], Jm)
     if jitter:
-        H = H + jitter * torch.eye(s * N, dtype=H.dtype)
-    sc = torch.rsqrt(torch.clamp(torch.diagonal(H), min=torch.finfo(H.dtype).tiny))
-    Hs = H * (sc[:, None] * sc[None, :])
-    Hs.fill_diagonal_(nm.floor_value(H.dtype))
-    return Hs, sc
+        H = H + jitter * torch.eye(H.shape[0], dtype=H.dtype)
+    return equilibrate_floored(H)
 
 
 def _plain(pairs, Jm, jitter):
@@ -154,6 +153,95 @@ def test_a_cpu_solve_assembles_by_einsum():
     assert nm.LAUNCHES == 0
     graphs.reset_counts()
     assert graphs.NORMAL_ASSEMBLIES == {"kernel": 0, "einsum": 0}
+
+
+def _two_ranks(rank, world, port, device, out_dir):
+    """One of two gloo ranks (sharing the card where ``device`` is one):
+    Darcy on 47 interior points, whose three-segment block is 141 wide, so
+    the two ranks' columns of its state do not divide evenly. Saves the
+    state's layout, a 3-step ``'normal'`` solve at P = 2 and at P = 1 (run
+    eagerly, its counts), and the gap of the route's equilibrated matrix to
+    the einsum assembly's at the start and at the solve's end."""
+    import os
+
+    import torch.distributed as dist
+
+    from nonlinpdes_gpsolver_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.set_num_threads(1)
+    assert initialize_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        mesh = make_mesh(world, device=device)
+        dtype = torch.float32 if mesh.device.type == "cuda" else torch.float64
+        prob = _darcy(n_dom=47, device=mesh.device, dtype=dtype)
+        structure = tdist._slice_structure(prob)
+        out = {}
+        for m in (mesh, make_mesh(1, device=mesh.device)):
+            fp = tdist.factorize_distributed(prob, m, nugget=1e-4, block=16)
+            ainvs = tdist._normal_state(fp, structure)
+            graphs.reset_counts()
+            launches = nm.LAUNCHES
+            with graphs.uncaptured():
+                st = tdist.gn_solve_distributed(fp, max_iter=3, step_solver="normal")
+            tag = f"P{m.size}"
+            out[f"assemblies_{tag}"] = dict(graphs.NORMAL_ASSEMBLIES)
+            out[f"launches_{tag}"] = nm.LAUNCHES - launches
+            out[f"z_{tag}"], out[f"losses_{tag}"] = st.z.cpu(), st.losses.tolist()
+            out[f"layout_{tag}"] = [(A.shape[0] * A.shape[1], A.is_contiguous(), bool(torch.equal(
+                A.flatten(0, 1).flatten(1), A.flatten(0, 1).flatten(1).mT))) for A in ainvs]
+            out[f"gaps_{tag}"] = []
+            for z in (torch.zeros_like(st.z), st.z):
+                pairs = list(zip(ainvs, tdist._live_diagonals(prob, z, structure)))
+                ref, _ = equilibrate_floored(nm.einsum_normal_matrix(
+                    pairs, tdist._misfit_jacobians(prob, z), z))
+                got, _ = tdist._equilibrated_normal_matrix(prob, z, pairs, 0.0)
+                out[f"gaps_{tag}"].append(float((got - ref).abs().max() / ref.abs().max()))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+# (device, float32 limit of the matrix gap, of the P = 2 z to P = 1): on the
+# CPU in float64 the plain version; on a card in float32 the kernel, whose
+# sums round otherwise than the einsums' (3.8e-6 of the largest entry in
+# float32 on this problem against float64) and whose z the P = 2 state's
+# rounding moves through a matrix at its 32 eps floor
+RANK_CASES = [pytest.param("cpu", 1e-12, 1e-9, id="cpu"),
+              pytest.param("cuda:0", 1e-4, 5e-2, id="cuda", marks=pytest.mark.cuda)]
+
+
+@pytest.mark.parametrize("device,matrix_lim,z_lim", RANK_CASES)
+def test_normal_solve_on_two_ranks_with_a_ragged_state(device, matrix_lim, z_lim, tmp_path):
+    """A ``'normal'`` solve on two gloo ranks where the state's width is odd:
+    every block's state contiguous and exactly symmetric; on a card every
+    assembly routed to the kernel, one launch a block, on the CPU to the
+    einsums; the route's equilibrated matrix within ``matrix_lim`` of the
+    einsum assembly's; the same z on both ranks, within ``z_lim`` of its
+    scale of the solve on one device."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    if device.startswith("cuda"):
+        _cuda()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(_two_ranks, args=(2, port, device, str(tmp_path)), nprocs=2, join=True)
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    card = device.startswith("cuda")
+    assert any(w % 2 for w, _, _ in got[0]["layout_P2"]), got[0]["layout_P2"]
+    for g in got:
+        for P in (2, 1):
+            assert all(c and sym for _, c, sym in g[f"layout_P{P}"]), (P, g[f"layout_P{P}"])
+            steps = g[f"assemblies_P{P}"]["kernel" if card else "einsum"]
+            assert steps >= 1 and sum(g[f"assemblies_P{P}"].values()) == steps
+            assert g[f"launches_P{P}"] == (2 * steps if card else 0)
+            assert max(g[f"gaps_P{P}"]) <= matrix_lim, (P, g[f"gaps_P{P}"])
+    assert torch.equal(got[0]["z_P2"], got[1]["z_P2"])
+    z1 = got[0]["z_P1"]
+    gap = float((got[0]["z_P2"] - z1).abs().max() / z1.abs().max())
+    assert gap <= z_lim, (gap, got[0]["losses_P2"], got[0]["losses_P1"])
 
 
 def _cuda():

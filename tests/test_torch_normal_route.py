@@ -49,11 +49,12 @@ def _elliptic(seed=0, n_dom=40, n_bdy=16):
         lambda x: torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1]), None)
 
 
-def _darcy(seed=0, n_dom=48, n_bdy=16):
+def _darcy(seed=0, n_dom=48, n_bdy=16, device="cpu", dtype=torch.float64):
     gen = torch.Generator().manual_seed(seed)
-    Xd, Xb = tpt.utils.sample_random(gen, n_dom, n_bdy, dtype=torch.float64)
+    Xd, Xb = tpt.utils.sample_random(gen, n_dom, n_bdy, dtype=dtype)
     k = tpt.SquaredExponential.gaussian(0.4)
-    return tpt.models.darcy_flow(k, k, Xd, Xb, torch.linspace(0.0, 0.01, 12, dtype=torch.float64),
+    return tpt.models.darcy_flow(k, k, Xd.to(device), Xb.to(device),
+                                 torch.linspace(0.0, 0.01, 12, dtype=dtype, device=device),
                                  lambda x: torch.ones_like(x[0]), noise_level=1e-2, seed=3)
 
 
